@@ -1,0 +1,183 @@
+"""Checkpoint conversion: CLIP state dicts and JAX param trees -> the port.
+
+Counterpart of ``flyp_tpu/models/convert.py``.  The port's ``state_dict``
+uses the JAX param tree's names joined by dots (``visual.transformer.
+block_0.attn.qkv_kernel``) and its layouts, so:
+
+* :func:`from_jax_params` flattens a JAX Flax param tree (numpy leaves);
+* :func:`convert_clip_state_dict` reads the OpenAI torch key layout (what
+  real OpenAI ``.pt`` files and the JAX package's ``export_clip_state_dict``
+  + ``save_torch_checkpoint`` hold): Linear ``[out, in]`` -> ``[in, out]``,
+  Conv ``[out, in, kh, kw]`` -> HWIO, ``in_proj_weight [3D, D]`` ->
+  ``qkv_kernel [3, D, D]``, LayerNorm ``weight`` -> ``scale``;
+* :func:`export_clip_state_dict` is the inverse, for
+  :func:`save_torch_checkpoint`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from flyp_tpu_torch.models.configs import CLIPConfig, TextConfig, VisionConfig
+
+_META_KEYS = ("input_resolution", "context_length", "vocab_size")
+_RESNET = "ModifiedResNet (BatchNorm) towers are not ported yet: ROADMAP.md, item A10 (ResNet towers)"
+
+
+def _f32(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", torch.float32)
+    return torch.from_numpy(np.array(x, dtype=np.float32))  # a writable copy, 0-d kept 0-d
+
+
+def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX CLIP param tree (nested dicts of arrays) -> the port's state dict."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node, prefix):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}" if prefix else str(k))
+        else:
+            out[prefix] = _f32(node)
+
+    walk(params, "")
+    return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read a ``.pt``/``.bin`` checkpoint (TorchScript archive or plain state
+    dict, optionally under ``state_dict`` with ``module.`` prefixes)."""
+    try:
+        state = torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:
+        state = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(state, dict) and "state_dict" in state:
+            state = {k[len("module."):] if k.startswith("module.") else k: v for k, v in state["state_dict"].items()}
+    return {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
+
+
+def sniff_config(state: Mapping[str, Any]) -> CLIPConfig:
+    """Infer the architecture from OpenAI-layout state-dict shapes."""
+    shapes = {k: tuple(np.shape(v)) for k, v in state.items() if k not in _META_KEYS}
+    if "visual.proj" not in shapes:
+        raise NotImplementedError(_RESNET)
+    vision_width = shapes["visual.conv1.weight"][0]
+    patch = shapes["visual.conv1.weight"][-1]
+    grid = round((shapes["visual.positional_embedding"][0] - 1) ** 0.5)
+    vision = VisionConfig(
+        image_size=patch * grid,
+        width=vision_width,
+        patch_size=patch,
+        layers=len([k for k in shapes if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]),
+        heads=vision_width // 64,
+    )
+    text_width = shapes["ln_final.weight"][0]
+    text = TextConfig(
+        context_length=shapes["positional_embedding"][0],
+        vocab_size=shapes["token_embedding.weight"][0],
+        width=text_width,
+        heads=text_width // 64,
+        layers=len({k.split(".")[2] for k in shapes if k.startswith("transformer.resblocks")}),
+    )
+    return CLIPConfig(embed_dim=shapes["text_projection"][1], vision=vision, text=text)
+
+
+def _convert_block(state, src: str, dst: str, out: Dict[str, torch.Tensor]) -> None:
+    w = state[f"{src}.attn.in_proj_weight"]
+    D = w.shape[1]
+    out[f"{dst}.ln_1.scale"] = state[f"{src}.ln_1.weight"]
+    out[f"{dst}.ln_1.bias"] = state[f"{src}.ln_1.bias"]
+    out[f"{dst}.ln_2.scale"] = state[f"{src}.ln_2.weight"]
+    out[f"{dst}.ln_2.bias"] = state[f"{src}.ln_2.bias"]
+    out[f"{dst}.attn.qkv_kernel"] = w.reshape(3, D, D).transpose(1, 2).contiguous()
+    out[f"{dst}.attn.qkv_bias"] = state[f"{src}.attn.in_proj_bias"].reshape(3, D)
+    out[f"{dst}.attn.out_kernel"] = state[f"{src}.attn.out_proj.weight"].T.contiguous()
+    out[f"{dst}.attn.out_bias"] = state[f"{src}.attn.out_proj.bias"]
+    out[f"{dst}.mlp.fc_kernel"] = state[f"{src}.mlp.c_fc.weight"].T.contiguous()
+    out[f"{dst}.mlp.fc_bias"] = state[f"{src}.mlp.c_fc.bias"]
+    out[f"{dst}.mlp.proj_kernel"] = state[f"{src}.mlp.c_proj.weight"].T.contiguous()
+    out[f"{dst}.mlp.proj_bias"] = state[f"{src}.mlp.c_proj.bias"]
+
+
+def convert_clip_state_dict(
+    state: Mapping[str, Any], config: Optional[CLIPConfig] = None
+) -> Tuple[Dict[str, torch.Tensor], CLIPConfig]:
+    """OpenAI-layout CLIP state dict -> ``(port state dict, config)``."""
+    state = {k: _f32(v) for k, v in state.items() if k not in _META_KEYS}
+    config = config or sniff_config(state)
+    if not config.vision.is_vit or "visual.proj" not in state:
+        raise NotImplementedError(_RESNET)
+    out: Dict[str, torch.Tensor] = {
+        "visual.patch_kernel": state["visual.conv1.weight"].permute(2, 3, 1, 0).contiguous(),
+        "visual.class_embedding": state["visual.class_embedding"],
+        "visual.positional_embedding": state["visual.positional_embedding"],
+        "visual.ln_pre.scale": state["visual.ln_pre.weight"],
+        "visual.ln_pre.bias": state["visual.ln_pre.bias"],
+        "visual.ln_post.scale": state["visual.ln_post.weight"],
+        "visual.ln_post.bias": state["visual.ln_post.bias"],
+        "visual.proj": state["visual.proj"],
+        "text.token_embedding": state["token_embedding.weight"],
+        "text.positional_embedding": state["positional_embedding"],
+        "text.ln_final.scale": state["ln_final.weight"],
+        "text.ln_final.bias": state["ln_final.bias"],
+        "text.text_projection": state["text_projection"],
+        "logit_scale": state["logit_scale"].reshape(()),
+    }
+    for i in range(config.vision.layers):
+        _convert_block(state, f"visual.transformer.resblocks.{i}", f"visual.transformer.block_{i}", out)
+    for i in range(config.text.layers):
+        _convert_block(state, f"transformer.resblocks.{i}", f"text.transformer.block_{i}", out)
+    return out, config
+
+
+def _export_block(sd, src: str, dst: str, out: Dict[str, torch.Tensor]) -> None:
+    w = sd[f"{src}.attn.qkv_kernel"]
+    D = w.shape[1]
+    out[f"{dst}.ln_1.weight"] = sd[f"{src}.ln_1.scale"]
+    out[f"{dst}.ln_1.bias"] = sd[f"{src}.ln_1.bias"]
+    out[f"{dst}.ln_2.weight"] = sd[f"{src}.ln_2.scale"]
+    out[f"{dst}.ln_2.bias"] = sd[f"{src}.ln_2.bias"]
+    out[f"{dst}.attn.in_proj_weight"] = w.transpose(1, 2).reshape(3 * D, D)
+    out[f"{dst}.attn.in_proj_bias"] = sd[f"{src}.attn.qkv_bias"].reshape(3 * D)
+    out[f"{dst}.attn.out_proj.weight"] = sd[f"{src}.attn.out_kernel"].T
+    out[f"{dst}.attn.out_proj.bias"] = sd[f"{src}.attn.out_bias"]
+    out[f"{dst}.mlp.c_fc.weight"] = sd[f"{src}.mlp.fc_kernel"].T
+    out[f"{dst}.mlp.c_fc.bias"] = sd[f"{src}.mlp.fc_bias"]
+    out[f"{dst}.mlp.c_proj.weight"] = sd[f"{src}.mlp.proj_kernel"].T
+    out[f"{dst}.mlp.c_proj.bias"] = sd[f"{src}.mlp.proj_bias"]
+
+
+def export_clip_state_dict(state_dict: Mapping[str, torch.Tensor], config: CLIPConfig) -> Dict[str, torch.Tensor]:
+    """The port's state dict -> the OpenAI torch key layout (float32, CPU),
+    the inverse of :func:`convert_clip_state_dict`."""
+    sd = {k: _f32(v) for k, v in state_dict.items()}
+    out: Dict[str, torch.Tensor] = {
+        "visual.conv1.weight": sd["visual.patch_kernel"].permute(3, 2, 0, 1),
+        "visual.class_embedding": sd["visual.class_embedding"],
+        "visual.positional_embedding": sd["visual.positional_embedding"],
+        "visual.ln_pre.weight": sd["visual.ln_pre.scale"],
+        "visual.ln_pre.bias": sd["visual.ln_pre.bias"],
+        "visual.ln_post.weight": sd["visual.ln_post.scale"],
+        "visual.ln_post.bias": sd["visual.ln_post.bias"],
+        "visual.proj": sd["visual.proj"],
+        "token_embedding.weight": sd["text.token_embedding"],
+        "positional_embedding": sd["text.positional_embedding"],
+        "ln_final.weight": sd["text.ln_final.scale"],
+        "ln_final.bias": sd["text.ln_final.bias"],
+        "text_projection": sd["text.text_projection"],
+        "logit_scale": sd["logit_scale"].reshape(()),
+    }
+    for i in range(config.vision.layers):
+        _export_block(sd, f"visual.transformer.block_{i}", f"visual.transformer.resblocks.{i}", out)
+    for i in range(config.text.layers):
+        _export_block(sd, f"text.transformer.block_{i}", f"transformer.resblocks.{i}", out)
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def save_torch_checkpoint(path: str, state: Mapping[str, torch.Tensor]) -> None:
+    """Write a state dict as a plain ``.pt`` file (contiguous CPU tensors)."""
+    torch.save({k: _f32(v).contiguous() for k, v in state.items()}, path)
