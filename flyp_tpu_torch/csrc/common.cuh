@@ -1,0 +1,510 @@
+// Device helpers and the tiled GEMM shared by the attention-block kernels
+// (forward and backward).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+namespace flyp {
+
+using bf16 = __nv_bfloat16;
+using bf162 = __nv_bfloat162;
+
+constexpr int kHeadDim = 64;
+constexpr float kEps = 1e-5f;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// (x - mean) * rstd * scale + bias, each step rounded as the plain version
+// rounds it (no contraction into an FMA).
+__device__ __forceinline__ float ln_apply(float x, float mean, float rstd, float g, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean), rstd), g), b);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Fragment lanes: accumulator element e of lane l sits at row l/4 (+8 for
+// e >= 2) and column 2*(l%4) (+1 for odd e) of the 16 x 8 tile.
+//
+// ldmatrix addressing, relative to a fragment's corner in shared memory.  A
+// 16 x 16 A fragment (rows m, depth k) held [m][k], or the 16 x 16 B pair
+// (depth k, two 8-column tiles) held [k][n]: row lane%16, column
+// (lane/16)*8 -- plain ldmatrix for A, .trans for B.  The same operands held
+// the other way round ([k][m] for A, [n][k] for B): row (lane&7) +
+// (lane>>4)*8, column ((lane>>3)&1)*8 -- .trans for A, plain for B.  For B,
+// registers {0,1} feed the first 8 columns and {2,3} the next 8.
+__device__ __forceinline__ int ldm_row(int lane, bool swapped) {
+  return swapped ? (lane & 7) + ((lane >> 4) << 3) : lane % 16;
+}
+__device__ __forceinline__ int ldm_col(int lane, bool swapped) {
+  return swapped ? ((lane >> 3) & 1) * 8 : (lane / 16) * 8;
+}
+
+// Two-pass fp32 mean and 1/sqrt(var + eps) of one row, by one warp, in
+// 16-byte pieces (the row 16-byte aligned, K a multiple of 16 / sizeof(T)).
+template <typename T>
+__device__ __forceinline__ void row_stats(const T* __restrict__ row, int K, float& mean, float& rstd) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int k = lane * kVec; k < K; k += 32 * kVec) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + k);
+    const T* v = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) s += to_f(v[j]);
+  }
+  mean = warp_sum(s) / (float)K;
+  float ss = 0.f;
+  for (int k = lane * kVec; k < K; k += 32 * kVec) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + k);
+    const T* v = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      const float d = to_f(v[j]) - mean;
+      ss = fmaf(d, d, ss);
+    }
+  }
+  rstd = rsqrtf(warp_sum(ss) / (float)K + kEps);
+}
+
+template <typename TOut>
+__device__ __forceinline__ void store_pair(TOut* p, float v0, float v1);
+template <>
+__device__ __forceinline__ void store_pair<float>(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+template <>
+__device__ __forceinline__ void store_pair<bf16>(bf16* p, float v0, float v1) {
+  *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// Loads of data no kernel writes while it runs, through the read-only path.
+__device__ __forceinline__ float2 load_pair(const float* p) { return __ldg(reinterpret_cast<const float2*>(p)); }
+__device__ __forceinline__ float2 load_pair(const bf16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const bf162*>(p)));
+}
+__device__ __forceinline__ uint4 load16(const bf16* p) { return __ldg(reinterpret_cast<const uint4*>(p)); }
+
+// ---------------------------------------------------------------------------
+// Tiled GEMM: C[z] = sum over segments of op(A) op(B) (+ resid) (+ bias),
+// where A is held [M, K] (or [K, M] with kAT) and B [K, N] (or [N, K] with
+// kBT), row major with leading dimensions lda/ldb.  blockIdx.z = zt * splits
+// + s: zt picks a tower (A += zt*a_z, B += zt*b_z, bias += zt*N) and s a
+// chunk of the contraction, whose partial goes to C[s][zt] ([M, N] each).
+// Rows past M and the contraction past K read as zeros; N % 128 == 0.
+//
+// kOps says what else it does, at compile time.  kOpLN (A held [M, K], one
+// segment, one split): A' = LN(A) over A's K columns with ln_scale/ln_bias,
+// rounded to the operand type as the tile is stored.  The epilogue, in fp32
+// with each step rounded: kOpResid adds resid (an [M, N] tensor of the
+// output type), then kOpBias adds bias; then C rounds to its type.
+//
+// bf16 runs on the tensor cores (mma.sync m16n8k16, fp32 accumulate); fp32
+// runs FMA tiles on the CUDA cores, since the tensor cores would round fp32
+// operands to TF32.
+
+// Blocks of 256 threads, launch-bounded to two per SM (at most 128 registers
+// a thread).
+constexpr int kGemmThreads = 256;
+constexpr int kBM = 128, kBN = 128;
+enum : int { kOpNone = 0, kOpLN = 1, kOpBias = 2, kOpResid = 4 };
+
+struct GemmArgs {
+  const void* A;
+  const void* B;
+  void* C;
+  int M, N, K, lda, ldb;
+  int nseg;
+  long long a_seg, b_seg;  // segment strides (elements)
+  long long a_z, b_z;      // tower strides (elements)
+  int splits, k_chunk;     // contraction chunks: [s * k_chunk, (s + 1) * k_chunk)
+  const float* bias;       // [towers, N], kOpBias
+  const void* resid;       // [M, N], kOpResid
+  const float* ln_scale;   // [K], kOpLN
+  const float* ln_bias;
+};
+
+// One segment, one split, no epilogue: C = op(A) op(B).
+inline GemmArgs gemm_args(const void* A, const void* B, void* C, int M, int N, int K, int lda, int ldb) {
+  GemmArgs g{};
+  g.A = A; g.B = B; g.C = C;
+  g.M = M; g.N = N; g.K = K; g.lda = lda; g.ldb = ldb;
+  g.nseg = 1; g.splits = 1; g.k_chunk = K;
+  return g;
+}
+
+struct GemmBlock {
+  int zt, kbeg, kend;
+  size_t c_off;
+};
+
+__device__ __forceinline__ GemmBlock gemm_block(const GemmArgs& a) {
+  GemmBlock g;
+  const int s = blockIdx.z % a.splits;
+  g.zt = blockIdx.z / a.splits;
+  g.kbeg = s * a.k_chunk;
+  g.kend = min(a.K, g.kbeg + a.k_chunk);
+  g.c_off = ((size_t)s * (gridDim.z / a.splits) + g.zt) * (size_t)a.M * a.N;
+  return g;
+}
+
+// Row statistics of the block's rows m0.. of A [M, K] (row stride lda; one
+// warp per row; zeros past M).
+template <typename T>
+__device__ void gemm_ln_stats(const T* A, int M, int K, int lda, int m0, float* row_mean, float* row_rstd) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < kBM; r += kGemmThreads / 32) {
+    float mean = 0.f, rstd = 0.f;
+    if (m0 + r < M) row_stats(A + (size_t)(m0 + r) * lda, K, mean, rstd);
+    if (lane == 0) {
+      row_mean[r] = mean;
+      row_rstd[r] = rstd;
+    }
+  }
+}
+
+// The epilogue on two adjacent outputs (m, n), (m, n + 1) of C [M, N].
+template <int kOps, typename TOut>
+__device__ __forceinline__ void gemm_store(TOut* C, const TOut* resid, const float* bias, int N, int m, int n,
+                                           float v0, float v1) {
+  if (kOps & kOpResid) {
+    const float2 r = load_pair(resid + (size_t)m * N + n);
+    v0 = __fadd_rn(r.x, v0);
+    v1 = __fadd_rn(r.y, v1);
+  }
+  if (kOps & kOpBias) {
+    v0 = __fadd_rn(v0, __ldg(bias + n));
+    v1 = __fadd_rn(v1, __ldg(bias + n + 1));
+  }
+  store_pair<TOut>(C + (size_t)m * N + n, v0, v1);
+}
+
+// fp32: 128 x 128 tiles, each of the 256 threads owning an 8 x 8 piece
+// (rows ty + 16i, column pairs 2tx + 32j).
+constexpr int kFmaBK = 16;
+constexpr int kFmaPad = 4;  // spreads the transposed stores over banks
+
+template <bool kAT, bool kBT, int kOps>
+__global__ void __launch_bounds__(kGemmThreads, 2) gemm_fma_kernel(const GemmArgs a) {
+  constexpr bool kLN = kOps & kOpLN;
+  __shared__ float As[kFmaBK][kBM + kFmaPad];  // [k][m]
+  __shared__ float Bs[kFmaBK][kBN + kFmaPad];  // [k][n]
+  __shared__ float row_mean[kLN ? kBM : 1];
+  __shared__ float row_rstd[kLN ? kBM : 1];
+  const GemmBlock gb = gemm_block(a);
+  const float* A = static_cast<const float*>(a.A) + gb.zt * a.a_z;
+  const float* B = static_cast<const float*>(a.B) + gb.zt * a.b_z;
+  float* C = static_cast<float*>(a.C) + gb.c_off;
+  const float* bias = (kOps & kOpBias) ? a.bias + (size_t)gb.zt * a.N : nullptr;
+  const float* resid = static_cast<const float*>(a.resid);
+  const int M = a.M, N = a.N, lda = a.lda, ldb = a.ldb;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  if (kLN) {
+    gemm_ln_stats(A, M, a.K, lda, m0, row_mean, row_rstd);
+    __syncthreads();
+  }
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int seg = 0; seg < a.nseg; ++seg) {
+    const float* As_g = A + seg * a.a_seg;
+    const float* Bs_g = B + seg * a.b_seg;
+    for (int k0 = gb.kbeg; k0 < gb.kend; k0 += kFmaBK) {
+#pragma unroll
+      for (int i = 0; i < (kBM * kFmaBK) / kGemmThreads; ++i) {
+        const int e = tid + i * kGemmThreads;
+        if (kAT) {  // [k][m]: consecutive threads walk m
+          const int r = e / kBM, c = e % kBM;
+          const int k = k0 + r, m = m0 + c;
+          As[r][c] = k < gb.kend && m < M ? As_g[(size_t)k * lda + m] : 0.f;
+        } else {  // [m][k]: consecutive threads walk k
+          const int r = e / kFmaBK, c = e % kFmaBK;
+          const int m = m0 + r, k = k0 + c;
+          float v = 0.f;
+          if (k < gb.kend && m < M) {
+            v = As_g[(size_t)m * lda + k];
+            if (kLN) v = ln_apply(v, row_mean[r], row_rstd[r], a.ln_scale[k], a.ln_bias[k]);
+          }
+          As[c][r] = v;
+        }
+        if (kBT) {  // [n][k]
+          const int r = e / kFmaBK, c = e % kFmaBK;
+          const int k = k0 + c;
+          Bs[c][r] = k < gb.kend ? Bs_g[(size_t)(n0 + r) * ldb + k] : 0.f;
+        } else {  // [k][n]
+          const int r = e / kBN, c = e % kBN;
+          const int k = k0 + r;
+          Bs[r][c] = k < gb.kend ? Bs_g[(size_t)k * ldb + n0 + c] : 0.f;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kFmaBK; ++kk) {
+        float av[8], bv[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) av[i] = As[kk][ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          bv[2 * j] = Bs[kk][2 * tx + 32 * j];
+          bv[2 * j + 1] = Bs[kk][2 * tx + 32 * j + 1];
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + ty + 16 * i;
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      gemm_store<kOps, float>(C, resid, bias, N, m, n0 + 2 * tx + 32 * j, acc[i][2 * j], acc[i][2 * j + 1]);
+    }
+  }
+}
+
+// bf16: 128 x 128 tiles, 8 warps in a 2 x 4 grid of 64 x 32 pieces; the next
+// k-tile is read into registers while the tensor cores work on the current
+// one.  Each operand tile sits in shared memory the way it is held in device
+// memory, and ldmatrix (plain or .trans) turns it into fragments.  With kAT
+// (A and B held [K, ...]) the contraction is masked by rows, so any K and
+// split; otherwise K % 32 == 0 and the tile loop carries no contraction
+// masks (launch_gemm checks).
+constexpr int kMmaBK = 32;
+constexpr int kNarrow = kMmaBK + 8;  // bf16 per row of a [128][32] tile: 80 B, conflict-free ldmatrix
+constexpr int kWide = kBM + 8;       // bf16 per row of a [32][128] tile: 272 B
+
+template <bool kAT, bool kBT, int kOps, typename TOut>
+__global__ void __launch_bounds__(kGemmThreads, 2) gemm_mma_kernel(const GemmArgs a) {
+  constexpr bool kLN = kOps & kOpLN;
+  static_assert(!(kLN && kAT), "the LN prologue normalises rows of A held [M, K]");
+  static_assert(!(kAT && kBT), "a masked contraction reads rows of A and B");
+  __shared__ __align__(16) bf16 As[kBM * kNarrow];  // [128][kNarrow], or [32][kWide] with kAT
+  __shared__ __align__(16) bf16 Bs[kBN * kNarrow];  // [32][kWide], or [128][kNarrow] with kBT
+  __shared__ float row_mean[kLN ? kBM : 1];
+  __shared__ float row_rstd[kLN ? kBM : 1];
+  const GemmBlock gb = gemm_block(a);
+  const bf16* A = static_cast<const bf16*>(a.A) + gb.zt * a.a_z;
+  const bf16* B = static_cast<const bf16*>(a.B) + gb.zt * a.b_z;
+  TOut* C = static_cast<TOut*>(a.C) + gb.c_off;
+  const float* bias = (kOps & kOpBias) ? a.bias + (size_t)gb.zt * a.N : nullptr;
+  const TOut* resid = static_cast<const TOut*>(a.resid);
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
+  // The loops read the arguments from registers.
+  const int M = a.M, N = a.N, lda = a.lda, ldb = a.ldb, kbeg = gb.kbeg, kend = gb.kend;
+  const long long a_seg = a.a_seg, b_seg = a.b_seg;
+  const float* ln_scale = a.ln_scale;
+  const float* ln_bias = a.ln_bias;
+  const int per_seg = kend > kbeg ? (kend - kbeg + kMmaBK - 1) / kMmaBK : 0;
+  const int n_tiles = a.nseg * per_seg;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  if (kLN) {
+    gemm_ln_stats(A, M, a.K, lda, m0, row_mean, row_rstd);
+    __syncthreads();
+  }
+
+  // Each thread moves two 16-byte pieces of each operand per k-tile.  The
+  // next tile to read starts at column ld_k of the segment at Ag/Bg.
+  uint4 a_reg[2], b_reg[2];
+  const bf16* Ag = A;
+  const bf16* Bg = B;
+  int ld_k = kbeg;
+  auto load_tiles = [&]() {
+    const int k0 = ld_k;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = tid + i * kGemmThreads;
+      if (kAT) {  // 32 k-rows x 128 m
+        const int r = e / 16, c = (e % 16) * 8;
+        a_reg[i] = k0 + r < kend && m0 + c < M
+                       ? load16(Ag + (size_t)(k0 + r) * lda + m0 + c) : zero;
+      } else {  // 128 m-rows x 32 k
+        const int r = e / 4, c = (e % 4) * 8;
+        a_reg[i] = m0 + r < M ? load16(Ag + (size_t)(m0 + r) * lda + k0 + c) : zero;
+      }
+      if (kBT) {  // 128 n-rows x 32 k
+        const int r = e / 4, c = (e % 4) * 8;
+        b_reg[i] = load16(Bg + (size_t)(n0 + r) * ldb + k0 + c);
+      } else {  // 32 k-rows x 128 n
+        const int r = e / 16, c = (e % 16) * 8;
+        b_reg[i] = !kAT || k0 + r < kend ? load16(Bg + (size_t)(k0 + r) * ldb + n0 + c) : zero;
+      }
+    }
+    ld_k += kMmaBK;
+    if (ld_k >= kend) {
+      ld_k = kbeg;
+      Ag += a_seg;
+      Bg += b_seg;
+    }
+  };
+  // k0: the tile's first column (the LN prologue has one segment).
+  auto store_tiles = [&](int k0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = tid + i * kGemmThreads;
+      if (kAT) {
+        *reinterpret_cast<uint4*>(&As[(e / 16) * kWide + (e % 16) * 8]) = a_reg[i];
+      } else {
+        const int r = e / 4, c = (e % 4) * 8;
+        uint4 v = a_reg[i];
+        if (kLN && m0 + r < M) {
+          // 8 scales and biases in 16-byte pieces (fp32 vectors are 16-byte aligned).
+          float g[8], b[8];
+          *reinterpret_cast<float4*>(g) = *reinterpret_cast<const float4*>(ln_scale + k0 + c);
+          *reinterpret_cast<float4*>(g + 4) = *reinterpret_cast<const float4*>(ln_scale + k0 + c + 4);
+          *reinterpret_cast<float4*>(b) = *reinterpret_cast<const float4*>(ln_bias + k0 + c);
+          *reinterpret_cast<float4*>(b + 4) = *reinterpret_cast<const float4*>(ln_bias + k0 + c + 4);
+          bf16* h = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            h[j] = __float2bfloat16_rn(ln_apply(__bfloat162float(h[j]), row_mean[r], row_rstd[r], g[j], b[j]));
+          }
+        }
+        *reinterpret_cast<uint4*>(&As[r * kNarrow + c]) = v;
+      }
+      if (kBT) {
+        *reinterpret_cast<uint4*>(&Bs[(e / 4) * kNarrow + (e % 4) * 8]) = b_reg[i];
+      } else {
+        *reinterpret_cast<uint4*>(&Bs[(e / 16) * kWide + (e % 16) * 8]) = b_reg[i];
+      }
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  if (n_tiles > 0) load_tiles();
+  for (int t = 0; t < n_tiles; ++t) {
+    store_tiles(kbeg + t * kMmaBK);
+    __syncthreads();
+    if (t + 1 < n_tiles) load_tiles();
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK; kk += 16) {
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const int mr = wm + mt * 16;
+        if (kAT) {
+          ldmatrix_x4_trans(af[mt], &As[(kk + ldm_row(lane, true)) * kWide + mr + ldm_col(lane, true)]);
+        } else {
+          ldmatrix_x4(af[mt], &As[(mr + ldm_row(lane, false)) * kNarrow + kk + ldm_col(lane, false)]);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        const int nc = wn + np * 16;
+        uint32_t r[4];
+        if (kBT) {
+          ldmatrix_x4(r, &Bs[(nc + ldm_row(lane, true)) * kNarrow + kk + ldm_col(lane, true)]);
+        } else {
+          ldmatrix_x4_trans(r, &Bs[(kk + ldm_row(lane, false)) * kWide + nc + ldm_col(lane, false)]);
+        }
+        bfr[2 * np][0] = r[0];
+        bfr[2 * np][1] = r[1];
+        bfr[2 * np + 1][0] = r[2];
+        bfr[2 * np + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mt * 16 + lane / 4 + half * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = n0 + wn + nt * 8 + (lane % 4) * 2;
+        gemm_store<kOps, TOut>(C, resid, bias, N, m, n, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// Launch the GEMM over `towers` towers on the caller's stream.  T is the
+// operand type; an fp32 GEMM writes fp32.
+template <typename T, bool kAT, bool kBT, int kOps, typename TOut>
+cudaError_t launch_gemm(const GemmArgs& g, int towers, cudaStream_t st) {
+  const dim3 grid(g.N / kBN, (g.M + kBM - 1) / kBM, towers * g.splits);
+  if constexpr (sizeof(T) == 4) {
+    static_assert(sizeof(TOut) == 4, "an fp32 GEMM writes fp32");
+    gemm_fma_kernel<kAT, kBT, kOps><<<grid, kGemmThreads, 0, st>>>(g);
+  } else {
+    if (!kAT && (g.K % kMmaBK != 0 || g.k_chunk % kMmaBK != 0)) return cudaErrorInvalidValue;
+    gemm_mma_kernel<kAT, kBT, kOps, TOut><<<grid, kGemmThreads, 0, st>>>(g);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace flyp

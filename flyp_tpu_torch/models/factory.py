@@ -31,7 +31,8 @@ def resolve_device(device) -> torch.device:
 
 def build_clip_model(cfg, config_override: Optional[CLIPConfig] = None, device="cuda") -> CLIPModel:
     """The model ``cfg`` names (``model``, ``clip_load``, ``compute_dtype``,
-    ``seed``), on ``device``, in eval mode and forward-only."""
+    ``seed``), on ``device``, in eval mode and forward-only
+    (``training/train_state.py::create_train_state`` makes it trainable)."""
     device = resolve_device(device)
     compute_dtype = _DTYPES[cfg.compute_dtype]
     load_path = cfg.clip_load

@@ -3,7 +3,9 @@
 Counterpart of ``flyp_tpu/models/layers.py``: LayerNorm runs in float32
 whatever the activation type (the "fp32 island"), the MLP uses QuickGELU,
 and the attention sub-block (LN1 + QKV + attention + out-projection +
-residual) is one fused op, the CUDA kernel on the card.  Parameter names and
+residual) is one fused op, the CUDA kernels on the card: the training op
+(forward B1, backward B2) in training mode, the inference op (B3) in eval
+mode, as the JAX block chooses by its ``train`` argument.  Parameter names and
 shapes follow the JAX param tree (``ln_1.scale``, ``attn.qkv_kernel
 [3, D, D]``, ``mlp.fc_kernel [D, 4D]``...), so carrying weights across is a
 rename.
@@ -14,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from flyp_tpu_torch.ops.attention_block import attention_block_inference
+from flyp_tpu_torch.ops.attention_block import attention_block, attention_block_inference
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -98,7 +100,10 @@ class MLP(nn.Module):
 
 class ResidualBlock(nn.Module):
     """Pre-LN transformer block: the fused attention sub-block, then
-    ``x + MLP(LN2(x))``."""
+    ``x + MLP(LN2(x))``.  The module's ``training`` flag picks the attention
+    op (JAX's ``train`` argument): the training op keeps the forward's
+    residuals for the backward; the inference op does not (per-block
+    rematerialisation, the JAX ``remat`` option, is not ported yet)."""
 
     def __init__(self, width: int, heads: int, causal: bool = False):
         super().__init__()
@@ -111,7 +116,8 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         a = self.attn
-        x = attention_block_inference(
+        block_fn = attention_block if self.training else attention_block_inference
+        x = block_fn(
             x, self.ln_1.scale, self.ln_1.bias, a.qkv_kernel, a.qkv_bias, a.out_kernel, a.out_bias,
             self.heads, self.causal,
         )

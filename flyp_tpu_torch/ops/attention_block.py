@@ -1,20 +1,31 @@
-"""Fused pre-LN attention sub-block, inference forward.
+"""Fused pre-LN attention sub-block: inference and training forward, and the
+training backward.
 
-``attention_block_inference`` computes ``x + out_proj(attention(LN(x) @
-Wqkv + bqkv))`` for ``x [B, L, D]``.  It is the counterpart of
-``flyp_tpu/ops/attention_block.py::attention_block_inference``, and its
-CUDA kernel (``csrc/attention_block.cu``) replaces the TPU kernel
-``_fwd_infer_kernel``.  On the H100 the ideal kernel is bound by the tensor
-cores (the block does ~1500 FLOPs per byte it must move at ViT-B/16
-widths); the TPU kernel's single fused body needed the whole weight in
-VMEM, which does not fit in 227 KB of shared memory, so the CUDA version is
-three kernels launched back to back (LN+QKV GEMM, attention, out-projection
-GEMM with the residual epilogue).  See the source note for the design.
+Both ops compute ``x + out_proj(attention(LN(x) @ Wqkv + bqkv))`` for ``x
+[B, L, D]``; they are the counterparts of ``attention_block_inference`` and
+``attention_block`` in ``flyp_tpu/ops/attention_block.py``.  Three CUDA
+kernels replace the TPU kernels:
 
-A tensor on the CPU takes :func:`attention_block_inference_reference`, the
-same math in eager PyTorch with the same rounding points; a CUDA tensor
-launches the kernel or raises.  The op is forward-only: the backward kernels
-come with the training forward.
+* B3, ``_fwd_infer_kernel``: the inference forward
+  (``csrc/attention_block.cu``, entry ``flyp_attention_block_fwd``);
+* B1, ``_fwd_kernel``: the training forward, which also returns q, k, v,
+  the attention output o and the per-(row, head) log-sum-exp for the
+  backward (same source, entry ``flyp_attention_block_fwd_train``);
+* B2, ``_bwd_kernel``: the training backward (``csrc/attention_block_bwd.cu``).
+
+On the H100 the ideal kernels are bound by the tensor cores (the block does
+~1500 FLOPs per byte it must move at ViT-B/16 widths).  The TPU kernels'
+single fused bodies needed the whole weight in VMEM, which does not fit in
+227 KB of shared memory, so each CUDA version is a few kernels launched back
+to back; the sources describe the designs.
+
+A tensor on the CPU takes the plain PyTorch versions
+(:func:`attention_block_inference_reference`,
+:func:`attention_block_reference`, :func:`attention_block_backward_reference`),
+the same math with the same rounding points; a CUDA tensor launches the
+kernels or raises.  Both ops are differentiable: the training op saves the
+forward's residuals, and the inference op's backward re-runs the training
+forward and then the training backward, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -29,51 +40,167 @@ from flyp_tpu_torch.ops import _kernels
 EPS = 1e-5
 _NEG = -1e30
 _HEAD_DIM = 64
+_MAX_TRAIN_LEN = 320  # keys per score row the backward kernel keeps in shared memory
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions.  Every product of compute-type values accumulates in
+# fp32 (the operands are upcast, so bf16 products are exact), biases add in
+# fp32, and results round to the compute type where the TPU kernels round.
+
+
+def _layer_norm(x32, ln_scale, ln_bias):
+    """(xhat, rstd, LN(x)) in fp32."""
+    var, mean = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
+    rstd = torch.rsqrt(var + EPS)
+    xhat = (x32 - mean) * rstd
+    return xhat, rstd, xhat * ln_scale.float() + ln_bias.float()
+
+
+def _heads_first(t, heads):
+    """[B, L, D] -> fp32 [B, H, L, head_dim]."""
+    B, L, D = t.shape
+    return t.float().reshape(B, L, heads, D // heads).transpose(1, 2)
+
+
+def _heads_last(t):
+    """[B, H, L, head_dim] -> [B, L, D]."""
+    B, H, L, hd = t.shape
+    return t.transpose(1, 2).reshape(B, L, H * hd)
+
+
+def _scores(qs, k, heads, causal):
+    """fp32 scores T(q*scale) k^T [B, H, L, L], with -1e30 above the diagonal
+    when causal (exp of it after the max shift is exactly 0)."""
+    s = torch.matmul(_heads_first(qs, heads), _heads_first(k, heads).transpose(-1, -2))
+    if causal:
+        L = qs.shape[1]
+        keep = torch.ones(L, L, dtype=torch.bool, device=qs.device).tril()
+        s = s + torch.where(keep, 0.0, _NEG)
+    return s
+
+
+def _project(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, heads):
+    """(q, k, v, T(q * scale)) in the compute type."""
+    dtype = x.dtype
+    _, _, y32 = _layer_norm(x.float(), ln_scale, ln_bias)
+    y = y32.to(dtype).float()
+    w = qkv_kernel.to(dtype).float()
+    b = qkv_bias.float()
+    q, k, v = ((torch.matmul(y, w[t]) + b[t]).to(dtype) for t in range(3))
+    qs = (q.float() * (x.shape[-1] // heads) ** -0.5).to(dtype)
+    return q, k, v, qs
+
+
+def _out_proj(x, o, out_kernel, out_bias):
+    proj = torch.matmul(o.float(), out_kernel.to(x.dtype).float())
+    return ((x.float() + proj) + out_bias.float()).to(x.dtype)
 
 
 def attention_block_inference_reference(
     x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int, causal: bool = False
 ):
-    """Plain PyTorch version of the kernel, rounding where it rounds.
-
-    Every product of compute-type values accumulates in fp32 (the operands
-    are upcast, so bf16 products are exact), biases add in fp32, and the
-    results round to the compute type at the TPU kernel's cast points:
-    the LN output, q/k/v, ``q * head_dim**-0.5``, the probabilities, the
-    attention output and the block output."""
-    B, L, D = x.shape
+    """Plain version of the inference kernel (B3).  Rounds the LN output,
+    q/k/v, ``q * head_dim**-0.5``, the normalised probabilities, the
+    attention output and the block output: ``o = T(T(softmax(s)) @ v)``."""
     dtype = x.dtype
+    _, k, v, qs = _project(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, heads)
+    p = torch.softmax(_scores(qs, k, heads, causal), dim=-1).to(dtype)
+    o = _heads_last(torch.matmul(p.float(), _heads_first(v, heads)).to(dtype))
+    return _out_proj(x, o, out_kernel, out_bias)
+
+
+def attention_block_reference(
+    x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int, causal: bool = False
+):
+    """Plain version of the training forward (B1) -> ``(out, o, q, k, v,
+    lse)``.  As ``_fwd_kernel`` rounds: the unnormalised ``e = exp(s - m)``
+    is cast for ``e @ v`` and the fp32 product divided by ``l``,
+    ``o = T((T(e) @ v) / l)``; ``lse = m + log(l)`` ``[B, L, H]`` fp32,
+    relative to the scaled scores."""
+    dtype = x.dtype
+    q, k, v, qs = _project(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, heads)
+    s = _scores(qs, k, heads, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(l)).squeeze(-1).transpose(1, 2).contiguous()
+    o = _heads_last((torch.matmul(e.to(dtype).float(), _heads_first(v, heads)) / l).to(dtype))
+    return _out_proj(x, o, out_kernel, out_bias), o, q, k, v, lse
+
+
+def attention_block_backward_reference(
+    g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads: int, causal: bool = False
+):
+    """Plain version of the training backward (B2, and the out-projection
+    grads beside it) -> ``(dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout)``;
+    ``dx`` in ``x.dtype``, the rest fp32.  Rounds where ``_bwd_kernel``
+    rounds: ``do = T(g Wout^T)``, ``T(p)`` in ``dv`` only,
+    ``ds = T(p (dp - rowsum(p dp)))``, and dq/dk/dv before the weight, bias
+    and LN grads, which run in fp32 with ``dx`` rounded last."""
+    dtype = x.dtype
+    B, L, D = x.shape
     hd = D // heads
-    x32 = x.float()
-    var, mean = torch.var_mean(x32, dim=-1, keepdim=True, correction=0)
-    y = (((x32 - mean) * torch.rsqrt(var + EPS)) * ln_scale.float() + ln_bias.float()).to(dtype)
-    y32 = y.float()
+    scale = hd ** -0.5
+    xhat, rstd, y32 = _layer_norm(x.float(), ln_scale, ln_bias)
+    y = y32.to(dtype).float().reshape(B * L, D)
+    g32 = g.to(dtype).float()
+    do = torch.matmul(g32, out_kernel.to(dtype).float().T).to(dtype)
+    qs = (q.float() * scale).to(dtype)
+
+    s = _scores(qs, k, heads, causal)
+    p = torch.exp(s - lse.transpose(1, 2).unsqueeze(-1))
+    do_h = _heads_first(do, heads)
+    dv = torch.matmul(p.to(dtype).float().transpose(-1, -2), do_h).to(dtype)
+    dp = torch.matmul(do_h, _heads_first(v, heads).transpose(-1, -2))
+    ds = (p * (dp - (p * dp).sum(dim=-1, keepdim=True))).to(dtype).float()
+    dq = (torch.matmul(ds, _heads_first(k, heads)) * scale).to(dtype)
+    dk = torch.matmul(ds.transpose(-1, -2), _heads_first(qs, heads)).to(dtype)
+
     w = qkv_kernel.to(dtype).float()
-    b = qkv_bias.float()
-    q, k, v = ((torch.matmul(y32, w[t]) + b[t]).to(dtype) for t in range(3))
-    q = (q.float() * hd ** -0.5).to(dtype)
+    dwqkv = torch.empty(3, D, D, dtype=torch.float32, device=x.device)
+    dbqkv = torch.empty(3, D, dtype=torch.float32, device=x.device)
+    dY = torch.zeros(B * L, D, dtype=torch.float32, device=x.device)
+    for t, d_t in enumerate((dq, dk, dv)):
+        d_t = _heads_last(d_t).float().reshape(B * L, D)
+        dwqkv[t] = torch.matmul(y.T, d_t)
+        dbqkv[t] = d_t.sum(dim=0)
+        dY = dY + torch.matmul(d_t, w[t].T)
+    dY = dY.reshape(B, L, D)
+    dscale = (dY * xhat).sum(dim=(0, 1))
+    dbias = dY.sum(dim=(0, 1))
+    dxhat = dY * ln_scale.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2) + g32).to(dtype)
 
-    def heads_first(t):
-        return t.float().reshape(B, L, heads, hd).transpose(1, 2)
+    dwout = torch.matmul(o.float().reshape(B * L, D).T, g32.reshape(B * L, D))
+    dbout = g32.sum(dim=(0, 1))
+    return dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout
 
-    s = torch.matmul(heads_first(q), heads_first(k).transpose(-1, -2))
-    if causal:
-        keep = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
-        s = s + torch.where(keep, 0.0, _NEG)
-    p = torch.softmax(s, dim=-1).to(dtype)
-    o = torch.matmul(p.float(), heads_first(v)).to(dtype)
-    o = o.transpose(1, 2).reshape(B, L, D)
-    proj = torch.matmul(o.float(), out_kernel.to(dtype).float())
-    return ((x32 + proj) + out_bias.float()).to(dtype)
+
+# ---------------------------------------------------------------------------
+# The kernels.
 
 
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
+def _fwd_lib() -> ctypes.CDLL:
     lib = _kernels.load("attention_block")
-    fn = lib.flyp_attention_block_fwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name, n_ptrs in (("flyp_attention_block_fwd", 10), ("flyp_attention_block_fwd_train", 11)):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _kernels.load("attention_block_bwd")
+    lib.flyp_attention_block_bwd_workspace.argtypes = [ctypes.c_int] * 5
+    lib.flyp_attention_block_bwd_workspace.restype = ctypes.c_longlong
+    lib.flyp_attention_block_bwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.flyp_attention_block_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -98,47 +225,176 @@ def _check_inputs(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bi
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
-def attention_block_inference(
-    x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int, causal: bool = False
-):
-    """``x + LN -> QKV -> attention -> out-proj`` for ``x [B, L, D]``.
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _fwd_kernel_call(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal, train):
+    """B3 (``train=False``) -> out, or B1 -> (out, o, q, k, v, lse)."""
+    _check_inputs(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads)
+    B, L, D = x.shape
+    dtype = x.dtype
+    x = x.contiguous()
+    f32 = [t.detach().to(torch.float32).contiguous() for t in (ln_scale, ln_bias, qkv_bias, out_bias)]
+    wqkv = qkv_kernel.detach().to(dtype).contiguous()
+    wout = out_kernel.detach().to(dtype).contiguous()
+    out = torch.empty_like(x)
+    qkv = torch.empty((3, B, L, D), dtype=dtype, device=x.device)
+    o = torch.empty((B, L, D), dtype=dtype, device=x.device)
+    lse = torch.empty((B, L, heads), dtype=torch.float32, device=x.device) if train else None
+    lib = _fwd_lib()
+    ptrs = [x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), wqkv.data_ptr(), f32[2].data_ptr(),
+            wout.data_ptr(), f32[3].data_ptr(), out.data_ptr(), qkv.data_ptr(), o.data_ptr()]
+    with torch.cuda.device(x.device):
+        if train:
+            code = lib.flyp_attention_block_fwd_train(*ptrs, lse.data_ptr(), B, L, D, heads, int(bool(causal)),
+                                                      _DTYPE_CODES[dtype], _stream(x.device))
+        else:
+            code = lib.flyp_attention_block_fwd(*ptrs, B, L, D, heads, int(bool(causal)), _DTYPE_CODES[dtype],
+                                                _stream(x.device))
+    _kernels.check(lib, code, "attention-block kernel launch")
+    if not train:
+        attention_block_inference.launches += 1
+        return out
+    attention_block.fwd_launches += 1
+    return out, o, qkv[0], qkv[1], qkv[2], lse
+
+
+def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, lse, heads, causal):
+    """B2 -> (dx, dscale, dbias, dwqkv, dbqkv)."""
+    B, L, D = x.shape
+    dtype = x.dtype
+    if L > _MAX_TRAIN_LEN:
+        raise ValueError(f"the attention-block backward kernel takes L <= {_MAX_TRAIN_LEN}, got L={L}")
+    lib = _bwd_lib()
+    nbytes = lib.flyp_attention_block_bwd_workspace(B, L, D, heads, _DTYPE_CODES[dtype])
+    if nbytes < 0:
+        raise ValueError(f"the attention-block backward kernel does not take B={B} L={L} D={D} heads={heads}")
+    dev = x.device
+    tensors = [t.contiguous() for t in (x, g.to(dtype), q, k, v, lse)]
+    ln = [t.detach().to(torch.float32).contiguous() for t in (ln_scale, ln_bias)]
+    wqkv = qkv_kernel.detach().to(dtype).contiguous()
+    wout = out_kernel.detach().to(dtype).contiguous()
+    dx = torch.empty_like(tensors[0])
+    dwqkv = torch.empty((3, D, D), dtype=torch.float32, device=dev)
+    dbqkv = torch.empty((3, D), dtype=torch.float32, device=dev)
+    dln = torch.empty((2, D), dtype=torch.float32, device=dev)
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        code = lib.flyp_attention_block_bwd(
+            *(t.data_ptr() for t in tensors), ln[0].data_ptr(), ln[1].data_ptr(), wqkv.data_ptr(), wout.data_ptr(),
+            dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dln.data_ptr(), workspace.data_ptr(),
+            B, L, D, heads, int(bool(causal)), _DTYPE_CODES[dtype], _stream(dev),
+        )
+    _kernels.check(lib, code, "attention-block backward kernel launch")
+    attention_block.bwd_launches += 1
+    return dx, dln[0], dln[1], dwqkv, dbqkv
+
+
+def _device_route(x, op: str) -> bool:
+    """True for the kernels (CUDA), False for the plain version (CPU)."""
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise RuntimeError(f"{op} runs on cuda or cpu tensors, got {x.device}")
+
+
+def _train_forward(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal):
+    args = (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal)
+    if _device_route(x, "attention_block"):
+        return _fwd_kernel_call(*args, train=True)
+    return attention_block_reference(*args)
+
+
+def _train_backward(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads, causal):
+    """(dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout)."""
+    if not _device_route(x, "attention_block"):
+        return attention_block_backward_reference(
+            g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads, causal)
+    dx, dscale, dbias, dwqkv, dbqkv = _bwd_kernel_call(
+        g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, lse, heads, causal)
+    # The out-projection grads are plain fp32 products over the saved o, as
+    # the JAX package leaves them to XLA.
+    g32 = g.float().reshape(-1, g.shape[-1])
+    dwout = torch.matmul(o.float().reshape(-1, o.shape[-1]).T, g32)
+    return dx, dscale, dbias, dwqkv, dbqkv, dwout, g32.sum(dim=0)
+
+
+def _param_grads(grads, params):
+    """The grads in the parameters' own types (dx in x's)."""
+    return tuple(gr.to(p.dtype) for gr, p in zip(grads, params))
+
+
+class _AttentionBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal):
+        out, o, q, k, v, lse = _train_forward(
+            x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal)
+        ctx.save_for_backward(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, o, q, k, v, lse)
+        ctx.heads, ctx.causal = heads, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, o, q, k, v, lse = ctx.saved_tensors
+        dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout = _train_backward(
+            g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, ctx.heads, ctx.causal)
+        grads = _param_grads((dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout),
+                             (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias))
+        return (*grads, None, None)
+
+
+class _AttentionBlockInference(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal):
+        args = (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal)
+        if any(ctx.needs_input_grad[:7]):
+            ctx.save_for_backward(*args[:7])
+            ctx.heads, ctx.causal = heads, causal
+        if _device_route(x, "attention_block_inference"):
+            return _fwd_kernel_call(*args, train=False)
+        return attention_block_inference_reference(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The residuals were never kept: re-run the training forward, then
+        # its backward (dbout = sum g does not depend on bout's value).
+        x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias = ctx.saved_tensors
+        _, o, q, k, v, lse = _train_forward(
+            x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, ctx.heads, ctx.causal)
+        grads = _train_backward(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, ctx.heads,
+                                ctx.causal)
+        return (*_param_grads(grads, (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias)), None, None)
+
+
+def attention_block(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int,
+                    causal: bool = False):
+    """``x + LN -> QKV -> attention -> out-proj`` for ``x [B, L, D]``, the
+    training op: its forward (B1) keeps q, k, v, o and lse for the backward
+    (B2).
 
     Weights follow the JAX param tree: ``qkv_kernel [3, D, D]`` (q|k|v on
     the leading axis, head-major output features), ``qkv_bias [3, D]``,
     ``out_kernel [D, D]``, fp32 LN ``ln_scale``/``ln_bias`` and
-    ``out_bias [D]``.  Matrices are cast to ``x.dtype``; LN params and
-    biases stay fp32.  ``causal`` masks the upper triangle (text tower)."""
-    args = (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise RuntimeError(
-            "attention_block_inference is forward-only; run it under torch.inference_mode() or torch.no_grad()"
-        )
-    if x.device.type == "cpu":
-        return attention_block_inference_reference(*args, heads, causal)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"attention_block_inference runs on cuda or cpu tensors, got {x.device}")
-    _check_inputs(*args, heads)
-    B, L, D = x.shape
-    dtype = x.dtype
-    x = x.contiguous()
-    f32 = [t.to(torch.float32).contiguous() for t in (ln_scale, ln_bias, qkv_bias, out_bias)]
-    wqkv = qkv_kernel.to(dtype).contiguous()
-    wout = out_kernel.to(dtype).contiguous()
-    out = torch.empty_like(x)
-    qkv_scratch = torch.empty((3, B * L, D), dtype=dtype, device=x.device)
-    o_scratch = torch.empty((B * L, D), dtype=dtype, device=x.device)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = lib.flyp_attention_block_fwd(
-            x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), wqkv.data_ptr(), f32[2].data_ptr(),
-            wout.data_ptr(), f32[3].data_ptr(), out.data_ptr(), qkv_scratch.data_ptr(), o_scratch.data_ptr(),
-            B, L, D, heads, int(bool(causal)), _DTYPE_CODES[dtype], stream,
-        )
-    _kernels.check(lib, code, "attention-block kernel launch")
-    attention_block_inference.launches += 1
-    return out
+    ``out_bias [D]``.  Matrices are cast to ``x.dtype`` inside; LN params
+    and biases stay fp32.  Grads come back in the parameters' own types
+    (``dx`` in ``x.dtype``).  ``causal`` masks the upper triangle (text
+    tower)."""
+    return _AttentionBlock.apply(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal)
 
 
-# Kernel launches since the count was last reset (one per call on CUDA).
+def attention_block_inference(
+    x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int, causal: bool = False
+):
+    """The inference op (B3): :func:`attention_block` without the residual
+    writes.  Still differentiable: its backward re-runs the training forward
+    (B1) and then the training backward (B2)."""
+    return _AttentionBlockInference.apply(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads,
+                                          causal)
+
+
+# Kernel launches since the counts were last reset (one per call on CUDA).
 attention_block_inference.launches = 0
+attention_block.fwd_launches = 0
+attention_block.bwd_launches = 0

@@ -1,0 +1,17 @@
+"""FLYP's contrastive train step: schedules, AdamW state and the step."""
+
+from .schedules import crestart_lr, make_scheduler, warmup_cosine_lr
+from .train_state import AdamW, AdamWState, TrainState, create_train_state, make_optimizer
+from .train_step import make_train_step
+
+__all__ = [
+    "AdamW",
+    "AdamWState",
+    "TrainState",
+    "create_train_state",
+    "crestart_lr",
+    "make_optimizer",
+    "make_scheduler",
+    "make_train_step",
+    "warmup_cosine_lr",
+]

@@ -3,8 +3,9 @@
 Same inputs (numpy, seeded) through ``flyp_tpu.ops.attention_block.
 attention_block_inference`` in interpret mode (the JAX package's own CPU
 route) and ``flyp_tpu_torch.ops.attention_block.attention_block_inference``,
-whose CPU route is the plain PyTorch version.  The kernel against the
-plain version on the card is in ``test_torch_cuda.py``.
+whose CPU route is the plain PyTorch version.  The training op is in
+``test_torch_attention_block_train.py``; the kernels against the plain
+versions on the card are in ``test_torch_cuda.py``.
 """
 
 import jax.numpy as jnp
@@ -84,10 +85,12 @@ def test_cpu_route_is_the_plain_version():
 
 
 def test_forward_only():
+    """With no input requiring grad the inference op is forward-only: no
+    autograd graph, and the same values as under inference_mode."""
     x, *params = (torch.from_numpy(a) for a in _inputs(1, 5, 128))
-    x.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        tab.attention_block_inference(x, *params, 2, False)
+    out = tab.attention_block_inference(x, *params, 2, False)
+    assert out.grad_fn is None and not out.requires_grad
+    assert torch.equal(out, _port(_inputs(1, 5, 128), 2, False))
 
 
 @pytest.mark.parametrize("causal", [False, True])

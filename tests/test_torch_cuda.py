@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Every test here needs an NVIDIA GPU and skips without one.  The module
 imports neither JAX nor ``flyp_tpu``, so on the machine with the card it
@@ -102,3 +102,99 @@ def test_tiny_server_on_card_matches_cpu(card, tmp_path):
     np.testing.assert_allclose(logits, cpu.classify(images), atol=1e-3, rtol=1e-3)
     caps = ["a photo of a cat.", "a dog", "the school bus"]
     np.testing.assert_allclose(gpu.encode_texts(caps), cpu.encode_texts(caps), atol=1e-4, rtol=1e-4)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
+# Kernel vs plain: elementwise (absolute + relative) on activations, relative
+# norm on the sums over every row (weight, bias and LN grads).  fp32 differs
+# by summation order only; bf16 may also flip a rounding inside q/k/v, e, o,
+# do, ds or dq/dk/dv (a few ulps of O(1) values).
+TRAIN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 1e-2)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "shape",
+    [(4, 197, 768, 12, False), (4, 77, 512, 8, True), (3, 32, 512, 8, True), (3, 13, 128, 2, True),
+     (2, 257, 768, 12, False), (2, 320, 128, 2, True)],
+)
+def test_training_kernels_match_plain_on_card(card, shape, dtype):
+    """B1 on out, o, q, k, v and lse; B2 on dx, dWqkv, dbqkv, dscale and
+    dbias against the plain backward, and through autograd."""
+    B, L, D, H, causal = shape
+    dt = getattr(torch, dtype)
+    elem, norm = TRAIN_TOL[dtype]
+    x, *params = (torch.from_numpy(a).to(card) for a in _inputs(B, L, D, seed=L + 1))
+    x = x.to(dt)
+    g = torch.from_numpy(np.random.default_rng(L).standard_normal((B, L, D)).astype(np.float32)).to(card).to(dt)
+    fwd0, bwd0 = tab.attention_block.fwd_launches, tab.attention_block.bwd_launches
+    with torch.no_grad():
+        got = tab._fwd_kernel_call(x, *params, H, causal, train=True)
+        ref = tab.attention_block_reference(x, *params, H, causal)
+    for name, a, b in zip(("out", "o", "q", "k", "v", "lse"), got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name != "lse":
+            torch.testing.assert_close(a.float(), b.float(), atol=elem, rtol=elem, msg=name)
+    out, o, q, k, v, lse = got
+    # lse against the plain lse of the kernel's own q and k (1e-4), and
+    # against the plain forward's, whose bf16 q/k may round an element the
+    # other way (a score moved by up to ~1e-2).
+    qs = (q.float() * 0.125).to(dt)
+    own = torch.logsumexp(tab._scores(qs, k, H, causal), dim=-1).transpose(1, 2)
+    torch.testing.assert_close(lse, own, atol=1e-4, rtol=0.0, msg="lse (own q, k)")
+    torch.testing.assert_close(lse, ref[5], atol=1e-4 if dt == torch.float32 else 1e-2, rtol=0.0, msg="lse")
+    ln_s, ln_b, wqkv, _, wout, _ = params
+    with torch.no_grad():
+        dx, dscale, dbias, dwqkv, dbqkv = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+        ref_b = tab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
+    torch.cuda.synchronize()
+    assert dx.dtype == dt and dwqkv.dtype == torch.float32
+    torch.testing.assert_close(dx.float(), ref_b[0].float(), atol=elem, rtol=elem, msg="dx")
+    for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv"), (dscale, dbias, dwqkv, dbqkv), ref_b[1:5]):
+        assert _rel(a, b) < norm, (name, _rel(a, b))
+    assert (tab.attention_block.fwd_launches, tab.attention_block.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+
+    # Through autograd, with every input requiring grad.
+    inputs = [x.requires_grad_(True)] + [p.requires_grad_(True) for p in params]
+    grads = torch.autograd.grad(tab.attention_block(*inputs, H, causal), inputs, g)
+    for name, a, b in zip(("dx", "dscale", "dbias", "dwqkv", "dbqkv", "dwout", "dbout"), grads, ref_b):
+        assert a.dtype == b.dtype, name
+        assert _rel(a, b) < norm, (name, _rel(a, b))
+    assert (tab.attention_block.fwd_launches, tab.attention_block.bwd_launches) == (fwd0 + 2, bwd0 + 2)
+
+
+def test_training_backward_refuses_longer_rows(card):
+    """The backward keeps full score rows of at most 320 keys on chip."""
+    x, *params = (torch.from_numpy(a).to(card).requires_grad_(True) for a in _inputs(1, 321, 128, seed=3))
+    out = tab.attention_block(x, *params, 2, False)
+    with pytest.raises(ValueError, match="L <= 320"):
+        out.sum().backward()
+
+
+def test_training_kernels_are_deterministic(card):
+    """No atomics: two backward runs agree bit for bit."""
+    x, *params = (torch.from_numpy(a).to(card) for a in _inputs(4, 197, 768, seed=2))
+    x = x.to(torch.bfloat16).requires_grad_(True)
+    params = [p.requires_grad_(True) for p in params]
+    g = torch.ones_like(x)
+    first = torch.autograd.grad(tab.attention_block(x, *params, 12, False), [x, *params], g)
+    second = torch.autograd.grad(tab.attention_block(x, *params, 12, False), [x, *params], g)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_inference_op_backward_runs_training_kernels(card):
+    """The inference op's grads re-run B1 and B2 and equal the training op's."""
+    x, *params = (torch.from_numpy(a).to(card).requires_grad_(True) for a in _inputs(2, 33, 512, seed=4))
+    g = torch.ones_like(x)
+    launches = (tab.attention_block_inference.launches, tab.attention_block.fwd_launches,
+                tab.attention_block.bwd_launches)
+    gi = torch.autograd.grad(tab.attention_block_inference(x, *params, 8, True), [x, *params], g)
+    assert (tab.attention_block_inference.launches, tab.attention_block.fwd_launches,
+            tab.attention_block.bwd_launches) == (launches[0] + 1, launches[1] + 1, launches[2] + 1)
+    gt = torch.autograd.grad(tab.attention_block(x, *params, 8, True), [x, *params], g)
+    for a, b in zip(gi, gt):
+        assert torch.equal(a, b)

@@ -51,6 +51,17 @@ srv = ClipServer.from_checkpoint(None, classnames=["a", "b"], compute_dtype="flo
                                  config_override=tiny, device="cpu", image_buckets=(2,))
 import numpy as np
 assert srv.classify(np.zeros((3, 32, 32, 3), np.float32)).shape == (3, 2)
+from flyp_tpu_torch.evaluation import Classifier
+from flyp_tpu_torch.training import create_train_state, make_optimizer, make_train_step, warmup_cosine_lr
+model = srv.model
+opt = make_optimizer(warmup_cosine_lr(1e-3, 1, 10), weight_decay=0.1, moment_dtype="bfloat16")
+state = create_train_state(model, opt)
+tokens = torch.zeros((2, 16), dtype=torch.int32)
+tokens[:, 0], tokens[:, 5] = 49406, 49407
+state, metrics = make_train_step(model, opt)(state, torch.zeros((2, 32, 32, 3)), tokens)
+assert torch.isfinite(metrics["loss"])
+model.eval()
+assert Classifier(model, srv.head, batch_size=4).predict_logits(np.zeros((3, 32, 32, 3), np.float32)).shape == (3, 2)
 bad = sorted(n for n in sys.modules if n.split(".")[0] in %r)
 print("LOADED", bad)
 """ % (FORBIDDEN,)
