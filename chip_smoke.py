@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``flyp_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --digests    # only the B1-B3 output digests
 
 Phases, each of which raises on failure:
 
@@ -25,7 +26,23 @@ Phases, each of which raises on failure:
    same), the bench configuration (batch 256, bf16, bf16 Adam moments)
    timed over 10 steps with B1/B2/B3 launches checked exactly, a learning
    check, the epoch's end (zero-shot head rebuilt from the trained text
-   tower, ``Classifier`` top-1) and a profile of one step.
+   tower, ``Classifier`` top-1) and a profile of one step;
+6. the MLP block (B4), fused-QKV attention (B5, forward and backward) and
+   whole-row attention (B6, forward and backward) against their plain
+   versions (B=64 in fp32 and bf16 at vision L=197 and text L=77, the
+   training main path's batch 256 in bf16 at L=197 and L=32, and B5/B6 at
+   L=577 and L=1024), timed beside the plain version, the card's bound and
+   ``F.scaled_dot_product_attention`` (B5/B6) or a composite (B4); B5/B6's
+   outputs are held to ``flyp_tpu_torch.testing.check_attention``, which a
+   planted fault (the backward without ``delta``) must fail at every shape;
+7. the other ``FLYP_ATTENTION_IMPL`` routes (``pallas_qkv``, ``pallas``,
+   ``pallas_block_mlp``, ``xla``; the default ``pallas_block`` is phases 4
+   and 5): one fp32 step against the CPU plain step under the same route
+   (all but ``xla``), 13 steps of the bench configuration and a 256-image
+   ``classify`` with every kernel's launches checked exactly (a route
+   launches its own kernels and no other), train and serve img/s, and the
+   device ms of one vision block's attention and MLP sub-blocks (also
+   measured for the default route in phase 5).
 
 The line before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -49,9 +66,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from flyp_tpu_torch.evaluation import Classifier, get_zeroshot_classifier, topk_accuracy  # noqa: E402
-from flyp_tpu_torch.models import build_clip_model, convert  # noqa: E402
+from flyp_tpu_torch.models import MODEL_CONFIGS, build_clip_model, convert  # noqa: E402
 from flyp_tpu_torch.ops import _kernels  # noqa: E402
+from flyp_tpu_torch.ops import attention as attention_dispatch  # noqa: E402
 from flyp_tpu_torch.ops import attention_block as ab  # noqa: E402
+from flyp_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from flyp_tpu_torch.ops import fused_qkv_attention as fq  # noqa: E402
+from flyp_tpu_torch.ops import mlp_block as mb  # noqa: E402
 from flyp_tpu_torch.ops.losses import clip_loss  # noqa: E402
 from flyp_tpu_torch.serving import ClipServer  # noqa: E402
 from flyp_tpu_torch.templates import simple_template  # noqa: E402
@@ -298,7 +319,7 @@ def phase_serving(tmp: str, card: str) -> dict:
     layers_v, layers_t = cpu_model.config.vision.layers, cpu_model.config.text.layers
     px = cpu_model.config.vision.image_size
     rng = np.random.default_rng(0)
-    ab.attention_block_inference.launches = 0
+    reset_counts()
     # ---- the main path: counts start at 0 here --------------------------
     srv = ClipServer.from_checkpoint(ckpt, model=MODEL, classnames=CLASSNAMES, template=simple_template,
                                      compute_dtype="bfloat16", device="cuda", image_buckets=BUCKETS)
@@ -325,10 +346,9 @@ def phase_serving(tmp: str, card: str) -> dict:
     np.testing.assert_allclose(np.linalg.norm(txt, axis=1), 1.0, atol=1e-2)
     streamed = list(srv.stream_logits([results[5][0], results[64][0]]))
     expected += layers_v * 2
-    launches = ab.attention_block_inference.launches
+    launches = counts()["B3"]
     # ---- end of the main path -------------------------------------------
-    if launches != expected:
-        raise AssertionError(f"attention-block kernel launched {launches} times, expected {expected}")
+    expect_counts("serving main path", B3=expected)
     log(f"main path: {launches} attention-block kernel launches, as expected")
     np.testing.assert_allclose(streamed[0], results[5][1], atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(streamed[1], results[64][1], atol=1e-5, rtol=1e-5)
@@ -366,13 +386,16 @@ def phase_serving(tmp: str, card: str) -> dict:
 # Kernel names by port kernel, as the profiler reports them.  The GEMM
 # (common.cuh) takes <kAT, kBT, kLN[, TOut]>: the forwards' QKV and
 # out-projection hold both operands untransposed, the backward's do and dY
-# hold B transposed and its dWqkv A transposed.  The training attention
-# forward is the kTrain=true instance.
+# hold B transposed and its dWqkv A transposed.  The attention templates
+# (attention.cuh) take kScaleQ (true for the attention block's kernels,
+# false for B5/B6) and kTrain (the forward) or the compute type and query
+# tile (the backward passes).
 _FWD_GEMM = r"gemm_(mma|fma)_kernel<false, false, "
-B3_KERNELS = rf"({_FWD_GEMM}|attention_(mma|fma)_kernel<false>)"
-B1_KERNELS = rf"({_FWD_GEMM}|attention_(mma|fma)_kernel<true>)"
-B2_KERNELS = (r"(gemm_(mma|fma)_kernel<(true, false|false, true), |attention_bwd_|ln_forward_kernel|"
-              r"ln_backward_kernel|colsum_partial_kernel|reduce_partials_kernel)")
+B3_KERNELS = rf"({_FWD_GEMM}|attention_(mma|fma)_kernel<true, false)"
+B1_KERNELS = rf"({_FWD_GEMM}|attention_(mma|fma)_kernel<true, true)"
+B2_KERNELS = (r"(gemm_(mma|fma)_kernel<(true, false|false, true), |attention_bwd_\w+_kernel<[^>]*true>|"
+              r"ln_forward_kernel|ln_backward_kernel|colsum_partial_kernel|reduce_partials_kernel)")
+PORT_KERNELS = r"(flyp::|\(anonymous namespace\)::)"  # every kernel of csrc/, none of PyTorch's
 
 
 def device_profile(fn, groups: dict) -> dict:
@@ -442,12 +465,73 @@ def grad_cosines(grads, ref) -> list:
     return out
 
 
-def counts():
-    return (ab.attention_block.fwd_launches, ab.attention_block.bwd_launches, ab.attention_block_inference.launches)
+# Each kernel's launch counter: (the op carrying it, its attribute).
+COUNTERS = {
+    "B3": (ab.attention_block_inference, "launches"),
+    "B1": (ab.attention_block, "fwd_launches"),
+    "B2": (ab.attention_block, "bwd_launches"),
+    "B4": (mb.mlp_block, "fwd_launches"),
+    "B5_fwd": (fq.fused_qkv_attention, "fwd_launches"),
+    "B5_bwd": (fq.fused_qkv_attention, "bwd_launches"),
+    "B6_fwd": (fa.flash_attention, "fwd_launches"),
+    "B6_bwd": (fa.flash_attention, "bwd_launches"),
+}
+
+
+def counts() -> dict:
+    return {name: getattr(op, attr) for name, (op, attr) in COUNTERS.items()}
 
 
 def reset_counts():
-    ab.attention_block.fwd_launches = ab.attention_block.bwd_launches = ab.attention_block_inference.launches = 0
+    for op, attr in COUNTERS.values():
+        setattr(op, attr, 0)
+
+
+def expect_counts(where: str, **expected):
+    """Every kernel's launches since the reset, exactly: ``expected`` for the
+    named ones, 0 for every other."""
+    want = {name: expected.get(name, 0) for name in COUNTERS}
+    if counts() != want:
+        raise AssertionError(f"{where}: launches {counts()}, expected {want}")
+
+
+def use_impl(impl: str):
+    """``FLYP_ATTENTION_IMPL`` for what follows (the port reads it once and
+    caches the choice)."""
+    os.environ[attention_dispatch._IMPL_ENV] = impl
+    attention_dispatch._default_impl.cache_clear()
+
+
+def model_shape():
+    """(image size, vision layers, text layers) of the model."""
+    c = MODEL_CONFIGS[MODEL]
+    return c.vision.image_size, c.vision.layers, c.text.layers
+
+
+def step_check(cfg: dict, images, tokens, where: str) -> dict:
+    """One step's loss and gradients at B=4, full width: the card (kernels)
+    against the CPU (plain versions), fp32; bf16 on the card against the
+    same fp32 reference."""
+    out = {}
+    t0 = time.perf_counter()
+    cpu = build_clip_model(cfg["float32"], device="cpu").train().requires_grad_(True)
+    ref_loss, ref_grads = loss_and_grads(cpu, torch.from_numpy(images), torch.from_numpy(tokens))
+    del cpu
+    log(f"CPU plain step ({where}), fp32, B=4: loss {ref_loss:.7f} in {time.perf_counter() - t0:.1f} s")
+    for name, min_cos, loss_tol in (("float32", 0.9999, 1e-4), ("bfloat16", 0.99, 2e-2)):
+        model = build_clip_model(cfg[name], device="cuda").train().requires_grad_(True)
+        loss, grads = loss_and_grads(model, torch.from_numpy(images).cuda(), torch.from_numpy(tokens).cuda())
+        cos = grad_cosines(grads, ref_grads)
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        log(f"card step ({where}), {name}, B=4: loss {loss:.7f} (rel err {rel:.3g}), min grad cosine {min(cos):.7f}")
+        if rel > loss_tol or min(cos) < min_cos:
+            names = [n for n, _ in model.named_parameters()]
+            worst = sorted(zip(cos, names))[:5]
+            raise AssertionError(f"{name} step ({where}) drifts from the CPU plain step: loss rel err {rel}, "
+                                 f"worst {worst}")
+        out[f"loss_rel_err_{name}"], out[f"min_grad_cosine_{name}"] = rel, min(cos)
+        del model, grads
+    return out
 
 
 def phase_training(card: str) -> dict:
@@ -456,63 +540,16 @@ def phase_training(card: str) -> dict:
     cfg = {n: SimpleNamespace(model=MODEL, clip_load=None, compute_dtype=n, seed=0) for n in ("float32", "bfloat16")}
     out = {}
 
-    # 1. One step's loss and gradients at B=4, full width: the card (kernels)
-    # against the CPU (plain versions), fp32; bf16 on the card against the
-    # same fp32 reference.
-    t0 = time.perf_counter()
-    cpu = build_clip_model(cfg["float32"], device="cpu").train().requires_grad_(True)
-    px = cpu.config.vision.image_size
-    layers_v, layers_t = cpu.config.vision.layers, cpu.config.text.layers
-    layers = layers_v + layers_t
+    # 1. One step's loss and gradients at B=4, full width, against the CPU.
+    px, layers_v, layers_t = model_shape()
     images, tokens = bench_batch(4, px, seed=1)
-    ref_loss, ref_grads = loss_and_grads(cpu, torch.from_numpy(images), torch.from_numpy(tokens))
-    del cpu
-    log(f"CPU plain step, fp32, B=4: loss {ref_loss:.7f} in {time.perf_counter() - t0:.1f} s")
-    for name, min_cos, loss_tol in (("float32", 0.9999, 1e-4), ("bfloat16", 0.99, 2e-2)):
-        model = build_clip_model(cfg[name], device="cuda").train().requires_grad_(True)
-        loss, grads = loss_and_grads(model, torch.from_numpy(images).cuda(), torch.from_numpy(tokens).cuda())
-        cos = grad_cosines(grads, ref_grads)
-        rel = abs(loss - ref_loss) / abs(ref_loss)
-        log(f"card step, {name}, B=4: loss {loss:.7f} (rel err {rel:.3g}), min grad cosine {min(cos):.7f}")
-        if rel > loss_tol or min(cos) < min_cos:
-            names = [n for n, _ in model.named_parameters()]
-            worst = sorted(zip(cos, names))[:5]
-            raise AssertionError(f"{name} step drifts from the CPU plain step: loss rel err {rel}, worst {worst}")
-        out[f"loss_rel_err_{name}"], out[f"min_grad_cosine_{name}"] = rel, min(cos)
-        del model, grads
-    del ref_grads
+    out.update(step_check(cfg, images, tokens, "pallas_block"))
 
     # 2, 3. The bench configuration, launches counted exactly.
     model = build_clip_model(cfg["bfloat16"], device="cuda")
     head_before = get_zeroshot_classifier(model, CLASSNAMES, simple_template)
-    opt = make_optimizer(warmup_cosine_lr(1e-5, 500, 10_000), weight_decay=0.1, moment_dtype="bfloat16")
-    state = create_train_state(model, opt)
-    step = make_train_step(model, opt)
-    images, tokens = bench_batch(256, px, seed=0)
-    images = torch.from_numpy(images).to(torch.bfloat16).cuda()
-    tokens = torch.from_numpy(tokens).cuda()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    # ---- the training main path: counts start at 0 here -----------------
-    for _ in range(3):
-        state, metrics = step(state, images, tokens)
-    first_loss = float(metrics["loss"])
-    t0 = time.perf_counter()
-    for _ in range(10):
-        state, metrics = step(state, images, tokens)
-    last_loss = float(metrics["loss"])
-    dt = time.perf_counter() - t0
-    launches = counts()
-    # ---- end of the training main path -----------------------------------
-    if launches != (13 * layers, 13 * layers, 0):
-        raise AssertionError(f"launches (B1, B2, B3) {launches} over 13 steps, expected {13 * layers} B1/B2, 0 B3")
-    if not (math.isfinite(first_loss) and math.isfinite(last_loss)):
-        raise AssertionError(f"non-finite loss {first_loss}, {last_loss}")
-    out.update(train_img_s=10 * 256 / dt, step_ms=dt / 10 * 1e3, loss=last_loss, launches=launches[:2],
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30, tokens_width=int(tokens.shape[1]))
-    log(f"train, batch 256, bf16: {out['train_img_s']:.2f} img/s ({out['step_ms']:.2f} ms/step), loss "
-        f"{first_loss:.5f} -> {last_loss:.5f}, peak memory {out['peak_mem_gb']:.2f} GiB, "
-        f"launches B1/B2/B3 {launches} on {card}")
+    state, step, images, tokens, res = bench_training(model, "pallas_block", card)
+    out.update(res, layers_train_ms=layer_ms(model, train=True))
 
     # 4. Learning: 8 steps on one repeated batch of 64 at a rate of 1e-4.
     fast = make_optimizer(warmup_cosine_lr(1e-4, 1, 10_000), weight_decay=0.1, moment_dtype="bfloat16")
@@ -529,8 +566,7 @@ def phase_training(card: str) -> dict:
     model.eval()
     reset_counts()
     head = get_zeroshot_classifier(model, CLASSNAMES, simple_template)
-    if counts() != (0, 0, layers_t):  # one text chunk: 5 prompts
-        raise AssertionError(f"head rebuild launches (B1, B2, B3) {counts()}, expected (0, 0, {layers_t})")
+    expect_counts("head rebuild", B3=layers_t)  # one text chunk: 5 prompts
     head_change = float((head.weight - head_before.weight).abs().max())
     if head_change == 0.0:
         raise AssertionError("the zero-shot head did not change with training")
@@ -538,15 +574,310 @@ def phase_training(card: str) -> dict:
     logits = Classifier(model, head, batch_size=64).predict_logits(eval_images)
     labels = np.random.default_rng(2).integers(0, len(CLASSNAMES), 64)
     top1 = topk_accuracy(logits, labels)[0] / 64
-    if counts() != (0, 0, layers_t + layers_v) or logits.shape != (64, len(CLASSNAMES)) or not np.isfinite(logits).all():
-        raise AssertionError(f"classifier: launches {counts()}, logits {logits.shape}")
-    out.update(head_change=head_change, top1=top1)
+    expect_counts("head rebuild and classifier", B3=layers_t + layers_v)
+    if logits.shape != (64, len(CLASSNAMES)) or not np.isfinite(logits).all():
+        raise AssertionError(f"classifier: logits {logits.shape}")
+    out.update(head_change=head_change, top1=top1, layers_eval_ms=layer_ms(model, train=False))
     log(f"epoch end: head rebuilt (max change {head_change:.4g}), classifier top-1 {top1:.4f} on random labels")
 
     # 6. Profile of one train step.
     model.train()
     out["profile"] = device_profile(lambda: step(state, images, tokens),
-                                    {"B1": B1_KERNELS, "B2": B2_KERNELS})
+                                    {"B1": B1_KERNELS, "B2": B2_KERNELS, "port_kernels": PORT_KERNELS})
+    return out
+
+
+def bench_training(model, impl: str, card: str):
+    """13 steps of the bench configuration (batch 256, bf16, bf16 Adam
+    moments) under the route ``impl``, with every kernel's launches checked
+    exactly (the route's own kernels once per block per step, no other):
+    ``(state, step, images, tokens, results)``."""
+    px, layers_v, layers_t = model_shape()
+    opt = make_optimizer(warmup_cosine_lr(1e-5, 500, 10_000), weight_decay=0.1, moment_dtype="bfloat16")
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt)
+    images, tokens = bench_batch(256, px, seed=0)
+    images = torch.from_numpy(images).to(torch.bfloat16).cuda()
+    tokens = torch.from_numpy(tokens).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    # ---- the training path under this route: counts start at 0 here ------
+    for _ in range(3):
+        state, metrics = step(state, images, tokens)
+    first_loss = float(metrics["loss"])
+    t0 = time.perf_counter()
+    for _ in range(10):
+        state, metrics = step(state, images, tokens)
+    last_loss = float(metrics["loss"])
+    dt = time.perf_counter() - t0
+    launches = counts()
+    # ---- end of the training path -----------------------------------------
+    expect_counts(f"training under {impl}, 13 steps", **{k: 13 * (layers_v + layers_t) for k in ROUTE_TRAIN[impl]})
+    if not (math.isfinite(first_loss) and math.isfinite(last_loss)):
+        raise AssertionError(f"non-finite loss under {impl}: {first_loss}, {last_loss}")
+    res = dict(train_img_s=10 * 256 / dt, step_ms=dt / 10 * 1e3, loss=[first_loss, last_loss], train_launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30, tokens_width=int(tokens.shape[1]))
+    log(f"train under {impl}, batch 256, bf16: {res['train_img_s']:.2f} img/s ({res['step_ms']:.2f} ms/step), loss "
+        f"{first_loss:.5f} -> {last_loss:.5f}, peak memory {res['peak_mem_gb']:.2f} GiB, launches {launches} "
+        f"on {card}")
+    return state, step, images, tokens, res
+
+
+# B4, B5 and B6 at the training main path's shapes (batch 256 in bf16 at
+# vision L=197 and text L=32), at B=64 in fp32 and bf16 (vision L=197, text
+# L=77); B5 and B6 also at ViT-L/14@336px's L=577 and at their limit 1024.
+IMPL_SHAPES = [(64, 197, 768, 12, False, BOTH), (64, 77, 512, 8, True, BOTH),
+               (256, 197, 768, 12, False, (torch.bfloat16,)), (256, 32, 512, 8, True, (torch.bfloat16,))]
+LONG_SHAPES = [(8, 577, 1024, 16, False, BOTH), (4, 1024, 768, 12, False, BOTH)]
+
+
+def attention_bound_ms(B, L, D, causal, dtype, peaks, backward: bool):
+    """(ms, "operations" | "bytes") for one B5/B6 call.  FLOPs: 4BL^2D
+    forward, 10BL^2D backward (halved by the causal mask); bytes: q, k, v
+    read and o written (4BLD), or q, k, v, do read and dq, dk, dv written
+    (7BLD)."""
+    flops = (10 if backward else 4) * B * L * L * D * (0.5 if causal else 1.0)
+    nbytes = (7 if backward else 4) * B * L * D * (torch.finfo(dtype).bits // 8)
+    t_ops, t_bytes = flops / peaks[dtype], nbytes / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mlp_bound_ms(B, L, D, dtype, peaks):
+    """(ms, "operations" | "bytes") for one B4 call.  FLOPs: 16BLD^2 (two
+    products of 8BLD^2); bytes: x read, out and h_pre written (6BLD), W1 and
+    W2 read (8D^2), the fp32 LN parameters and biases."""
+    el = torch.finfo(dtype).bits // 8
+    flops = 16 * B * L * D * D
+    nbytes = 6 * B * L * D * el + 8 * D * D * el + 7 * D * 4
+    t_ops, t_bytes = flops / peaks[dtype], nbytes / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mlp_inputs(B, L, D, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def r(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, generator=g)).cuda()
+
+    return (r(B, L, D).to(dtype), r(D, scale=0.1, shift=1.0), r(D, scale=0.1), r(D, 4 * D, scale=(2 * D) ** -0.5),
+            r(4 * D, scale=0.1), r(4 * D, D, scale=D ** -0.5), r(D, scale=0.1))
+
+
+def mlp_yardstick(x, ln_scale, ln_bias, w1t, b1, w2t, b2):
+    """``F.layer_norm + F.linear + quick_gelu + F.linear`` and the residual,
+    one library call per stage (weights pre-cast and transposed), timed only:
+    no single PyTorch call computes the block."""
+    F = torch.nn.functional
+    y = F.layer_norm(x, (x.shape[-1],), ln_scale, ln_bias, 1e-5)
+    h = F.linear(y, w1t, b1)
+    return x + F.linear(h * torch.sigmoid(1.702 * h), w2t, b2)
+
+
+def sdpa_ms(q, k, v, g, causal):
+    """``F.scaled_dot_product_attention`` on [B, L, H, 64] views: (forward
+    ms, autograd-backward ms), timed only (the port never calls it)."""
+    F = torch.nn.functional
+    q, k, v = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    with torch.no_grad():
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal))
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    gh = g.reshape(out.transpose(1, 2).shape).transpose(1, 2)
+    bwd = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), gh, retain_graph=True))
+    return fwd, bwd
+
+
+def phase_impl_kernels(peaks) -> dict:
+    """B4, B5 (forward, backward) and B6 (forward, backward) against their
+    plain versions; per-shape cases of each."""
+    from flyp_tpu_torch.testing import attention_errors, backward_without_delta, check_attention
+
+    out = {name: [] for name in ("B4", "B5_fwd", "B5_bwd", "B6_fwd", "B6_bwd")}
+    for B, L, D, H, causal, dtypes in IMPL_SHAPES + LONG_SHAPES:
+        for dtype in dtypes:
+            where = (B, L, D, H, causal, str(dtype))
+            common = dict(B=B, L=L, D=D, H=H, causal=causal, dtype=str(dtype).split(".")[-1])
+            gen = torch.Generator().manual_seed(L + 2)
+            g = torch.randn(B, L, D, generator=gen).cuda().to(dtype)
+            qkv = torch.randn(B, L, 3 * D, generator=gen).cuda().to(dtype)
+            q, k, v = (torch.randn(B, L, H, _HEAD_DIM, generator=gen).cuda().to(dtype) for _ in range(3))
+            g4 = g.reshape(B, L, H, _HEAD_DIM)
+            ops = {
+                "B5": (lambda: fq.fused_qkv_attention(qkv, H, causal),
+                       lambda: fq.fused_qkv_attention_reference(qkv, H, causal),
+                       lambda: (fq.fused_qkv_attention_backward(qkv, g, H, causal),),
+                       lambda: (fq.fused_qkv_attention_backward_reference(qkv, g, H, causal),),
+                       fq._heads(qkv, H)),
+                "B6": (lambda: fa.flash_attention(q, k, v, causal),
+                       lambda: fa.flash_attention_reference(q, k, v, causal),
+                       lambda: fa.flash_attention_backward(q, k, v, g4, causal),
+                       lambda: fa.flash_attention_backward_reference(q, k, v, g4, causal),
+                       (q, k, v)),
+            }
+            for name, (fwd, fwd_plain, bwd, bwd_plain, heads) in ops.items():
+                with torch.no_grad():
+                    got = fwd()
+                    torch.cuda.synchronize()
+                    f_errs = {"o": check_attention(f"{name} forward", got, fwd_plain(), where)}
+                    got = bwd()
+                    torch.cuda.synchronize()
+                    ref = bwd_plain()
+                    if name == "B5":  # one dqkv: its q, k and v thirds
+                        got, ref = fq._heads(got[0], H), fq._heads(ref[0], H)
+                    b_errs = {n: check_attention(f"{name} backward {n}", a, r, where)
+                              for n, a, r in zip(("dq", "dk", "dv"), got, ref)}
+                    times = [cuda_ms(fn) for fn in (fwd, fwd_plain, bwd, bwd_plain)]
+                lib_f, lib_b = sdpa_ms(*heads, g, causal)
+                for direction, errs, ms, plain_ms, lib_ms, backward in (
+                        ("fwd", f_errs, times[0], times[1], lib_f, False),
+                        ("bwd", b_errs, times[2], times[3], lib_b, True)):
+                    bound, by = attention_bound_ms(B, L, D, causal, dtype, peaks, backward)
+                    out[f"{name}_{direction}"].append(dict(
+                        common, max_abs_err=max(e["max_abs"] for e in errs.values()), errs=errs, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by))
+                    log(f"{name}_{direction}", json.dumps(out[f"{name}_{direction}"][-1]))
+            # The check's teeth: the plain backward with delta dropped from ds
+            # (a planted fault) must fail it on the same inputs.
+            with torch.no_grad():
+                faulty = backward_without_delta(q, k, v, g4, causal)
+                ref = fa.flash_attention_backward_reference(q, k, v, g4, causal)
+            caught = {}
+            for n, a, r in zip(("dq", "dk"), faulty, ref):
+                try:
+                    check_attention("planted fault", a, r, where)
+                except AssertionError:
+                    caught[n] = attention_errors(a, r)
+            if len(caught) != 2:
+                raise AssertionError(f"the attention check let a backward without delta pass at {where}: {caught}")
+            out["B6_bwd"][-1]["planted_fault_errs"] = caught
+            log("planted fault (delta dropped) caught", json.dumps({"where": list(map(str, where)), **caught}))
+            del qkv, q, k, v, g, g4, ops, faulty, ref
+            if (B, L, D, H, causal, dtypes) in LONG_SHAPES:
+                continue
+            args = mlp_inputs(B, L, D, dtype, seed=L + 3)
+            x, ln_s, ln_b, w1, b1, w2, b2 = args
+            with torch.no_grad():
+                got, h_pre = mb._kernel_forward(*args)
+                torch.cuda.synchronize()
+                ref, ref_h = mb.mlp_block_reference(*args)
+                check_close("B4 h_pre", h_pre, ref_h, TOL[dtype], where)
+                err = check_close("B4 out", got, ref, TOL[dtype], where)
+                ms = cuda_ms(lambda: mb._kernel_forward(*args))
+                plain_ms = cuda_ms(lambda: mb.mlp_block_reference(*args))
+                yard = (x, ln_s.to(dtype), ln_b.to(dtype), w1.T.contiguous().to(dtype), b1.to(dtype),
+                        w2.T.contiguous().to(dtype), b2.to(dtype))
+                composite_ms = cuda_ms(lambda: mlp_yardstick(*yard))
+            bound, by = mlp_bound_ms(B, L, D, dtype, peaks)
+            out["B4"].append(dict(common, max_abs_err=err, ms=ms, plain_ms=plain_ms, composite_ms=composite_ms,
+                                  bound_ms=bound, bound_by=by))
+            log("B4", json.dumps(out["B4"][-1]))
+            del args, yard
+    return out
+
+
+IMPLS = ("pallas_block", "pallas_qkv", "pallas", "pallas_block_mlp", "xla")
+# The kernels each route launches once per block: in a train step, and in
+# an eval forward.  Every other kernel must not launch under the route.
+ROUTE_TRAIN = {"pallas_block": ("B1", "B2"), "pallas_qkv": ("B5_fwd", "B5_bwd"), "pallas": ("B6_fwd", "B6_bwd"),
+               "pallas_block_mlp": ("B1", "B2", "B4"), "xla": ()}
+ROUTE_SERVE = {"pallas_block": ("B3",), "pallas_qkv": ("B5_fwd",), "pallas": ("B6_fwd",),
+               "pallas_block_mlp": ("B3", "B4"), "xla": ()}
+
+
+def layer_ms(model, train: bool) -> dict:
+    """Device ms (CUDA events) of one vision block's attention and MLP
+    sub-blocks at the training main path's shape (B=256, L=197, bf16):
+    forward and backward (input and parameter grads) in training mode, the
+    forward in eval mode."""
+    blk = model.visual.transformer.block_0
+    blk.train(train)
+    W = model.config.vision.width
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(256, 197, W, generator=gen).cuda().to(torch.bfloat16)
+    g = torch.randn(256, 197, W, generator=gen).cuda().to(torch.bfloat16)
+    params = list(blk.parameters())
+    out = {}
+    for name, fn in (("attention", blk.attention), ("mlp", blk.feed_forward)):
+        if train:
+            xi = x.detach().requires_grad_(True)
+            out[name] = cuda_ms(lambda: torch.autograd.grad(fn(xi), [xi] + params, g, allow_unused=True), iters=10)
+        else:
+            with torch.inference_mode():
+                out[name] = cuda_ms(lambda: fn(x), iters=10)
+    return out
+
+
+def phase_impls(card: str) -> dict:
+    """The routes other than the default pallas_block (which phase_serving
+    and phase_training measure) at full ViT-B/16 width: the step against the
+    CPU (all but xla), 13 train steps and one 256-image request with exact
+    launch counts, img/s, and the sub-blocks' device ms."""
+    from types import SimpleNamespace
+
+    cfg = {n: SimpleNamespace(model=MODEL, clip_load=None, compute_dtype=n, seed=0) for n in ("float32", "bfloat16")}
+    px, layers_v, _ = model_shape()
+    results = {}
+    for impl in IMPLS[1:]:
+        use_impl(impl)
+        res = {}
+        if impl != "xla":
+            images, tokens = bench_batch(4, px, seed=1)
+            res.update(step_check(cfg, images, tokens, impl))
+        model = build_clip_model(cfg["bfloat16"], device="cuda")
+        state, step, images, tokens, bench = bench_training(model, impl, card)
+        res.update(bench, layers_train_ms=layer_ms(model, train=True))
+        model.train()
+        res["profile"] = device_profile(lambda: step(state, images, tokens), {"port_kernels": PORT_KERNELS})
+
+        model.eval()
+        srv = ClipServer.for_classification(model, CLASSNAMES, simple_template, image_buckets=(BUCKETS[-1],))
+        batch = np.random.default_rng(3).standard_normal((BUCKETS[-1], px, px, 3)).astype(np.float32)
+        srv.classify(batch)
+        reset_counts()
+        # ---- the serving path under this route: counts start at 0 here ---
+        logits = srv.classify(batch)
+        serve_launches = counts()
+        # ---- end of the serving path --------------------------------------
+        expect_counts(f"classify under {impl}", **{k: layers_v for k in ROUTE_SERVE[impl]})
+        if logits.shape != (len(batch), len(CLASSNAMES)) or not np.isfinite(logits).all():
+            raise AssertionError(f"classify under {impl}: logits {logits.shape}")
+        reps = 10
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            srv.classify(batch)
+        res.update(serve_img_s=reps * len(batch) / (time.perf_counter() - t0), serve_launches=serve_launches,
+                   layers_eval_ms=layer_ms(model, train=False))
+        log(f"route {impl}: classify at bucket {BUCKETS[-1]} {res['serve_img_s']:.1f} img/s, vision block ms train "
+            f"{res['layers_train_ms']}, eval {res['layers_eval_ms']} on {card}")
+        results[impl] = res
+        del model, state, step, srv, images, tokens
+        torch.cuda.empty_cache()
+    use_impl("auto")
+    return results
+
+
+def digests() -> dict:
+    """A SHA-256 prefix of each attention-block kernel's outputs (B3, B1, B2)
+    on seeded inputs at the main paths' shapes.  ``python3 chip_smoke.py
+    --digests`` run from two trees (this script copied into the other) says
+    whether a change kept the kernels' bits."""
+    import hashlib
+
+    out = {}
+    for B, L, D, H, causal in ((256, 197, 768, 12, False), (256, 32, 512, 8, True), (64, 197, 768, 12, False)):
+        for dtype in BOTH:
+            args = block_inputs(B, L, D, dtype, seed=L + 1)
+            x, ln_s, ln_b, wqkv, _, wout, _ = args
+            g = torch.randn(B, L, D, generator=torch.Generator().manual_seed(L)).cuda().to(dtype)
+            with torch.no_grad():
+                b3 = ab.attention_block_inference(*args, H, causal)
+                b1 = ab._fwd_kernel_call(*args, H, causal, train=True)
+                _, _, q, k, v, lse = b1
+                b2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+            for name, tensors in (("B3", (b3,)), ("B1", b1), ("B2", b2)):
+                h = hashlib.sha256()
+                for t in tensors:
+                    h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+                out[f"{name} B={B} L={L} {str(dtype).split('.')[-1]}"] = h.hexdigest()[:16]
     return out
 
 
@@ -570,33 +901,61 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
+    if "--digests" in sys.argv[1:]:
+        log(json.dumps({"card": card, "digests": digests()}))
+        return 0
+
+    # The default route ("auto", the fused block) for the phases before the
+    # route phase, whatever the environment says.
+    use_impl("auto")
     cases = phase_kernels(peaks)
     fwd_cases, bwd_cases = phase_train_kernels(peaks)
+    impl_cases = phase_impl_kernels(peaks)
     with tempfile.TemporaryDirectory() as tmp:
         serving = phase_serving(tmp, card)
     training = phase_training(card)
+    # The default route's numbers come from the serving and training phases.
+    impls = {"pallas_block": {**{k: training[k] for k in ("train_img_s", "step_ms", "loss", "train_launches",
+                                                          "layers_train_ms", "layers_eval_ms", "profile")},
+                              "serve_img_s": serving["img_s"][BUCKETS[-1]]},
+             **phase_impls(card)}
 
     def line(name, source, replaces, launches, cases):
-        # Every kernel is reported at the main path's vision shape; no single
-        # PyTorch call computes any of them, so library_ms is null and the
-        # composite yardstick stands beside.
+        # Every kernel is reported at the main path's vision shape.  B5 and
+        # B6 compute what F.scaled_dot_product_attention computes (library_ms);
+        # no single PyTorch call computes the others, so library_ms is null and
+        # a composite yardstick stands beside.
         c = next(c for c in cases if (c["B"], c["L"], c["dtype"]) == MAIN_SHAPE)
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
                 **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-                "library_ms": None, "composite_ms": c["composite_ms"],
+                "library_ms": c.get("library_ms"), "composite_ms": c.get("composite_ms"),
                 "shape": f"B={c['B']} L={c['L']} D={c['D']} H={c['H']} {c['dtype']}", "cases": cases}
+
+    def route(impl, kernel):  # launches on the route's 13-step training path
+        return impls[impl]["train_launches"][kernel]
 
     kernels = [
         line("attention_block_inference", "flyp_tpu_torch/csrc/attention_block.cu",
              "flyp_tpu/ops/attention_block.py:303", serving["launches"], cases),
         line("attention_block_train_forward", "flyp_tpu_torch/csrc/attention_block.cu",
-             "flyp_tpu/ops/attention_block.py:118", training["launches"][0], fwd_cases),
+             "flyp_tpu/ops/attention_block.py:118", route("pallas_block", "B1"), fwd_cases),
         line("attention_block_train_backward", "flyp_tpu_torch/csrc/attention_block_bwd.cu",
-             "flyp_tpu/ops/attention_block.py:185", training["launches"][1], bwd_cases),
+             "flyp_tpu/ops/attention_block.py:185", route("pallas_block", "B2"), bwd_cases),
+        line("mlp_block_forward", "flyp_tpu_torch/csrc/mlp_block.cu", "flyp_tpu/ops/mlp_block.py:45",
+             route("pallas_block_mlp", "B4"), impl_cases["B4"]),
+        line("fused_qkv_attention_forward", "flyp_tpu_torch/csrc/attention.cu",
+             "flyp_tpu/ops/fused_qkv_attention.py:62", route("pallas_qkv", "B5_fwd"), impl_cases["B5_fwd"]),
+        line("fused_qkv_attention_backward", "flyp_tpu_torch/csrc/attention.cu",
+             "flyp_tpu/ops/fused_qkv_attention.py:74", route("pallas_qkv", "B5_bwd"), impl_cases["B5_bwd"]),
+        line("flash_attention_forward", "flyp_tpu_torch/csrc/attention.cu", "flyp_tpu/ops/flash_attention.py:36",
+             route("pallas", "B6_fwd"), impl_cases["B6_fwd"]),
+        line("flash_attention_backward", "flyp_tpu_torch/csrc/attention.cu", "flyp_tpu/ops/flash_attention.py:53",
+             route("pallas", "B6_bwd"), impl_cases["B6_bwd"]),
     ]
     log(json.dumps({"card": card, "img_s": serving["img_s"], "cos_fp32": serving["cos_fp32"],
                     "cos_bf16": serving["cos_bf16"], "breakdown": serving["breakdown"]}))
     log(json.dumps({"card": card, "training": training}))
+    log(json.dumps({"card": card, "routes": impls}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -37,7 +37,9 @@
 //   3. attention pass (a), per (query tile, head, item): p and dp for the
 //      tile's full key range in shared memory, delta, ds (to scratch), dq;
 //   4. attention pass (b), per (key tile, head, item): p recomputed from lse
-//      tile by tile, dv and dk accumulated over the query tiles;
+//      tile by tile, dv and dk accumulated over the query tiles (both passes
+//      are the templates of attention.cuh, in the attention block's
+//      rounding scheme);
 //   5. dbqkv: column partials of d_t, then their sum;
 //   6. dWqkv: y^T d_t per tower, split over rows, then the partials' sum;
 //   7. dY = sum_t d_t Wqkv[t]^T              (GEMM, 3 D-long segments);
@@ -49,7 +51,7 @@
 // cores (mma.sync m16n8k16, fp32 accumulate); fp32 products are FMA tiles on
 // the CUDA cores, since the tensor cores would round fp32 operands to TF32.
 
-#include "common.cuh"
+#include "attention.cuh"
 
 #include <algorithm>
 
@@ -58,9 +60,7 @@ namespace {
 using namespace flyp;
 
 constexpr int kThreads = 256;  // LN and reduction blocks
-constexpr int kAttnThreads = 128;
-constexpr int kTile = 64;  // attention tiles: 64 rows x 64 (keys or head features)
-constexpr int kMaxL = 320;  // the attention passes keep full score rows of this many keys in shared memory
+constexpr int kMaxL = 320;  // the longest rows this backward takes (its attention passes would take 1024)
 
 // ---------------------------------------------------------------------------
 // Row LayerNorm.
@@ -180,264 +180,6 @@ reduce_partials_kernel(const float* __restrict__ partial, int parts, long long X
 }
 
 // ---------------------------------------------------------------------------
-// Attention backward.  Both passes work on 64 x 64 tiles in shared memory and
-// run every product through tile_product, which writes (or adds) an fp32
-// 64 x 64 result into shared memory; the elementwise steps then read fp32.
-
-template <typename T>
-struct TileLayout {
-  static constexpr int kStride = sizeof(T) == 4 ? kTile + 1 : kTile + 8;  // fp32: conflict-free column walks;
-                                                                          // bf16: 144 B rows for ldmatrix
-  static constexpr int kElems = kTile * kStride;
-};
-constexpr int kAccStride = kTile + 4;  // fp32 result tiles
-
-// C[64][64] (=, or += with acc) sum over k < 64 of opA[m][k] * opB[k][n]:
-// opA is A[m][k] (A held [k][m] with kAT), opB is B[k][n] (B held [n][k]
-// with kBT).  Call from all 128 threads; each warp (bf16) or thread (fp32)
-// writes only its own outputs, so the caller syncs before reading C.
-template <bool kAT, bool kBT>
-__device__ __forceinline__ void tile_product(float* C, int ldc, const float* A, int lda, const float* B, int ldb,
-                                             bool acc) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;  // rows ty + 8i, cols tx + 16j
-  float r[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) r[i][j] = 0.f;
-#pragma unroll 4
-  for (int k = 0; k < kTile; ++k) {
-    float av[8], bv[4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) av[i] = kAT ? A[k * lda + ty + 8 * i] : A[(ty + 8 * i) * lda + k];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = kBT ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) r[i][j] = fmaf(av[i], bv[j], r[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float& c = C[(ty + 8 * i) * ldc + tx + 16 * j];
-      c = acc ? c + r[i][j] : r[i][j];
-    }
-}
-
-template <bool kAT, bool kBT>
-__device__ __forceinline__ void tile_product(float* C, int ldc, const bf16* A, int lda, const bf16* B, int ldb,
-                                             bool acc) {
-  const int lane = threadIdx.x % 32, wr = (threadIdx.x / 32) * 16;  // this warp's 16 rows
-  float r[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) r[nt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < kTile / 16; ++ks) {
-    uint32_t af[4];
-    if (kAT) {
-      ldmatrix_x4_trans(af, &A[(ks * 16 + ldm_row(lane, true)) * lda + wr + ldm_col(lane, true)]);
-    } else {
-      ldmatrix_x4(af, &A[(wr + ldm_row(lane, false)) * lda + ks * 16 + ldm_col(lane, false)]);
-    }
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      if (kBT) {
-        ldmatrix_x4(b, &B[(np * 16 + ldm_row(lane, true)) * ldb + ks * 16 + ldm_col(lane, true)]);
-      } else {
-        ldmatrix_x4_trans(b, &B[(ks * 16 + ldm_row(lane, false)) * ldb + np * 16 + ldm_col(lane, false)]);
-      }
-      mma_bf16(r[2 * np], af, b[0], b[1]);
-      mma_bf16(r[2 * np + 1], af, b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float* c = &C[(wr + lane / 4 + half * 8) * ldc + nt * 8 + (lane % 4) * 2];
-      c[0] = acc ? c[0] + r[nt][2 * half] : r[nt][2 * half];
-      c[1] = acc ? c[1] + r[nt][2 * half + 1] : r[nt][2 * half + 1];
-    }
-}
-
-// 64 rows (row0.., zeros past L) x 64 head features at src + base (row
-// stride D) into a tile; with scale, T(v * scale) as the forward scales q.
-template <typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, size_t base, int row0, int L, int D,
-                                          float scale = 0.f) {
-  constexpr int S = TileLayout<T>::kStride;
-  for (int e = threadIdx.x; e < kTile * kHeadDim; e += kAttnThreads) {
-    const int r = e / kHeadDim, c = e % kHeadDim, j = row0 + r;
-    float v = j < L ? to_f(src[base + (size_t)j * D + c]) : 0.f;
-    if (scale != 0.f) v = __fmul_rn(v, scale);
-    dst[r * S + c] = from_f<T>(v);
-  }
-}
-
-struct AttnArgs {
-  const void *q, *k, *v, *dout;  // [B, L, D] each
-  const float* lse;              // [B, L, H]
-  void* ds;                      // [B, H, L, L] scratch
-  void *dq, *dk, *dv;            // [B, L, D] each
-  int L, D, causal;
-  float scale;
-  int s_stride;                  // fp32 per score row in pass (a)
-};
-
-// Pass (a): one block per (64-row query tile, head, batch item).  p and dp
-// over the tile's full key range in shared memory, delta = rowsum(p * dp),
-// ds = T(p * (dp - delta)) (to scratch, and over the front of the score
-// rows), then dq = T((ds k) * scale).
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads) attention_bwd_dq_kernel(const AttnArgs a) {
-  constexpr int TS = TileLayout<T>::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);              // T(q * scale), [64][TS]
-  T* dOs = Qs + TileLayout<T>::kElems;                 // do
-  T* KVs = dOs + TileLayout<T>::kElems;                // k, then v, then k again
-  float* S = reinterpret_cast<float*>(KVs + TileLayout<T>::kElems);  // p, then ds; [64][s_stride]
-  float* DP = S + kTile * a.s_stride;                  // dp, then the dq sums
-  float* lse_s = DP + kTile * a.s_stride;              // [64]
-
-  const int L = a.L, D = a.D, H = gridDim.y, h = blockIdx.y, b = blockIdx.z;
-  const int i0 = blockIdx.x * kTile;
-  const size_t base = (size_t)b * L * D + (size_t)h * kHeadDim;
-  const T* Q = static_cast<const T*>(a.q);
-  const T* K = static_cast<const T*>(a.k);
-  const T* V = static_cast<const T*>(a.v);
-  const int q_end = min(i0 + kTile, L);
-  const int kv_len = a.causal ? q_end : L;
-  const int n_tiles = (kv_len + kTile - 1) / kTile, cols = n_tiles * kTile;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  load_tile(Qs, Q, base, i0, L, D, a.scale);
-  load_tile(dOs, static_cast<const T*>(a.dout), base, i0, L, D);
-  for (int r = tid; r < kTile; r += kAttnThreads) {
-    lse_s[r] = i0 + r < L ? a.lse[((size_t)b * L + i0 + r) * H + h] : 0.f;
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile(KVs, K, base, k0, L, D);
-    __syncthreads();
-    tile_product<false, true>(S + k0, a.s_stride, Qs, TS, KVs, TS, false);  // s = qs k^T
-    __syncthreads();
-    load_tile(KVs, V, base, k0, L, D);
-    __syncthreads();
-    tile_product<false, true>(DP + k0, a.s_stride, dOs, TS, KVs, TS, false);  // dp = do v^T
-  }
-  __syncthreads();
-
-  // One warp per row: p, delta, ds.  ds[j] in T overwrites the front of the
-  // row (bf16: bytes 2j..2j+1, which only ever cover entries already read).
-  T* ds_g = static_cast<T*>(a.ds) + ((size_t)b * H + h) * L * L;
-  const int ds_stride = a.s_stride * (int)(sizeof(float) / sizeof(T));
-  for (int r = warp; r < kTile; r += kAttnThreads / 32) {
-    const int i = i0 + r;
-    const int visible = i < L ? (a.causal ? i + 1 : L) : 0;
-    float* srow = S + (size_t)r * a.s_stride;
-    const float* dprow = DP + (size_t)r * a.s_stride;
-    float delta = 0.f;
-    for (int j = lane; j < cols; j += 32) {
-      const float p = j < visible ? expf(srow[j] - lse_s[r]) : 0.f;
-      srow[j] = p;
-      delta += p * dprow[j];
-    }
-    delta = warp_sum(delta);
-    T* dsrow = reinterpret_cast<T*>(srow);
-    for (int j0 = 0; j0 < cols; j0 += 32) {
-      const int j = j0 + lane;
-      const T ds = from_f<T>(__fmul_rn(srow[j], __fsub_rn(dprow[j], delta)));
-      __syncwarp();
-      dsrow[j] = ds;
-      if (i < L && j < L) ds_g[(size_t)i * L + j] = ds;
-      __syncwarp();
-    }
-  }
-
-  // dq sums over the key tiles, into the (now free) dp rows.
-  const T* dS = reinterpret_cast<const T*>(S);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile(KVs, K, base, k0, L, D);
-    __syncthreads();
-    tile_product<false, false>(DP, a.s_stride, dS + k0, ds_stride, KVs, TS, t > 0);
-  }
-  __syncthreads();
-  T* dQ = static_cast<T*>(a.dq);
-  for (int e = tid; e < kTile * kHeadDim; e += kAttnThreads) {
-    const int r = e / kHeadDim, c = e % kHeadDim;
-    if (i0 + r < L) dQ[base + (size_t)(i0 + r) * D + c] = from_f<T>(__fmul_rn(DP[r * a.s_stride + c], a.scale));
-  }
-}
-
-// Pass (b): one block per (64-key tile, head, batch item), walking the query
-// tiles that can see its keys: p^T recomputed from lse, dv += T(p)^T do and
-// dk += ds^T T(q * scale).
-template <typename T>
-__global__ void __launch_bounds__(kAttnThreads) attention_bwd_dkv_kernel(const AttnArgs a) {
-  constexpr int TS = TileLayout<T>::kStride, TE = TileLayout<T>::kElems;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // k rows j0..
-  T* Qs = Ks + TE;                         // T(q * scale) rows i0..
-  T* dOs = Qs + TE;                        // do rows i0..
-  T* dSs = dOs + TE;                       // ds[i][j]
-  T* Pt = dSs + TE;                        // T(p)[j][i]
-  float* ST = reinterpret_cast<float*>(Pt + TE);  // s^T [64][kAccStride]
-  float* DV = ST + kTile * kAccStride;
-  float* DK = DV + kTile * kAccStride;
-  float* lse_s = DK + kTile * kAccStride;  // [64]
-
-  const int L = a.L, D = a.D, H = gridDim.y, h = blockIdx.y, b = blockIdx.z;
-  const int j0 = blockIdx.x * kTile;
-  const size_t base = (size_t)b * L * D + (size_t)h * kHeadDim;
-  const T* ds_g = static_cast<const T*>(a.ds) + ((size_t)b * H + h) * L * L;
-  const int tid = threadIdx.x;
-
-  load_tile(Ks, static_cast<const T*>(a.k), base, j0, L, D);
-  for (int i0 = a.causal ? j0 : 0; i0 < L; i0 += kTile) {
-    __syncthreads();
-    load_tile(Qs, static_cast<const T*>(a.q), base, i0, L, D, a.scale);
-    load_tile(dOs, static_cast<const T*>(a.dout), base, i0, L, D);
-    for (int e = tid; e < kTile * kTile; e += kAttnThreads) {
-      const int r = e / kTile, c = e % kTile, i = i0 + r, j = j0 + c;
-      dSs[r * TS + c] = i < L && j < L ? ds_g[(size_t)i * L + j] : from_f<T>(0.f);
-    }
-    for (int r = tid; r < kTile; r += kAttnThreads) {
-      lse_s[r] = i0 + r < L ? a.lse[((size_t)b * L + i0 + r) * H + h] : 0.f;
-    }
-    __syncthreads();
-    tile_product<false, true>(ST, kAccStride, Ks, TS, Qs, TS, false);  // s^T = k qs^T
-    __syncthreads();
-    for (int e = tid; e < kTile * kTile; e += kAttnThreads) {
-      const int r = e / kTile, c = e % kTile, j = j0 + r, i = i0 + c;
-      const bool keep = j < L && i < L && (!a.causal || j <= i);
-      Pt[r * TS + c] = from_f<T>(keep ? expf(ST[r * kAccStride + c] - lse_s[c]) : 0.f);
-    }
-    __syncthreads();
-    const bool acc = i0 != (a.causal ? j0 : 0);
-    tile_product<false, false>(DV, kAccStride, Pt, TS, dOs, TS, acc);  // dv += T(p)^T do
-    tile_product<true, false>(DK, kAccStride, dSs, TS, Qs, TS, acc);   // dk += ds^T qs
-  }
-  __syncthreads();
-  T* dK = static_cast<T*>(a.dk);
-  T* dV = static_cast<T*>(a.dv);
-  for (int e = tid; e < kTile * kHeadDim; e += kAttnThreads) {
-    const int r = e / kHeadDim, c = e % kHeadDim, j = j0 + r;
-    if (j < L) {
-      dK[base + (size_t)j * D + c] = from_f<T>(DK[r * kAccStride + c]);
-      dV[base + (size_t)j * D + c] = from_f<T>(DV[r * kAccStride + c]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 
 template <typename T>
 struct Bwd {
@@ -517,24 +259,14 @@ struct Bwd {
     // 2. do = T(g @ Wout^T).
     FLYP_CHECK((launch_gemm<T, false, true, kOpNone, T>(gemm_args(gout, wout, s.dout, M, D, D, D, D), 1, st)));
 
-    // 3, 4. Attention backward, pass (a) then pass (b).
-    AttnArgs a{};
-    a.q = q; a.k = k; a.v = v; a.dout = s.dout; a.lse = lse; a.ds = s.ds;
+    // 3, 4. Attention backward (attention.cuh), pass (a) then pass (b).
+    AttnArgs a = attn_args(q, k, v, (long long)L * D, D, L, causal);
+    a.dout = s.dout;
+    a.stats = const_cast<float*>(lse);  // read only, in the attention block's scheme
+    a.ds = s.ds;
     a.dq = s.d; a.dk = s.d + (size_t)M * D; a.dv = s.d + 2 * (size_t)M * D;
-    a.L = L; a.D = D; a.causal = causal; a.scale = 1.0f / sqrtf((float)kHeadDim);
-    const int n_tiles = (L + kTile - 1) / kTile;
-    a.s_stride = n_tiles * kTile + 4;
-    const dim3 agrid(n_tiles, H, B);
-    const size_t smem_a = 3 * TileLayout<T>::kElems * sizeof(T) + (2 * kTile * (size_t)a.s_stride + kTile) * sizeof(float);
-    FLYP_CHECK(cudaFuncSetAttribute(attention_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem_a));
-    attention_bwd_dq_kernel<T><<<agrid, kAttnThreads, smem_a, st>>>(a);
-    FLYP_CHECK(cudaGetLastError());
-    const size_t smem_b = 5 * TileLayout<T>::kElems * sizeof(T) + (3 * kTile * kAccStride + kTile) * sizeof(float);
-    FLYP_CHECK(cudaFuncSetAttribute(attention_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)smem_b));
-    attention_bwd_dkv_kernel<T><<<agrid, kAttnThreads, smem_b, st>>>(a);
-    FLYP_CHECK(cudaGetLastError());
+    a.out_b = (long long)L * D; a.out_r = D;
+    FLYP_CHECK((attention_backward<T, true>(a, B, H, st)));
 
     // 5. dbqkv[t] = colsum(d_t).
     const int c_rows = 256, c_chunks = (M + c_rows - 1) / c_rows;

@@ -1,5 +1,6 @@
-// Device helpers and the tiled GEMM shared by the attention-block kernels
-// (forward and backward).
+// Device helpers, the tiled GEMM and the 64-wide attention tiles shared by the
+// package's kernels (attention block forward and backward, MLP block,
+// attention).
 
 #pragma once
 
@@ -44,6 +45,11 @@ __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_
 // rounds it (no contraction into an FMA).
 __device__ __forceinline__ float ln_apply(float x, float mean, float rstd, float g, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mean), rstd), g), b);
+}
+
+// x * sigmoid(1.702 x) in fp32 (CLIP's QuickGELU), sigmoid as 1 / (1 + e^-z).
+__device__ __forceinline__ float quick_gelu(float x) {
+  return __fmul_rn(x, __fdiv_rn(1.f, __fadd_rn(1.f, expf(-__fmul_rn(1.702f, x)))));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -141,11 +147,13 @@ __device__ __forceinline__ uint4 load16(const bf16* p) { return __ldg(reinterpre
 // chunk of the contraction, whose partial goes to C[s][zt] ([M, N] each).
 // Rows past M and the contraction past K read as zeros; N % 128 == 0.
 //
-// kOps says what else it does, at compile time.  kOpLN (A held [M, K], one
-// segment, one split): A' = LN(A) over A's K columns with ln_scale/ln_bias,
-// rounded to the operand type as the tile is stored.  The epilogue, in fp32
-// with each step rounded: kOpResid adds resid (an [M, N] tensor of the
-// output type), then kOpBias adds bias; then C rounds to its type.
+// kOps says what else it does, at compile time.  Operand prologues (A held
+// [M, K]), each rounded to the operand type as the tile is stored: kOpLN (one
+// segment, one split): A' = LN(A) over A's K columns with ln_scale/ln_bias;
+// kOpGelu: A' = quick_gelu(A) in fp32.  The epilogue, in fp32 with each step
+// rounded: kOpResid adds resid (an [M, N] tensor of the output type), then
+// kOpBias adds bias (with kOpResidLast the bias first, then resid: resid +
+// (acc + bias)); then C rounds to its type.
 //
 // bf16 runs on the tensor cores (mma.sync m16n8k16, fp32 accumulate); fp32
 // runs FMA tiles on the CUDA cores, since the tensor cores would round fp32
@@ -155,7 +163,7 @@ __device__ __forceinline__ uint4 load16(const bf16* p) { return __ldg(reinterpre
 // a thread).
 constexpr int kGemmThreads = 256;
 constexpr int kBM = 128, kBN = 128;
-enum : int { kOpNone = 0, kOpLN = 1, kOpBias = 2, kOpResid = 4 };
+enum : int { kOpNone = 0, kOpLN = 1, kOpBias = 2, kOpResid = 4, kOpGelu = 8, kOpResidLast = 16 };
 
 struct GemmArgs {
   const void* A;
@@ -215,12 +223,17 @@ __device__ void gemm_ln_stats(const T* A, int M, int K, int lda, int m0, float* 
 template <int kOps, typename TOut>
 __device__ __forceinline__ void gemm_store(TOut* C, const TOut* resid, const float* bias, int N, int m, int n,
                                            float v0, float v1) {
+  constexpr bool kBiasFirst = (kOps & kOpBias) && (kOps & kOpResidLast);
+  if (kBiasFirst) {
+    v0 = __fadd_rn(v0, __ldg(bias + n));
+    v1 = __fadd_rn(v1, __ldg(bias + n + 1));
+  }
   if (kOps & kOpResid) {
     const float2 r = load_pair(resid + (size_t)m * N + n);
     v0 = __fadd_rn(r.x, v0);
     v1 = __fadd_rn(r.y, v1);
   }
-  if (kOps & kOpBias) {
+  if ((kOps & kOpBias) && !kBiasFirst) {
     v0 = __fadd_rn(v0, __ldg(bias + n));
     v1 = __fadd_rn(v1, __ldg(bias + n + 1));
   }
@@ -235,6 +248,8 @@ constexpr int kFmaPad = 4;  // spreads the transposed stores over banks
 template <bool kAT, bool kBT, int kOps>
 __global__ void __launch_bounds__(kGemmThreads, 2) gemm_fma_kernel(const GemmArgs a) {
   constexpr bool kLN = kOps & kOpLN;
+  constexpr bool kGelu = kOps & kOpGelu;
+  static_assert(!((kLN || kGelu) && kAT), "the operand prologues read A held [M, K]");
   __shared__ float As[kFmaBK][kBM + kFmaPad];  // [k][m]
   __shared__ float Bs[kFmaBK][kBN + kFmaPad];  // [k][n]
   __shared__ float row_mean[kLN ? kBM : 1];
@@ -277,6 +292,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_fma_kernel(const GemmArg
           if (k < gb.kend && m < M) {
             v = As_g[(size_t)m * lda + k];
             if (kLN) v = ln_apply(v, row_mean[r], row_rstd[r], a.ln_scale[k], a.ln_bias[k]);
+            if (kGelu) v = quick_gelu(v);
           }
           As[c][r] = v;
         }
@@ -335,7 +351,9 @@ constexpr int kWide = kBM + 8;       // bf16 per row of a [32][128] tile: 272 B
 template <bool kAT, bool kBT, int kOps, typename TOut>
 __global__ void __launch_bounds__(kGemmThreads, 2) gemm_mma_kernel(const GemmArgs a) {
   constexpr bool kLN = kOps & kOpLN;
-  static_assert(!(kLN && kAT), "the LN prologue normalises rows of A held [M, K]");
+  constexpr bool kGelu = kOps & kOpGelu;
+  static_assert(!((kLN || kGelu) && kAT), "the operand prologues read A held [M, K]");
+  static_assert(!(kLN && kGelu), "one operand prologue");
   static_assert(!(kAT && kBT), "a masked contraction reads rows of A and B");
   __shared__ __align__(16) bf16 As[kBM * kNarrow];  // [128][kNarrow], or [32][kWide] with kAT
   __shared__ __align__(16) bf16 Bs[kBN * kNarrow];  // [32][kWide], or [128][kNarrow] with kBT
@@ -419,6 +437,11 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_mma_kernel(const GemmArg
           for (int j = 0; j < 8; ++j) {
             h[j] = __float2bfloat16_rn(ln_apply(__bfloat162float(h[j]), row_mean[r], row_rstd[r], g[j], b[j]));
           }
+        }
+        if (kGelu && m0 + r < M) {
+          bf16* h = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16_rn(quick_gelu(__bfloat162float(h[j])));
         }
         *reinterpret_cast<uint4*>(&As[r * kNarrow + c]) = v;
       }
@@ -505,6 +528,128 @@ cudaError_t launch_gemm(const GemmArgs& g, int towers, cudaStream_t st) {
     gemm_mma_kernel<kAT, kBT, kOps, TOut><<<grid, kGemmThreads, 0, st>>>(g);
   }
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Attention tiles: 64 rows (keys, or a query tile of kRows rows) x 64 head
+// features in shared memory, and the product of two such tiles.  Used by the
+// attention-block backward (attention_block_bwd.cu) and the attention kernels
+// (attention.cu).
+
+constexpr int kTile = 64;
+
+template <typename T>
+struct TileLayout {
+  static constexpr int kStride = sizeof(T) == 4 ? kTile + 1 : kTile + 8;  // fp32: conflict-free column walks;
+                                                                          // bf16: 144 B rows for ldmatrix
+  static constexpr int kElems = kTile * kStride;
+};
+constexpr int kAccStride = kTile + 4;  // fp32 result tiles
+
+// C[kRows][64] (=, or += with acc) sum over k < 64 of opA[m][k] * opB[k][n]:
+// opA is A[m][k] (A held [k][m] with kAT), opB is B[k][n] (B held [n][k]
+// with kBT).  Call from all 2 * kRows threads of the block; each warp (bf16:
+// 16 rows) or thread (fp32: 8 rows x 4 columns) writes only its own outputs,
+// so the caller syncs before reading C.
+template <bool kAT, bool kBT, int kRows = kTile>
+__device__ __forceinline__ void tile_product(float* C, int ldc, const float* A, int lda, const float* B, int ldb,
+                                             bool acc) {
+  constexpr int kStep = kRows / 8;  // rows between a thread's rows
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;  // rows ty + kStep i, cols tx + 16j
+  float r[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r[i][j] = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < kTile; ++k) {
+    float av[8], bv[4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) av[i] = kAT ? A[k * lda + ty + kStep * i] : A[(ty + kStep * i) * lda + k];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = kBT ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[i][j] = fmaf(av[i], bv[j], r[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float& c = C[(ty + kStep * i) * ldc + tx + 16 * j];
+      c = acc ? c + r[i][j] : r[i][j];
+    }
+}
+
+template <bool kAT, bool kBT, int kRows = kTile>
+__device__ __forceinline__ void tile_product(float* C, int ldc, const bf16* A, int lda, const bf16* B, int ldb,
+                                             bool acc) {
+  static_assert(kRows % 16 == 0, "one warp per 16 rows");
+  const int lane = threadIdx.x % 32, wr = (threadIdx.x / 32) * 16;  // this warp's 16 rows
+  float r[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) r[nt][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < kTile / 16; ++ks) {
+    uint32_t af[4];
+    if (kAT) {
+      ldmatrix_x4_trans(af, &A[(ks * 16 + ldm_row(lane, true)) * lda + wr + ldm_col(lane, true)]);
+    } else {
+      ldmatrix_x4(af, &A[(wr + ldm_row(lane, false)) * lda + ks * 16 + ldm_col(lane, false)]);
+    }
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      uint32_t b[4];
+      if (kBT) {
+        ldmatrix_x4(b, &B[(np * 16 + ldm_row(lane, true)) * ldb + ks * 16 + ldm_col(lane, true)]);
+      } else {
+        ldmatrix_x4_trans(b, &B[(ks * 16 + ldm_row(lane, false)) * ldb + np * 16 + ldm_col(lane, false)]);
+      }
+      mma_bf16(r[2 * np], af, b[0], b[1]);
+      mma_bf16(r[2 * np + 1], af, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float* c = &C[(wr + lane / 4 + half * 8) * ldc + nt * 8 + (lane % 4) * 2];
+      c[0] = acc ? c[0] + r[nt][2 * half] : r[nt][2 * half];
+      c[1] = acc ? c[1] + r[nt][2 * half + 1] : r[nt][2 * half + 1];
+    }
+}
+
+// kRows rows (row0.., zeros past L) x 64 head features of src (row stride ld
+// elements; rows 16-byte aligned) into a tile, in 16-byte pieces, by all
+// kThreads threads of the block; with scale, T(v * scale).  The block size
+// is a constant so the loop unrolls and its loads are all in flight at once.
+template <int kRows, int kThreads, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, long long ld, int row0, int L,
+                                          float scale = 0.f) {
+  constexpr int S = TileLayout<T>::kStride;
+  constexpr int kVec = 16 / sizeof(T), kPieces = kHeadDim / kVec;
+#pragma unroll
+  for (int e = threadIdx.x; e < kRows * kPieces; e += kThreads) {
+    const int r = e / kPieces, c = (e % kPieces) * kVec, j = row0 + r;
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (j < L) u = __ldg(reinterpret_cast<const uint4*>(src + (size_t)j * ld + c));
+    if constexpr (S * sizeof(T) % 16 == 0) {  // bf16 tile rows: one 16-byte store
+      if (scale == 0.f) {
+        *reinterpret_cast<uint4*>(&dst[r * S + c]) = u;
+        continue;
+      }
+    }
+    const T* v = reinterpret_cast<const T*>(&u);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      float f = to_f(v[i]);
+      if (scale != 0.f) f = __fmul_rn(f, scale);
+      dst[r * S + c + i] = from_f<T>(f);
+    }
+  }
 }
 
 }  // namespace flyp

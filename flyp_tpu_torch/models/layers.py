@@ -2,21 +2,50 @@
 
 Counterpart of ``flyp_tpu/models/layers.py``: LayerNorm runs in float32
 whatever the activation type (the "fp32 island"), the MLP uses QuickGELU,
-and the attention sub-block (LN1 + QKV + attention + out-projection +
-residual) is one fused op, the CUDA kernels on the card: the training op
-(forward B1, backward B2) in training mode, the inference op (B3) in eval
-mode, as the JAX block chooses by its ``train`` argument.  Parameter names and
-shapes follow the JAX param tree (``ln_1.scale``, ``attn.qkv_kernel
-[3, D, D]``, ``mlp.fc_kernel [D, 4D]``...), so carrying weights across is a
-rename.
+and ``FLYP_ATTENTION_IMPL`` (``ops/attention.py``) picks each block's route
+as the JAX block does:
+
+* ``pallas_block`` (the default) and ``pallas_block_mlp``: the attention
+  sub-block (LN1 + QKV + attention + out-projection + residual) is one fused
+  op, the CUDA kernels on the card: the training op (forward B1, backward
+  B2) in training mode, the inference op (B3) in eval mode;
+  ``pallas_block_mlp`` also runs the MLP sub-block as the fused MLP op (B4);
+* ``pallas_qkv``: ``x + MHA(LN1(x))`` with attention straight from the
+  fused projection (B5);
+* ``pallas``: the same with attention over split heads by B6;
+* ``xla`` (and any other value): the same with plain attention.
+
+Outside the fused ops the projections are plain matmuls in the activation
+type, as the JAX package leaves them to XLA.  Parameter names and shapes
+follow the JAX param tree under every impl (``ln_1.scale``,
+``attn.qkv_kernel [3, D, D]``, ``mlp.fc_kernel [D, 4D]``...), so carrying
+weights across is a rename and a checkpoint loads under any impl.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 from torch import nn
 
+from flyp_tpu_torch.ops.attention import _default_impl, multi_head_attention
 from flyp_tpu_torch.ops.attention_block import attention_block, attention_block_inference
+from flyp_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
+from flyp_tpu_torch.ops.mlp_block import mlp_block
+
+# Matmul output policy (JAX's ``FLYP_MATMUL_OUT``): "native" multiplies in
+# the activation type; "fp32" multiplies the same operands with fp32 outputs
+# and casts the result to the activation type.
+_MATMUL_OUT = os.environ.get("FLYP_MATMUL_OUT", "native")
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with ``w`` cast to ``x``'s type: JAX's ``_einsum``."""
+    w = w.to(x.dtype)
+    if _MATMUL_OUT == "fp32":
+        return torch.matmul(x.float(), w.float()).to(x.dtype)
+    return torch.matmul(x, w)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -50,14 +79,18 @@ class LayerNormFp32(nn.Module):
         return (y * self.scale + self.bias).to(x.dtype)
 
 
-class AttentionParams(nn.Module):
-    """The attention sub-block's weights, laid out as the JAX tree holds
-    them: q|k|v on the leading axis of ``qkv_kernel`` and head-major output
-    features on the last."""
+class MultiHeadAttention(nn.Module):
+    """Self-attention with a fused QKV projection, laid out as the JAX tree
+    holds it: q|k|v on the leading axis of ``qkv_kernel [3, D, D]`` and
+    head-major output features on the last.  Its forward is the unfused
+    route (``pallas_qkv``, ``pallas``, ``xla``); the fused sub-block op reads
+    the same parameters."""
 
-    def __init__(self, width: int):
+    def __init__(self, width: int, heads: int, causal: bool = False):
         super().__init__()
         D = width
+        self.heads = heads
+        self.causal = causal
         self.qkv_kernel = nn.Parameter(torch.empty(3, D, D))
         self.qkv_bias = nn.Parameter(torch.zeros(3, D))
         self.out_kernel = nn.Parameter(torch.empty(D, D))
@@ -70,6 +103,19 @@ class AttentionParams(nn.Module):
         with torch.no_grad():
             self.qkv_bias.zero_()
             self.out_bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, L, D = x.shape
+        dtype = x.dtype
+        # One [B*L, D] @ [D, 3D] product: JAX's [B, L, 3, D] held as [B, L, 3D].
+        w = self.qkv_kernel.permute(1, 0, 2).reshape(D, 3 * D)
+        qkv = _matmul(x, w) + self.qkv_bias.reshape(3 * D).to(dtype)
+        if _default_impl() == "pallas_qkv":
+            o = fused_qkv_attention(qkv, self.heads, self.causal)
+        else:
+            q, k, v = (qkv[..., t * D:(t + 1) * D].reshape(B, L, self.heads, D // self.heads) for t in range(3))
+            o = multi_head_attention(q, k, v, self.causal).reshape(B, L, D)
+        return _matmul(o, self.out_kernel) + self.out_bias.to(dtype)
 
 
 class MLP(nn.Module):
@@ -94,34 +140,48 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = x.dtype
-        h = quick_gelu(torch.matmul(x, self.fc_kernel.to(dtype)) + self.fc_bias.to(dtype))
-        return torch.matmul(h, self.proj_kernel.to(dtype)) + self.proj_bias.to(dtype)
+        h = quick_gelu(_matmul(x, self.fc_kernel) + self.fc_bias.to(dtype))
+        return _matmul(h, self.proj_kernel) + self.proj_bias.to(dtype)
 
 
 class ResidualBlock(nn.Module):
-    """Pre-LN transformer block: the fused attention sub-block, then
-    ``x + MLP(LN2(x))``.  The module's ``training`` flag picks the attention
-    op (JAX's ``train`` argument): the training op keeps the forward's
-    residuals for the backward; the inference op does not (per-block
-    rematerialisation, the JAX ``remat`` option, is not ported yet)."""
+    """Pre-LN transformer block: the attention sub-block, then the MLP
+    sub-block, each on the route ``FLYP_ATTENTION_IMPL`` picks (module
+    docstring).  Under the fused routes the module's ``training`` flag picks
+    the attention op (JAX's ``train`` argument): the training op keeps the
+    forward's residuals for the backward; the inference op does not
+    (per-block rematerialisation, the JAX ``remat`` option, is not ported
+    yet)."""
 
     def __init__(self, width: int, heads: int, causal: bool = False):
         super().__init__()
         self.heads = heads
         self.causal = causal
         self.ln_1 = LayerNormFp32(width)
-        self.attn = AttentionParams(width)
+        self.attn = MultiHeadAttention(width, heads, causal)
         self.ln_2 = LayerNormFp32(width)
         self.mlp = MLP(width)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a = self.attn
-        block_fn = attention_block if self.training else attention_block_inference
-        x = block_fn(
-            x, self.ln_1.scale, self.ln_1.bias, a.qkv_kernel, a.qkv_bias, a.out_kernel, a.out_bias,
-            self.heads, self.causal,
-        )
+    def attention(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` plus the attention sub-block."""
+        if _default_impl() in ("pallas_block", "pallas_block_mlp"):
+            a = self.attn
+            block_fn = attention_block if self.training else attention_block_inference
+            return block_fn(
+                x, self.ln_1.scale, self.ln_1.bias, a.qkv_kernel, a.qkv_bias, a.out_kernel, a.out_bias,
+                self.heads, self.causal,
+            )
+        return x + self.attn(self.ln_1(x))
+
+    def feed_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` plus the MLP sub-block."""
+        if _default_impl() == "pallas_block_mlp":
+            m = self.mlp
+            return mlp_block(x, self.ln_2.scale, self.ln_2.bias, m.fc_kernel, m.fc_bias, m.proj_kernel, m.proj_bias)
         return x + self.mlp(self.ln_2(x))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.feed_forward(self.attention(x))
 
 
 class Transformer(nn.Module):

@@ -1,0 +1,65 @@
+"""Tolerances that hold the attention kernels (B5, B6) to their plain versions.
+
+``chip_smoke.py`` and ``tests/test_torch_cuda.py`` use :func:`check_attention`
+on the forward's ``o`` and on each of ``dq``, ``dk``, ``dv``.  Kernel and
+plain version round at the same points, so they differ only where an fp32
+sum in another order flips a rounding: rarely, and by an ulp of the value.
+Three bounds, each of which a wrong kernel breaks:
+
+- relative norm ``||got - ref|| / ||ref||``: 1e-5 in fp32, 1e-2 in bf16;
+- elementwise ``|got - ref| <= atol + ulp |ref|``: fp32 1e-5 (no relative
+  term); bf16 1.5e-2 (about twice the worst error seen on the card,
+  0.0078) plus one bf16 ulp of the value (2^-7), so a flip in a grad of
+  magnitude 2-4 still passes;
+- mean absolute error: 1e-6 in fp32, 2e-3 in bf16.
+
+Typical outputs at CLIP's shapes are 0.05-0.12 (grads) and ~0.1 (``o``).
+Dropping ``delta = rowsum(p dp)`` from ``ds`` moves ``dq`` and ``dk`` by
+about a tenth of their size (:func:`backward_without_delta`, the planted
+fault the tests hold the bounds against).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from flyp_tpu_torch.ops.flash_attention import _probs
+
+# dtype -> (relative norm, elementwise absolute, elementwise relative, mean absolute).
+ATTENTION_TOL = {
+    torch.float32: (1e-5, 1e-5, 0.0, 1e-6),
+    torch.bfloat16: (1e-2, 1.5e-2, 2.0 ** -7, 2e-3),
+}
+
+
+def attention_errors(got, ref) -> dict:
+    """Max abs, relative-norm and mean abs error of ``got`` against ``ref``."""
+    err = (got.float() - ref.float()).abs()
+    return {"max_abs": float(err.max()), "rel_norm": float(err.norm() / ref.float().norm()),
+            "mean_abs": float(err.mean())}
+
+
+def check_attention(name: str, got, ref, where=None) -> dict:
+    """Raise ``AssertionError`` unless ``got`` is finite and within
+    :data:`ATTENTION_TOL` of ``ref`` for its type; return its errors."""
+    rel, atol, ulp, mean = ATTENTION_TOL[ref.dtype]
+    errs = attention_errors(got, ref)
+    over = int(((got.float() - ref.float()).abs() > atol + ulp * ref.float().abs()).sum())
+    if not bool(torch.isfinite(got).all()) or over or errs["rel_norm"] > rel or errs["mean_abs"] > mean:
+        raise AssertionError(f"{name} disagrees with its plain version at {where}: {errs}, {over} elements past "
+                             f"{atol} + {ulp}|ref| (bounds: relative norm {rel}, mean abs {mean})")
+    return errs
+
+
+def backward_without_delta(q, k, v, do, causal: bool = False):
+    """A planted fault: ``flash_attention_backward_reference`` with ``delta``
+    dropped from ``ds`` (``ds = T(p dp scale)``), to show the bounds catch it."""
+    dtype = q.dtype
+    p = _probs(q, k, causal)
+    do32 = do.to(dtype).float()
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(dtype).float(), do32).to(dtype)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v.float())
+    ds = (p * dp * q.shape[-1] ** -0.5).to(dtype).float()
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(dtype)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(dtype)
+    return dq, dk, dv

@@ -198,3 +198,158 @@ def test_inference_op_backward_runs_training_kernels(card):
     gt = torch.autograd.grad(tab.attention_block(x, *params, 8, True), [x, *params], g)
     for a, b in zip(gi, gt):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# B4 (MLP block), B5 (fused-QKV attention) and B6 (whole-row attention).
+
+from flyp_tpu_torch.ops import flash_attention as tfa  # noqa: E402
+from flyp_tpu_torch.ops import fused_qkv_attention as tfq  # noqa: E402
+from flyp_tpu_torch.ops import mlp_block as tmb  # noqa: E402
+
+from flyp_tpu_torch.testing import check_attention  # noqa: E402
+
+# B4 vs plain, elementwise (absolute + relative): fp32 differs by summation
+# order only; bf16 may also flip a rounding of h_pre or h (a few ulps of
+# O(1) values).  B5/B6 are held to check_attention's bounds.
+MLP_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def _mlp_params(B, L, D, seed, card):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    arrays = (
+        rng.standard_normal((B, L, D)).astype(f32),
+        (1.0 + 0.1 * rng.standard_normal(D)).astype(f32),
+        (0.1 * rng.standard_normal(D)).astype(f32),
+        (rng.standard_normal((D, 4 * D)) * (2 * D) ** -0.5).astype(f32),
+        (0.1 * rng.standard_normal(4 * D)).astype(f32),
+        (rng.standard_normal((4 * D, D)) * D ** -0.5).astype(f32),
+        (0.1 * rng.standard_normal(D)).astype(f32),
+    )
+    return [torch.from_numpy(a).to(card) for a in arrays]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 197, 768), (4, 77, 512), (3, 13, 128)])
+def test_mlp_block_kernel_matches_plain_on_card(card, shape, dtype):
+    """B4: out and h_pre against the plain forward; grads through autograd
+    against the plain backward on the plain forward's h_pre (relative norm:
+    fp32 1e-5, bf16 1e-2)."""
+    B, L, D = shape
+    dt = getattr(torch, dtype)
+    x, *params = _mlp_params(B, L, D, seed=L, card=card)
+    x = x.to(dt)
+    fwd_tol = MLP_TOL[dtype]
+    before = tmb.mlp_block.fwd_launches
+    with torch.no_grad():
+        out, h_pre = tmb._kernel_forward(x, *params)
+        torch.cuda.synchronize()
+        ref, ref_h = tmb.mlp_block_reference(x, *params)
+    assert tmb.mlp_block.fwd_launches == before + 1
+    assert out.dtype == dt and h_pre.dtype == dt and h_pre.shape == (B, L, 4 * D)
+    torch.testing.assert_close(h_pre.float(), ref_h.float(), atol=fwd_tol, rtol=fwd_tol)
+    torch.testing.assert_close(out.float(), ref.float(), atol=fwd_tol, rtol=fwd_tol)
+    g = torch.from_numpy(np.random.default_rng(D).standard_normal((B, L, D)).astype(np.float32)).to(card).to(dt)
+    inputs = [x.requires_grad_(True)] + [p.requires_grad_(True) for p in params]
+    grads = torch.autograd.grad(tmb.mlp_block(*inputs), inputs, g)
+    assert tmb.mlp_block.fwd_launches == before + 2
+    ln_s, ln_b, w1, _, w2, _ = params
+    with torch.no_grad():
+        ref_g = tmb.mlp_block_backward(g, x, ln_s, ln_b, w1, w2, ref_h)
+    norm = 1e-5 if dt == torch.float32 else 1e-2
+    for name, a, b in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), grads, ref_g):
+        assert _rel(a, b) < norm, (name, _rel(a, b))
+
+
+def _attention_inputs(op, B, L, H, dt, seed, card):
+    rng = np.random.default_rng(seed)
+    D = H * 64
+    if op == "fused_qkv":
+        t = rng.standard_normal((B, L, 3 * D)).astype(np.float32)
+        return [torch.from_numpy(t).to(card).to(dt)], torch.from_numpy(
+            rng.standard_normal((B, L, D)).astype(np.float32)).to(card).to(dt)
+    ts = [torch.from_numpy(rng.standard_normal((B, L, H, 64)).astype(np.float32)).to(card).to(dt) for _ in range(4)]
+    return ts[:3], ts[3]
+
+
+def _attention_ops(op, H, causal):
+    """(op, plain forward, plain backward, its launch counters)."""
+    if op == "fused_qkv":
+        return (lambda t: tfq.fused_qkv_attention(t, H, causal),
+                lambda t: tfq.fused_qkv_attention_reference(t, H, causal),
+                lambda t, g: (tfq.fused_qkv_attention_backward_reference(t, g, H, causal),),
+                tfq.fused_qkv_attention)
+    return (lambda q, k, v: tfa.flash_attention(q, k, v, causal),
+            lambda q, k, v: tfa.flash_attention_reference(q, k, v, causal),
+            lambda q, k, v, g: tfa.flash_attention_backward_reference(q, k, v, g, causal),
+            tfa.flash_attention)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 197, 12, False), (4, 77, 8, True), (3, 13, 2, True), (2, 577, 4, False),
+                                   (1, 800, 2, False), (1, 1024, 2, True)])
+@pytest.mark.parametrize("op", ["fused_qkv", "flash"])
+def test_attention_kernels_match_plain_on_card(card, op, shape, dtype):
+    """B5 and B6, forward and backward, against their plain versions at every
+    query tile the kernels pick (L up to 1024): o and each of dq, dk, dv
+    within check_attention's bounds."""
+    B, L, H, causal = shape
+    dt = getattr(torch, dtype)
+    inputs, g = _attention_inputs(op, B, L, H, dt, seed=L, card=card)
+    fn, plain, plain_bwd, counted = _attention_ops(op, H, causal)
+    before = (counted.fwd_launches, counted.bwd_launches)
+    leaves = [t.requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (counted.fwd_launches, counted.bwd_launches) == (before[0] + 1, before[1] + 1)
+    with torch.no_grad():
+        ref = plain(*inputs)
+        ref_grads = plain_bwd(*inputs, g)
+    assert out.dtype == dt and out.shape == ref.shape
+    check_attention("forward", out, ref, shape)
+    for a, b in zip(grads, ref_grads):
+        assert a.dtype == dt and a.shape == b.shape
+    if op == "fused_qkv":  # one dqkv: its q, k and v thirds
+        grads, ref_grads = tfq._heads(grads[0], H), tfq._heads(ref_grads[0], H)
+    for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
+        check_attention(name, a, b, shape)
+
+
+def test_flash_kernel_reads_strided_heads(card):
+    """q, k, v as views of one [B, L, 3D] projection (as the attention module
+    splits it) give what contiguous copies give, bit for bit."""
+    B, L, H = 2, 50, 4
+    qkv = torch.randn(B, L, 3 * H * 64, device=card, dtype=torch.bfloat16, generator=None)
+    views = [qkv[..., t * H * 64:(t + 1) * H * 64].reshape(B, L, H, 64) for t in range(3)]
+    g = torch.randn(B, L, H, 64, device=card, dtype=torch.bfloat16)
+    leaves = [v.detach().requires_grad_(True) for v in views]
+    copies = [v.contiguous().requires_grad_(True) for v in views]
+    out_v = tfa.flash_attention(*leaves, True)
+    out_c = tfa.flash_attention(*copies, True)
+    assert torch.equal(out_v, out_c)
+    for a, b in zip(torch.autograd.grad(out_v, leaves, g), torch.autograd.grad(out_c, copies, g)):
+        assert torch.equal(a, b)
+
+
+def test_attention_kernels_refuse_what_they_do_not_take(card):
+    """B5 takes L <= 1024 on the card (ValueError naming the limit); B6
+    refuses longer rows with its shape refusal, which the pallas dispatch
+    catches; both need head_dim 64."""
+    qkv = torch.zeros(1, 1025, 3 * 128, device=card)
+    with pytest.raises(ValueError, match="L <= 1024"):
+        tfq.fused_qkv_attention(qkv, 2, False)
+    q = torch.zeros(1, 1025, 2, 64, device=card)
+    with pytest.raises(tfa.UnsupportedShape):
+        tfa.flash_attention(q, q, q, False)
+    from flyp_tpu_torch.ops.attention import multi_head_attention, xla_attention
+
+    before = tfa.flash_attention.fwd_launches
+    torch.testing.assert_close(multi_head_attention(q, q, q, False, impl="pallas"), xla_attention(q, q, q, False))
+    assert tfa.flash_attention.fwd_launches == before
+    with pytest.raises(ValueError, match="head_dim 64"):
+        tfa.flash_attention(torch.zeros(1, 9, 2, 32, device=card), torch.zeros(1, 9, 2, 32, device=card),
+                            torch.zeros(1, 9, 2, 32, device=card), False)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        tfq.fused_qkv_attention(torch.zeros(1, 9, 3 * 128, device=card), 4, False)

@@ -4,8 +4,9 @@ One tiny CLIP (``__graft_entry__._tiny_config(real_text=True)``: real
 vocabulary and context, 2-layer 128-wide towers) initialised by the JAX
 package; its params cross to the port through ``from_jax_params`` and
 through the OpenAI-layout state dict, and both towers must agree with
-``CLIPModel.apply`` in fp32 under the JAX default impl and under
-``pallas_block`` (the kernel path, interpret mode on CPU).
+``CLIPModel.apply`` in fp32 under every ``FLYP_ATTENTION_IMPL`` value, the
+port and JAX under the same one (JAX's Pallas kernels in interpret mode on
+the CPU).
 """
 
 import dataclasses
@@ -23,14 +24,37 @@ from flyp_tpu.models import MODEL_CONFIGS as JAX_MODEL_CONFIGS
 from flyp_tpu.models import init_clip_params
 from flyp_tpu.models import resolve_model_name as jax_resolve_model_name
 from flyp_tpu.models.convert import export_clip_state_dict as jax_export_clip_state_dict
+import flyp_tpu.ops.flash_attention as jax_flash_attention_mod
 from flyp_tpu.ops.attention import _default_impl
 from flyp_tpu.tokenizer import shrink_context, tokenize
 from flyp_tpu_torch.models import MODEL_CONFIGS, CLIPModel, build_clip_model, convert, resolve_model_name
 from flyp_tpu_torch.models.configs import CLIPConfig, TextConfig, VisionConfig
+from flyp_tpu_torch.ops.attention import _default_impl as port_default_impl
 
 torch.set_num_threads(1)
 
 TOL = dict(atol=1e-4, rtol=1e-4)  # fp32 towers: summation order differs over 2 layers
+
+
+IMPLS = ["auto", "xla", "pallas", "pallas_qkv", "pallas_block", "pallas_block_mlp"]
+
+
+def set_impl(monkeypatch, impl):
+    """Both packages under ``impl``; their cached choices cleared (the
+    caller clears them again when done).  JAX's ``pallas`` route calls the
+    flash kernel outside interpret mode, which the CPU refuses, so it is
+    pointed at the interpret-mode kernel."""
+    monkeypatch.setenv("FLYP_ATTENTION_IMPL", impl)
+    real = jax_flash_attention_mod.flash_attention
+    monkeypatch.setattr(jax_flash_attention_mod, "flash_attention",
+                        lambda q, k, v, causal=False, interpret=False: real(q, k, v, causal, True))
+    _default_impl.cache_clear()
+    port_default_impl.cache_clear()
+
+
+def clear_impl():
+    _default_impl.cache_clear()
+    port_default_impl.cache_clear()
 
 
 def port_config(cfg) -> CLIPConfig:
@@ -94,11 +118,11 @@ def test_openai_layout_loads_strictly_and_round_trips(tiny):
         np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
 
 
-@pytest.mark.parametrize("impl", ["auto", "pallas_block"])
+@pytest.mark.parametrize("impl", IMPLS)
 def test_towers_match_jax(tiny, impl, monkeypatch):
-    monkeypatch.setenv("FLYP_ATTENTION_IMPL", impl)
-    _default_impl.cache_clear()
+    set_impl(monkeypatch, impl)
     try:
+        assert port_default_impl() == ("pallas_block" if impl == "auto" else impl)
         variables = {"params": tiny.params}
         apply = tiny.jmodel.apply
         shrunk = shrink_context(tiny.tokens)
@@ -107,21 +131,21 @@ def test_towers_match_jax(tiny, impl, monkeypatch):
         ref_txt = np.asarray(apply(variables, jnp.asarray(tiny.tokens), method="encode_text"))
         ref_short = np.asarray(apply(variables, jnp.asarray(shrunk), method="encode_text"))
         ref_i, ref_t, ref_s = apply(variables, jnp.asarray(tiny.images), jnp.asarray(tiny.tokens))
+        m = tiny.model
+        with torch.inference_mode():
+            images, tokens = torch.from_numpy(tiny.images), torch.from_numpy(tiny.tokens)
+            np.testing.assert_allclose(m.encode_image(images).numpy(), ref_img, **TOL)
+            np.testing.assert_allclose(m.encode_text(tokens).numpy(), ref_txt, **TOL)
+            np.testing.assert_allclose(m.encode_text(torch.from_numpy(shrunk)).numpy(), ref_short, **TOL)
+            i, t, s = m(images, tokens)
+            np.testing.assert_allclose(i.numpy(), np.asarray(ref_i), **TOL)
+            np.testing.assert_allclose(t.numpy(), np.asarray(ref_t), **TOL)
+            np.testing.assert_allclose(float(s), float(ref_s), rtol=1e-6)
+            # Single-tower calls return unnormalised features.
+            np.testing.assert_allclose(m(images, None).numpy(), ref_img, **TOL)
+            np.testing.assert_allclose(m(None, tokens).numpy(), ref_txt, **TOL)
     finally:
-        _default_impl.cache_clear()
-    m = tiny.model
-    with torch.inference_mode():
-        images, tokens = torch.from_numpy(tiny.images), torch.from_numpy(tiny.tokens)
-        np.testing.assert_allclose(m.encode_image(images).numpy(), ref_img, **TOL)
-        np.testing.assert_allclose(m.encode_text(tokens).numpy(), ref_txt, **TOL)
-        np.testing.assert_allclose(m.encode_text(torch.from_numpy(shrunk)).numpy(), ref_short, **TOL)
-        i, t, s = m(images, tokens)
-        np.testing.assert_allclose(i.numpy(), np.asarray(ref_i), **TOL)
-        np.testing.assert_allclose(t.numpy(), np.asarray(ref_t), **TOL)
-        np.testing.assert_allclose(float(s), float(ref_s), rtol=1e-6)
-        # Single-tower calls return unnormalised features.
-        np.testing.assert_allclose(m(images, None).numpy(), ref_img, **TOL)
-        np.testing.assert_allclose(m(None, tokens).numpy(), ref_txt, **TOL)
+        clear_impl()
 
 
 def test_random_init_is_seeded_and_clip_distributed(tiny):

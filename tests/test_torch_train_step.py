@@ -5,8 +5,10 @@ head_dim 64, 32-token context) initialised by the JAX package; its params
 cross to the port through ``from_jax_params``.  A 3-step trajectory of the
 port's ``make_train_step`` (CPU route: the plain versions of the
 attention-block kernels) is held to JAX's ``make_train_step(model,
-optimizer, mesh=None, donate=False)`` in fp32, with JAX's attention both as
-``xla`` and as the ``pallas_block`` kernels in interpret mode.
+optimizer, mesh=None, donate=False)`` in fp32 under ``FLYP_ATTENTION_IMPL``
+values ``xla``, ``pallas``, ``pallas_qkv``, ``pallas_block`` and
+``pallas_block_mlp``, the port and JAX under the same one (JAX's kernels in
+interpret mode).
 """
 
 import dataclasses
@@ -24,6 +26,7 @@ from flyp_tpu.evaluation.classifier import Classifier as JaxClassifier
 from flyp_tpu.models import CLIPModel as JaxCLIPModel
 from flyp_tpu.models import init_clip_params
 from flyp_tpu.models.head import ClassificationHead as JaxHead
+import flyp_tpu.ops.flash_attention as jax_flash_attention_mod
 from flyp_tpu.ops.attention import _IMPL_ENV, _default_impl
 from flyp_tpu.tokenizer import shrink_context
 from flyp_tpu.training.schedules import warmup_cosine_lr as jax_warmup_cosine_lr
@@ -34,6 +37,10 @@ from flyp_tpu_torch.evaluation import Classifier
 from flyp_tpu_torch.models import CLIPModel, ClassificationHead, build_clip_model, convert
 from flyp_tpu_torch.models.configs import CLIPConfig, TextConfig, VisionConfig
 from flyp_tpu_torch.ops import attention_block as tab
+from flyp_tpu_torch.ops import flash_attention as tfa
+from flyp_tpu_torch.ops import fused_qkv_attention as tfq
+from flyp_tpu_torch.ops import mlp_block as tmb
+from flyp_tpu_torch.ops.attention import _default_impl as port_default_impl
 from flyp_tpu_torch.training import create_train_state, make_optimizer, make_train_step, warmup_cosine_lr
 
 torch.set_num_threads(1)
@@ -81,6 +88,7 @@ def _jax_run(tiny, impl, batch, steps=STEPS, labels=None, **step_kwargs):
     saved = os.environ.get(_IMPL_ENV)
     os.environ[_IMPL_ENV] = impl
     _default_impl.cache_clear()
+    port_default_impl.cache_clear()
     try:
         opt = jax_make_optimizer(jax_warmup_cosine_lr(*SCHEDULE), weight_decay=0.1)
         state = jax_create_train_state(jax.tree_util.tree_map(jnp.asarray, tiny.params), opt)
@@ -97,6 +105,7 @@ def _jax_run(tiny, impl, batch, steps=STEPS, labels=None, **step_kwargs):
         else:
             os.environ[_IMPL_ENV] = saved
         _default_impl.cache_clear()
+        port_default_impl.cache_clear()
 
 
 def _port_run(tiny, batch, steps=STEPS, labels=None, **step_kwargs):
@@ -146,16 +155,34 @@ def _compare(port, ref, param_atol):
 PARAM_ATOL = 2 * (5e-4 + 1e-3 + 9.6e-4)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas_block"])
-def test_train_step_trajectory_matches_jax(tiny, impl):
+def _launch_counts():
+    return (tab.attention_block.fwd_launches, tab.attention_block.bwd_launches,
+            tab.attention_block_inference.launches, tmb.mlp_block.fwd_launches,
+            tfq.fused_qkv_attention.fwd_launches, tfq.fused_qkv_attention.bwd_launches,
+            tfa.flash_attention.fwd_launches, tfa.flash_attention.bwd_launches)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas", "pallas_qkv", "pallas_block", "pallas_block_mlp"])
+def test_train_step_trajectory_matches_jax(tiny, impl, monkeypatch):
     """3 fp32 steps: per-step loss and per-item losses (see _compare), the
-    rate at 1e-6, and every parameter after the 3 steps (see PARAM_ATOL)."""
+    rate at 1e-6, and every parameter after the 3 steps (see PARAM_ATOL).
+    The port runs under the same impl as JAX; both impl caches are cleared
+    around it."""
     batch = _batch()
-    before = (tab.attention_block.fwd_launches, tab.attention_block.bwd_launches,
-              tab.attention_block_inference.launches)
-    port = _port_run(tiny, batch)
-    assert (tab.attention_block.fwd_launches, tab.attention_block.bwd_launches,
-            tab.attention_block_inference.launches) == before  # CPU tensors never launch
+    monkeypatch.setenv(_IMPL_ENV, impl)
+    # JAX's pallas route calls the flash kernel outside interpret mode,
+    # which the CPU refuses: point it at the interpret-mode kernel.
+    real = jax_flash_attention_mod.flash_attention
+    monkeypatch.setattr(jax_flash_attention_mod, "flash_attention",
+                        lambda q, k, v, causal=False, interpret=False: real(q, k, v, causal, True))
+    port_default_impl.cache_clear()
+    try:
+        assert port_default_impl() == impl
+        before = _launch_counts()
+        port = _port_run(tiny, batch)
+        assert _launch_counts() == before  # CPU tensors never launch
+    finally:
+        port_default_impl.cache_clear()
     assert port[0][0]["per_item_loss"].shape == (4,)
     _compare(port, _jax_run(tiny, impl, batch), PARAM_ATOL)
 
