@@ -44,6 +44,17 @@ Phases, each of which raises on failure:
    device ms of one vision block's attention and MLP sub-blocks (also
    measured for the default route in phase 5).
 
+8. the measurement probes: T1 (the probe GEMM, bf16 into fp32 and int8
+   into int32), T2 (the per-head score sum, hd 64/128/256), T3 (the
+   row-count GEMM, R 197/200/208/256) and T4 (the fused AdamW update, fp32
+   and bf16 moments) against their plain versions at the tools' shapes (T1
+   also at ``tests/test_tools.py``'s shapes and a ragged one, its output
+   poisoned before each launch; shapes it cannot tile must raise), timed
+   beside the plain version, a library call and the card's bound; then the
+   ported tools end to end (``int8_matmul_probe`` ``main``/``main_pallas``
+   at batch 256, every ``mfu_levers`` probe, the head rebuild at 100
+   classes), each kernel's launches counted exactly.
+
 The line before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -76,7 +87,10 @@ from flyp_tpu_torch.ops import mlp_block as mb  # noqa: E402
 from flyp_tpu_torch.ops.losses import clip_loss  # noqa: E402
 from flyp_tpu_torch.serving import ClipServer  # noqa: E402
 from flyp_tpu_torch.templates import simple_template  # noqa: E402
+from flyp_tpu_torch.testing import check_gemm  # noqa: E402
 from flyp_tpu_torch.tokenizer import shrink_context  # noqa: E402
+from flyp_tpu_torch.tools import int8_matmul_probe as tip  # noqa: E402
+from flyp_tpu_torch.tools import mfu_levers as tml  # noqa: E402
 from flyp_tpu_torch.training import create_train_state, make_optimizer, make_train_step, warmup_cosine_lr  # noqa: E402
 
 MODEL = "ViT-B/16"
@@ -107,14 +121,16 @@ BOTH = (torch.float32, torch.bfloat16)
 TRAIN_SHAPES = [(64, 197, 768, 12, False, BOTH), (64, 32, 512, 8, True, BOTH), (64, 77, 512, 8, True, BOTH),
                 (256, 197, 768, 12, False, (torch.bfloat16,)), (256, 32, 512, 8, True, (torch.bfloat16,))]
 # The serving main path runs B3 at buckets up to 256 images (vision L=197)
-# and on text chunks (L=16 after shrink_context).
+# and on text chunks (L=16 after shrink_context); the zero-shot probe of
+# phase 8 on text chunks of 2048 and 1856 prompts (L=16).
 INFER_SHAPES = [(64, 197, 768, 12, False, BOTH), (64, 16, 512, 8, True, BOTH), (64, 77, 512, 8, True, BOTH),
-                (256, 197, 768, 12, False, (torch.bfloat16,))]
+                (256, 197, 768, 12, False, (torch.bfloat16,)), (2048, 16, 512, 8, True, (torch.bfloat16,)),
+                (1856, 16, 512, 8, True, (torch.bfloat16,))]
 MAIN_SHAPE = (256, 197, "bfloat16")  # the kernels line reports each kernel at the main path's vision shape
-# Dense peaks (NVIDIA data sheets): bf16 tensor cores, fp32 CUDA cores, HBM.
+# Dense peaks (NVIDIA data sheets): bf16 and int8 tensor cores, fp32 CUDA cores, HBM.
 PEAKS = {
-    "sxm": {torch.bfloat16: 989e12, torch.float32: 67e12, "bytes": 3.35e12},
-    "pcie": {torch.bfloat16: 756e12, torch.float32: 51e12, "bytes": 2.0e12},
+    "sxm": {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12, "bytes": 3.35e12},
+    "pcie": {torch.bfloat16: 756e12, torch.int8: 1513e12, torch.float32: 51e12, "bytes": 2.0e12},
 }
 
 
@@ -222,13 +238,16 @@ def rel_norm(a, b) -> float:
 
 
 def check_close(name, got, ref, tol, where, rtol=None) -> float:
-    """Elementwise |got - ref| <= tol + rtol |ref| (rtol defaults to tol), all
-    finite; the max abs error."""
+    """Elementwise |got - ref| <= tol + rtol |ref| (rtol defaults to tol; tol
+    a number, or a tensor of each element's own), all finite; the max abs
+    error."""
     rtol = tol if rtol is None else rtol
     err = (got.float() - ref.float()).abs()
     bad = int((err > tol + rtol * ref.float().abs()).sum())
     if not bool(torch.isfinite(got).all()) or bad:
-        raise AssertionError(f"{name} disagrees at {where}: {bad} elements past {tol}, max abs err {err.max().item()}")
+        past = "their own tolerance" if torch.is_tensor(tol) else tol
+        raise AssertionError(f"{name} disagrees at {where}: {bad} elements past {past}, max abs err "
+                             f"{err.max().item()}")
     return err.max().item()
 
 
@@ -475,6 +494,11 @@ COUNTERS = {
     "B5_bwd": (fq.fused_qkv_attention, "bwd_launches"),
     "B6_fwd": (fa.flash_attention, "fwd_launches"),
     "B6_bwd": (fa.flash_attention, "bwd_launches"),
+    "T1_bf16": (tip.probe_mm, "bf16_launches"),
+    "T1_int8": (tip.probe_mm, "int8_launches"),
+    "T2": (tml.score_depth, "launches"),
+    "T3": (tml.row_gemm, "launches"),
+    "T4": (tml.adamw_update, "launches"),
 }
 
 
@@ -855,6 +879,289 @@ def phase_impls(card: str) -> dict:
     return results
 
 
+# Phase 8: the measurement probes' kernels (T1-T4) against their plain
+# versions, and the two ported tools end to end.  T1 at the serving (qkv,
+# out) and ceiling (big) shapes at batch 256, at tests/test_tools.py's shapes
+# and at one with a ragged last row tile; each shape the op cannot tile must
+# raise ValueError naming the dimension.
+PROBE_GEMM_SHAPES = [("qkv", 53248, 768, 2304), ("out", 53248, 768, 768), ("big", 16384, 4096, 4096),
+                     ("tools", 1024, 768, 512), ("tools", 512, 768, 2304), ("tools", 512, 768, 768),
+                     ("ragged M", 1000, 768, 640)]
+PROBE_REFUSED = [((512, 768, 200), torch.int8, "N=200"), ((512, 96, 512), torch.int8, "K=96"),
+                 ((512, 100, 512), torch.bfloat16, "K=100")]
+PROBE_SCORE = (256, 208, 768)  # T2's q, k [B, L, D]: the vision tower at batch 256
+PROBE_ROWS = (256, 768, 2304)  # T3's B, D, N: the QKV projection at batch 256
+ADAMW_CHECK_PARAMS = 16 * 1024 * 1024
+ADAMW_PARAMS = 150_000_000 // 1024 // 2048 * 2048 * 1024  # the TPU probe's 148,897,792
+TOOL_BATCH = 256
+ZEROSHOT_CLASSES = 100  # the probe's default of 1000 stays on its CLI
+
+
+def probe_gemm_bound_ms(M, K, N, kind, peaks):
+    """(ms, "operations" | "bytes") for one T1 call: 2MKN operations; a and
+    b read once, the 4-byte output written once."""
+    el, peak = (2, peaks[torch.bfloat16]) if kind == "bf16" else (1, peaks[torch.int8])
+    t_ops, t_bytes = 2 * M * K * N / peak, ((M * K + K * N) * el + 4 * M * N) / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def score_depth_bound_ms(B, L, D, peaks):
+    """T2: 2BL^2D bf16 operations; q and k read once, fp32 o written once."""
+    t_ops, t_bytes = 2 * B * L * L * D / peaks[torch.bfloat16], (4 * B * L * D + 4 * B * L * L) / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def row_gemm_bound_ms(B, R, D, N, peaks):
+    """T3: 2BRDN bf16 operations; x and w read once, bf16 out written once."""
+    t_ops, t_bytes = 2 * B * R * D * N / peaks[torch.bfloat16], 2 * (B * R * D + D * N + B * R * N) / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def adamw_bound_ms(n, mdtype, peaks):
+    """T4: p, m, v, g read and p, m, v written once (26 bytes a parameter
+    with fp32 moments, 18 with bf16); 16 fp32 operations a parameter."""
+    msz = torch.finfo(mdtype).bits // 8
+    t_ops, t_bytes = 16 * n / peaks[torch.float32], n * (4 + 2 + 2 * msz + 4 + 2 * msz) / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def probe_gemm_cases(peaks) -> dict:
+    """T1 in both types at every shape: the output poisoned with a sentinel
+    before the launch (an uncomputed element fails the check); int8 exactly
+    equal to the plain version; bf16 held to the exact product within the
+    block-FMA bound of fp32 tensor-core accumulation (``check_gemm``), its
+    max abs error against the fp32 plain version reported."""
+    out = {"bf16": [], "int8": []}
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for label, M, K, N in PROBE_GEMM_SHAPES:
+        where = (label, M, K, N)
+        for kind, out_dtype in (("bf16", torch.float32), ("int8", torch.int32)):
+            if kind == "bf16":
+                a = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+                b = torch.randn(K, N, generator=gen, device="cuda").to(torch.bfloat16)
+                poisoned = torch.full((M, N), float("nan"), device="cuda")
+            else:
+                a = torch.randint(-127, 127, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+                b = torch.randint(-127, 127, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+                poisoned = torch.full((M, N), torch.iinfo(torch.int32).min, dtype=torch.int32, device="cuda")
+            got = tip.probe_mm(a, b, out_dtype, out=poisoned)
+            torch.cuda.synchronize()
+            ref = tip.probe_mm_reference(a, b, out_dtype)
+            if kind == "int8":
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"T1 int8 differs from the exact product at {where}: "
+                                         f"{int((got != ref).sum())} elements")
+                err = 0.0
+            else:
+                vs_exact = check_gemm("T1 bf16", got, a, b, where)
+                err = (got - ref).abs().max().item()
+            ms = cuda_ms(lambda: tip.probe_mm(a, b, out_dtype))
+            plain_ms = cuda_ms(lambda: tip.probe_mm_reference(a, b, out_dtype))
+            library_ms = cuda_ms(lambda: tip.library_mm(a, b, out_dtype))
+            bound, by = probe_gemm_bound_ms(M, K, N, kind, peaks)
+            extra = {} if kind == "int8" else {"vs_exact": vs_exact}
+            out[kind].append(dict(shape=f"{label} [{M},{K}]x[{K},{N}] {kind}", M=M, K=K, N=N, max_abs_err=err,
+                                  **extra, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
+                                  bound_by=by, tops=2 * M * K * N / ms / 1e9))
+            log(f"T1_{kind}", json.dumps(out[kind][-1]))
+            del a, b, poisoned, got, ref
+    for (M, K, N), dtype, dim in PROBE_REFUSED:
+        out_dtype = torch.int32 if dtype == torch.int8 else torch.float32
+        a, b = torch.zeros(M, K, dtype=dtype, device="cuda"), torch.zeros(K, N, dtype=dtype, device="cuda")
+        try:
+            tip.probe_mm(a, b, out_dtype)
+        except ValueError as e:
+            if dim not in str(e):
+                raise AssertionError(f"T1 refused [{M},{K}]x[{K},{N}] without naming {dim}: {e}") from e
+            log(f"T1 refuses {dtype} [{M},{K}]x[{K},{N}]: {e}")
+            continue
+        raise AssertionError(f"T1 accepted [{M},{K}]x[{K},{N}] {dtype}, which its tiles cannot cover")
+    return out
+
+
+def phase_probes(peaks) -> dict:
+    """T1-T4 against their plain versions, then the ported tools' paths with
+    every kernel's launches counted."""
+    cases = {"T1_bf16": [], "T1_int8": [], "T2": [], "T3": [], "T4": []}
+    t1 = probe_gemm_cases(peaks)
+    cases["T1_bf16"], cases["T1_int8"] = t1["bf16"], t1["int8"]
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    B, L, D = PROBE_SCORE
+    q = torch.randn(B, L, D, generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn(B, L, D, generator=gen, device="cuda").to(torch.bfloat16)
+    bmm_fp32 = tip.has_out_dtype("bmm")
+    for hd in tml.SCORE_DEPTHS:
+        where = ("T2", B, L, D, hd)
+        got = tml.score_depth(q, k, hd)
+        torch.cuda.synchronize()
+        err = check_close("T2", got, tml.score_depth_reference(q, k, hd), 1e-4, where, rtol=1e-5)
+        library = ((lambda: torch.bmm(q, k.mT, out_dtype=torch.float32)) if bmm_fp32
+                   else (lambda: torch.bmm(q, k.mT)))
+        bound, by = score_depth_bound_ms(B, L, D, peaks)
+        cases["T2"].append(dict(shape=f"hd={hd} q,k [{B},{L},{D}] bf16", hd=hd, max_abs_err=err,
+                                ms=cuda_ms(lambda: tml.score_depth(q, k, hd)),
+                                plain_ms=cuda_ms(lambda: tml.score_depth_reference(q, k, hd)),
+                                library_ms=cuda_ms(library), library_out="float32" if bmm_fp32 else "bfloat16",
+                                bound_ms=bound, bound_by=by))
+        log("T2", json.dumps(cases["T2"][-1]))
+    del q, k, got
+
+    B, D, N = PROBE_ROWS
+    w = torch.randn(D, N, generator=gen, device="cuda").to(torch.bfloat16)
+    for R in tml.ROW_COUNTS:
+        x = torch.randn(B, R, D, generator=gen, device="cuda").to(torch.bfloat16)
+        got = tml.row_gemm(x, w).float()
+        torch.cuda.synchronize()
+        ref = tml.row_gemm_reference(x, w).float()
+        # One bf16 ulp of the value (2^-7 |ref|), plus 1e-4 for outputs near
+        # zero, where the fp32 sums' order (T1's 1e-4 at K=768) is not small
+        # beside the value; mean abs error under 1e-3.
+        err = check_close("T3", got, ref, 1e-4, ("T3", B, R, D, N), rtol=2.0 ** -7)
+        mean_err = (got - ref).abs().mean().item()
+        if mean_err >= 1e-3:
+            raise AssertionError(f"T3 at R={R}: mean abs err {mean_err}")
+        bound, by = row_gemm_bound_ms(B, R, D, N, peaks)
+        cases["T3"].append(dict(shape=f"R={R} x [{B},{R},{D}] w [{D},{N}] bf16", R=R, max_abs_err=err,
+                                mean_abs_err=mean_err, ms=cuda_ms(lambda: tml.row_gemm(x, w)),
+                                plain_ms=cuda_ms(lambda: tml.row_gemm_reference(x, w)),
+                                library_ms=cuda_ms(lambda: torch.matmul(x, w)), bound_ms=bound, bound_by=by))
+        log("T3", json.dumps(cases["T3"][-1]))
+        del x, got, ref
+    del w
+
+    cases["T4"] = adamw_cases(peaks)
+    return cases
+
+
+def adamw_cases(peaks) -> list:
+    """T4 against its plain version (the same uncontracted fp32 formula on
+    both sides: p within 1e-6 of its terms' magnitudes, the moments equal) on
+    ADAMW_CHECK_PARAMS parameters and on the probe's 148,897,792, then timed
+    at the latter beside the plain version and ``torch._fused_adamw_`` (fp32
+    moments only; another rounding order, and fp32 grads)."""
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for mdtype in BOTH:
+        name = str(mdtype).split(".")[-1]
+        max_err = 0.0
+        for n in (ADAMW_CHECK_PARAMS, ADAMW_PARAMS):
+            p = torch.randn(n, generator=gen, device="cuda")
+            m = (0.01 * torch.randn(n, generator=gen, device="cuda")).to(mdtype)
+            v = (1e-4 * torch.randn(n, generator=gen, device="cuda") ** 2).to(mdtype)
+            g = torch.randn(n, generator=gen, device="cuda").to(torch.bfloat16)
+            ref = tml.adamw_update_reference(p, m, v, g, tml.ADAMW_COUNT)
+            got = tml.adamw_update(p.clone(), m.clone(), v.clone(), g, tml.ADAMW_COUNT)
+            torch.cuda.synchronize()
+            # p' = p - lr (...): 1e-6 of the two terms' magnitudes, as they
+            # may cancel.
+            max_err = max(max_err, check_close("T4 p", got[0], ref[0], 1e-6 * (p.abs() + (p - ref[0]).abs()),
+                                               ("T4", n, name), rtol=0.0))
+            for label, a, r in zip(("m", "v"), got[1:], ref[1:]):
+                if not torch.equal(a, r):
+                    raise AssertionError(f"T4 {label} ({name} moments) differs from the plain version at "
+                                         f"{int((a != r).sum())} of {n}")
+            del ref, got
+            if n != ADAMW_PARAMS:
+                del p, m, v, g
+                continue
+            ms = cuda_ms(lambda: tml.adamw_update(p, m, v, g, tml.ADAMW_COUNT))
+            plain_ms = cuda_ms(lambda: tml.adamw_update_reference(p, m, v, g, tml.ADAMW_COUNT))
+            library_ms = None
+            if mdtype == torch.float32:
+                g32, step = g.float(), torch.tensor(float(tml.ADAMW_COUNT), device="cuda")
+                library_ms = cuda_ms(lambda: torch._fused_adamw_(
+                    [p], [g32], [m], [v], [], [step], lr=tml.LR, beta1=tml.B1, beta2=tml.B2, weight_decay=tml.WD,
+                    eps=tml.EPS, amsgrad=False, maximize=False))
+                del g32
+            bound, by = adamw_bound_ms(n, mdtype, peaks)
+            out.append(dict(shape=f"{n} params, {name} moments", moments=name, n=n, max_abs_err=max_err, ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms,
+                            library_note="torch._fused_adamw_: not the same rounding" if library_ms else None,
+                            bound_ms=bound, bound_by=by, gb_s=n * (4 + 2 + 4 * (torch.finfo(mdtype).bits // 8) + 4)
+                            / ms / 1e6))
+            log("T4", json.dumps(out[-1]))
+            del p, m, v, g
+            torch.cuda.empty_cache()
+    return out
+
+
+def run_tool(where: str, fn, **expected) -> dict:
+    """Run a ported tool's path with every count at 0 just before it; its
+    printed lines and every kernel's launches, exactly ``expected``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    reset_counts()
+    # ---- the tool's path: counts start at 0 here ----------------------------
+    with contextlib.redirect_stdout(buf):
+        fn()
+    launches = counts()
+    # ---- end of the tool's path ---------------------------------------------
+    seconds = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"  {where}: {line}")
+    expect_counts(where, **expected)
+    return {"lines": buf.getvalue().splitlines(), "launches": {k: n for k, n in launches.items() if n},
+            "seconds": seconds}
+
+
+def phase_tools() -> dict:
+    """The two ported tools on the card: ``int8_matmul_probe`` (``main`` and
+    ``main_pallas`` at batch 256) and every ``mfu_levers`` probe, the head
+    rebuild at ZEROSHOT_CLASSES classes x 80 templates."""
+    out = {}
+    n_shapes = 3  # main_pallas: qkv, out, big
+    out[f"int8_matmul_probe pallas {TOOL_BATCH}"] = run_tool(
+        f"int8_matmul_probe pallas {TOOL_BATCH}", lambda: tip.main_pallas(TOOL_BATCH),
+        T1_bf16=n_shapes * (tip.ITERS + 1), T1_int8=n_shapes * (tip.ITERS + 2))
+    out[f"int8_matmul_probe {TOOL_BATCH}"] = run_tool(f"int8_matmul_probe {TOOL_BATCH}",
+                                                      lambda: tip.main(TOOL_BATCH))
+    prompts = ZEROSHOT_CLASSES * 80
+    chunks = -(-prompts // 2048)
+    for name, probe in tml.PROBES.items():
+        expected = {"depth": {"T2": len(tml.SCORE_DEPTHS) * (tml.ITERS + 1)},
+                    "row_quant": {"T3": len(tml.ROW_COUNTS) * (tml.ITERS + 1)},
+                    "adamw_pallas": {"T4": 2 * (tml.ADAMW_ITERS + 1)},
+                    "zeroshot": {"B3": 2 * chunks * MODEL_CONFIGS[MODEL].text.layers}}.get(name, {})
+        heads = []
+        fn = (lambda: heads.append(probe(num_classes=ZEROSHOT_CLASSES))) if name == "zeroshot" else probe
+        out[f"mfu_levers {name}"] = run_tool(f"mfu_levers {name}", fn, **expected)
+        if heads:
+            out[f"mfu_levers {name}"]["head_cosine_to_plain"] = zeroshot_head_cosine(heads[-1])
+        torch.cuda.empty_cache()
+    return out
+
+
+def zeroshot_head_cosine(head) -> float:
+    """The zero-shot probe's head (B3 in every text block) against the head
+    of the same seed-0 model on the plain ``xla`` route: the least cosine of
+    a class's row, at least 0.99 in bf16 (the serving phase's bound)."""
+    from types import SimpleNamespace
+
+    from flyp_tpu_torch.templates import get_template
+
+    cfg = SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="bfloat16", seed=0)
+    model = build_clip_model(cfg, device="cuda")
+    classnames = [f"class number {i}" for i in range(ZEROSHOT_CLASSES)]
+    use_impl("xla")
+    try:
+        plain = get_zeroshot_classifier(model, classnames, get_template("openai_imagenet_template"),
+                                        encode_batch=2048)
+    finally:
+        use_impl("auto")
+    got, ref = head.weight.float(), plain.weight.float()
+    if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"zero-shot head {tuple(got.shape)} against the plain {tuple(ref.shape)}, or not finite")
+    cos = float(torch.nn.functional.cosine_similarity(got, ref, dim=-1).min())
+    log(f"zero-shot head against the plain route: least class cosine {cos:.6f}")
+    if cos < 0.99:
+        raise AssertionError(f"zero-shot head drifts from the plain route: least class cosine {cos}")
+    return cos
+
+
 def digests() -> dict:
     """A SHA-256 prefix of each attention-block kernel's outputs (B3, B1, B2)
     on seeded inputs at the main paths' shapes.  ``python3 chip_smoke.py
@@ -919,20 +1226,28 @@ def main() -> int:
                                                           "layers_train_ms", "layers_eval_ms", "profile")},
                               "serve_img_s": serving["img_s"][BUCKETS[-1]]},
              **phase_impls(card)}
+    probes, tools = phase_probes(peaks), phase_tools()
 
-    def line(name, source, replaces, launches, cases):
-        # Every kernel is reported at the main path's vision shape.  B5 and
-        # B6 compute what F.scaled_dot_product_attention computes (library_ms);
-        # no single PyTorch call computes the others, so library_ms is null and
-        # a composite yardstick stands beside.
-        c = next(c for c in cases if (c["B"], c["L"], c["dtype"]) == MAIN_SHAPE)
+    def line(name, source, replaces, launches, cases, pick=None):
+        # B1-B6 are reported at the main path's vision shape, T1-T4 at the
+        # case ``pick`` names.  B5, B6 and T1-T4 (T4 in fp32 moments) compute
+        # what one PyTorch call computes (library_ms); no single call computes
+        # B1-B4, so their library_ms is null and a composite yardstick stands
+        # beside.
+        c = next(c for c in cases if (pick(c) if pick else (c["B"], c["L"], c["dtype"]) == MAIN_SHAPE))
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
                 **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
                 "library_ms": c.get("library_ms"), "composite_ms": c.get("composite_ms"),
-                "shape": f"B={c['B']} L={c['L']} D={c['D']} H={c['H']} {c['dtype']}", "cases": cases}
+                "shape": c.get("shape") or f"B={c['B']} L={c['L']} D={c['D']} H={c['H']} {c['dtype']}",
+                "cases": cases}
 
     def route(impl, kernel):  # launches on the route's 13-step training path
         return impls[impl]["train_launches"][kernel]
+
+    def tool(kernel):  # launches on the ported tools' paths
+        return sum(t["launches"].get(kernel, 0) for t in tools.values())
+
+    gemm = "flyp_tpu_torch/csrc/probe_gemm.cu"
 
     kernels = [
         line("attention_block_inference", "flyp_tpu_torch/csrc/attention_block.cu",
@@ -951,11 +1266,21 @@ def main() -> int:
              route("pallas", "B6_fwd"), impl_cases["B6_fwd"]),
         line("flash_attention_backward", "flyp_tpu_torch/csrc/attention.cu", "flyp_tpu/ops/flash_attention.py:53",
              route("pallas", "B6_bwd"), impl_cases["B6_bwd"]),
+        line("probe_gemm_bf16", gemm, "tools/int8_matmul_probe.py:73", tool("T1_bf16"), probes["T1_bf16"],
+             lambda c: c["shape"].startswith("qkv")),
+        line("probe_gemm_int8", gemm, "tools/int8_matmul_probe.py:73", tool("T1_int8"), probes["T1_int8"],
+             lambda c: c["shape"].startswith("qkv")),
+        line("score_depth", "flyp_tpu_torch/csrc/score_depth.cu", "tools/mfu_levers.py:102", tool("T2"),
+             probes["T2"], lambda c: c["hd"] == 64),
+        line("row_quant_gemm", gemm, "tools/mfu_levers.py:145", tool("T3"), probes["T3"], lambda c: c["R"] == 197),
+        line("adamw_update", "flyp_tpu_torch/csrc/adamw.cu", "tools/mfu_levers.py:229", tool("T4"), probes["T4"],
+             lambda c: c["moments"] == "float32"),
     ]
     log(json.dumps({"card": card, "img_s": serving["img_s"], "cos_fp32": serving["cos_fp32"],
                     "cos_bf16": serving["cos_bf16"], "breakdown": serving["breakdown"]}))
     log(json.dumps({"card": card, "training": training}))
     log(json.dumps({"card": card, "routes": impls}))
+    log(json.dumps({"card": card, "tools": tools}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

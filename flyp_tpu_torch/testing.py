@@ -1,4 +1,5 @@
-"""Tolerances that hold the attention kernels (B5, B6) to their plain versions.
+"""Tolerances that hold the attention kernels (B5, B6) to their plain
+versions, and the bf16 probe GEMM (T1) to the exact product.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` use :func:`check_attention`
 on the forward's ``o`` and on each of ``dq``, ``dk``, ``dv``.  Kernel and
@@ -48,6 +49,26 @@ def check_attention(name: str, got, ref, where=None) -> dict:
     if not bool(torch.isfinite(got).all()) or over or errs["rel_norm"] > rel or errs["mean_abs"] > mean:
         raise AssertionError(f"{name} disagrees with its plain version at {where}: {errs}, {over} elements past "
                              f"{atol} + {ulp}|ref| (bounds: relative norm {rel}, mean abs {mean})")
+    return errs
+
+
+def check_gemm(name: str, got, a, b, where=None) -> dict:
+    """Hold ``got``, a bf16 ``a [M, K] @ b [K, N]`` summed in fp32 on the
+    tensor cores, to the exact product (float64: the bf16 products are
+    exact, and so is their sum to far below the bound).  Each
+    ``mma.sync`` step adds 16 exact products into the fp32 accumulator,
+    rounding (on the tensor cores, truncating) at most about twice an ulp
+    of what it holds, so the block-FMA bound is, elementwise,
+    ``|got - a b| <= (K / 16 + 1) 2^-23 (|a| @ |b|)``.  A wrong fragment,
+    tile or k-step, or an element left unwritten (non-finite), breaks it.
+    Returns the max abs error and the largest share of the bound used."""
+    K = a.shape[-1]
+    exact = torch.matmul(a.double(), b.double())
+    bound = (K / 16 + 1) * 2.0 ** -23 * torch.matmul(a.float().abs(), b.float().abs()).double()
+    err = (got.double() - exact).abs()
+    errs = {"max_abs": float(err.max()), "bound_share": float((err / bound.clamp_min(1e-30)).max())}
+    if not bool(torch.isfinite(got).all()) or errs["bound_share"] > 1.0:
+        raise AssertionError(f"{name} is not the product of its operands at {where}: {errs}")
     return errs
 
 

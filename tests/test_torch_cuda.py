@@ -353,3 +353,89 @@ def test_attention_kernels_refuse_what_they_do_not_take(card):
                             torch.zeros(1, 9, 2, 32, device=card), False)
     with pytest.raises(ValueError, match="head_dim 64"):
         tfq.fused_qkv_attention(torch.zeros(1, 9, 3 * 128, device=card), 4, False)
+
+
+# ---------------------------------------------------------------------------
+# The measurement probes' kernels (T1-T4).
+
+
+@pytest.mark.parametrize("shape", [(1000, 768, 640), (512, 768, 2304), (7, 128, 128), (300, 3072, 256)])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_probe_gemm_matches_plain_on_card(card, kind, shape):
+    """T1, its output poisoned before the launch: int8 exactly the int32
+    product; bf16 into fp32 within the block-FMA bound of its exact product
+    (``flyp_tpu_torch.testing.check_gemm``)."""
+    from flyp_tpu_torch.testing import check_gemm
+    from flyp_tpu_torch.tools import int8_matmul_probe as tip
+
+    M, K, N = shape
+    rng = np.random.default_rng(M)
+    if kind == "int8":
+        a, b = (torch.from_numpy(rng.integers(-127, 127, s, dtype=np.int8)).to(card) for s in ((M, K), (K, N)))
+        out = torch.full((M, N), torch.iinfo(torch.int32).min, dtype=torch.int32, device=card)
+        got = tip.probe_mm(a, b, torch.int32, out=out)
+        assert torch.equal(got, tip.probe_mm_reference(a, b, torch.int32))
+    else:
+        a, b = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(card).to(torch.bfloat16)
+                for s in ((M, K), (K, N)))
+        out = torch.full((M, N), float("nan"), device=card)
+        check_gemm("T1 bf16", tip.probe_mm(a, b, torch.float32, out=out), a, b, shape)
+
+
+def test_probe_gemm_refuses_on_card(card):
+    from flyp_tpu_torch.tools import int8_matmul_probe as tip
+
+    for (M, K, N), dtype, dim in (((64, 768, 200), torch.int8, "N=200"), ((64, 96, 128), torch.int8, "K=96"),
+                                  ((64, 100, 128), torch.bfloat16, "K=100")):
+        out_dtype = torch.int32 if dtype == torch.int8 else torch.float32
+        with pytest.raises(ValueError, match=dim):
+            tip.probe_mm(torch.zeros(M, K, dtype=dtype, device=card), torch.zeros(K, N, dtype=dtype, device=card),
+                         out_dtype)
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("L", [208, 77, 13])
+def test_score_depth_matches_plain_on_card(card, hd, L):
+    from flyp_tpu_torch.tools import mfu_levers as tml
+
+    rng = np.random.default_rng(L)
+    q, k = (torch.from_numpy(rng.standard_normal((3, L, 768), dtype=np.float32)).to(card).to(torch.bfloat16)
+            for _ in range(2))
+    torch.testing.assert_close(tml.score_depth(q, k, hd), tml.score_depth_reference(q, k, hd), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("R", [197, 200, 13])
+def test_row_gemm_matches_plain_on_card(card, R):
+    """T3 within one bf16 ulp (2^-7 |ref|) plus 1e-4 (the fp32 sums' order at
+    K=768, for outputs near zero), mean error under 1e-3."""
+    from flyp_tpu_torch.tools import mfu_levers as tml
+
+    rng = np.random.default_rng(R)
+    x = torch.from_numpy(rng.standard_normal((5, R, 768), dtype=np.float32)).to(card).to(torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((768, 384), dtype=np.float32)).to(card).to(torch.bfloat16)
+    got, ref = tml.row_gemm(x, w).float(), tml.row_gemm_reference(x, w).float()
+    err = (got - ref).abs()
+    assert bool((err <= 2.0 ** -7 * ref.abs() + 1e-4).all()) and err.mean().item() < 1e-3
+
+
+@pytest.mark.parametrize("n", [4096 * 1024, 1000003])
+@pytest.mark.parametrize("mdtype", ["float32", "bfloat16"])
+def test_adamw_update_matches_plain_on_card(card, mdtype, n):
+    """T4 in place: the plain version's uncontracted fp32 formula, so p
+    within 1e-6 of the magnitudes of p and of its step (they may cancel)
+    and the moments equal (an n not a multiple of 8 takes the
+    one-at-a-time tail)."""
+    from flyp_tpu_torch.tools import mfu_levers as tml
+
+    dt = getattr(torch, mdtype)
+    gen = torch.Generator(device=card).manual_seed(n)
+    p = torch.randn(n, generator=gen, device=card)
+    m = (0.01 * torch.randn(n, generator=gen, device=card)).to(dt)
+    v = (1e-4 * torch.randn(n, generator=gen, device=card) ** 2).to(dt)
+    g = torch.randn(n, generator=gen, device=card).to(torch.bfloat16)
+    ref = tml.adamw_update_reference(p, m, v, g, 10)
+    scale = 1e-6 * (p.abs() + (p - ref[0]).abs())
+    got = tml.adamw_update(p, m, v, g, 10)
+    assert got[0] is p
+    assert bool(((got[0] - ref[0]).abs() <= scale).all())
+    assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
