@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``flyp_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --digests    # only the B1-B3 output digests
+    python3 chip_smoke.py --digests            # only the B1-B3, B5 and B6 output digests
+    python3 chip_smoke.py --attention-times    # only the attention kernels' device ms
 
 Phases, each of which raises on failure:
 
@@ -15,7 +16,9 @@ Phases, each of which raises on failure:
    version, a composite PyTorch yardstick and the card's bound: the
    inference forward (B3), the training forward (B1) on all it returns,
    and the training backward (B2) against the plain backward and against
-   autograd through the plain forward;
+   autograd through the plain forward; at the vision length (L=197) also
+   each block's attention step alone (the device time of its attention
+   kernels under torch.profiler) beside ``F.scaled_dot_product_attention``;
 4. the serving slice at full ViT-B/16 width in bf16: ``ClipServer.
    from_checkpoint`` on a random-init ``.pt`` written by the port's own
    converter, a zero-shot head, warmup, classify / top_k / encode_texts /
@@ -33,8 +36,10 @@ Phases, each of which raises on failure:
    training main path's batch 256 in bf16 at L=197 and L=32, and B5/B6 at
    L=577 and L=1024), timed beside the plain version, the card's bound and
    ``F.scaled_dot_product_attention`` (B5/B6) or a composite (B4); B5/B6's
-   outputs are held to ``flyp_tpu_torch.testing.check_attention``, which a
-   planted fault (the backward without ``delta``) must fail at every shape;
+   outputs are held to ``flyp_tpu_torch.testing.check_attention``, which
+   planted faults must fail at every shape (the backward without
+   ``delta``; in bf16 also the forward that casts ``p`` before normalising
+   it and the backward whose ``delta`` is ``rowsum(do T(o))``);
 7. the other ``FLYP_ATTENTION_IMPL`` routes (``pallas_qkv``, ``pallas``,
    ``pallas_block_mlp``, ``xla``; the default ``pallas_block`` is phases 4
    and 5): one fp32 step against the CPU plain step under the same route
@@ -198,6 +203,40 @@ def yardstick(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, 
     return x + F.linear(o, out_kernel.T.to(dt), out_bias.to(dt))
 
 
+def kernel_ms(fn, pattern: str, calls: int = 10):
+    """Device ms per call of ``fn`` spent in the kernels whose names match
+    ``pattern``, from torch.profiler over ``calls`` calls after a warm-up
+    (B3's, B1's or B2's attention step inside the block), or None when the
+    trace shows no such device time (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA and re.search(pattern, evt.key):
+            dev = getattr(evt, "self_device_time_total", None)
+            total += dev if dev is not None else getattr(evt, "self_cuda_time_total", 0)
+    return total / 1e3 / calls if total > 0 else None
+
+
+def attention_yardstick_ms(B, L, D, H, causal, dtype):
+    """SDPA's (forward ms, autograd-backward ms) on random [B, L, H, 64] q,
+    k, v of the block's attention step, the yardstick of B1-B3's step."""
+    gen = torch.Generator().manual_seed(L + 5)
+    q, k, v = (torch.randn(B, L, H, _HEAD_DIM, generator=gen).cuda().to(dtype) for _ in range(3))
+    return sdpa_ms(q, k, v, torch.randn(B, L, D, generator=gen).cuda().to(dtype), causal)
+
+
+# B1-B3's attention step is timed alone (kernel_ms) at the vision length.
+STEP_L = 197
+
+
 def phase_kernels(peaks) -> list:
     cases = []
     for B, L, D, H, causal, dtypes in INFER_SHAPES:
@@ -215,6 +254,11 @@ def phase_kernels(peaks) -> list:
             case = dict(B=B, L=L, D=D, H=H, causal=causal, dtype=str(dtype).split(".")[-1],
                         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, composite_ms=composite_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
+            if L == STEP_L:
+                with torch.inference_mode():
+                    case["attention_ms"] = kernel_ms(lambda: ab.attention_block_inference(*args, H, causal),
+                                                     B3_ATTENTION)
+                case["sdpa_ms"] = attention_yardstick_ms(B, L, D, H, causal, dtype)[0]
             cases.append(case)
             log("kernel", json.dumps(case))
     return cases
@@ -311,6 +355,13 @@ def phase_train_kernels(peaks):
                                   composite_ms=fwd_comp_ms, bound_ms=f_bound, bound_by=f_by))
             bwd_cases.append(dict(common, max_abs_err=dx_err, rel_err=rels, rel_err_autograd=auto_rels, ms=bwd_ms,
                                   plain_ms=bwd_plain_ms, composite_ms=bwd_comp_ms, bound_ms=b_bound, bound_by=b_by))
+            if L == STEP_L:
+                sdpa_f, sdpa_b = attention_yardstick_ms(B, L, D, H, causal, dtype)
+                with torch.no_grad():
+                    fwd_cases[-1].update(attention_ms=kernel_ms(
+                        lambda: ab._fwd_kernel_call(*args, H, causal, train=True), B1_ATTENTION), sdpa_ms=sdpa_f)
+                    bwd_cases[-1].update(attention_ms=kernel_ms(lambda: ab._bwd_kernel_call(*bwd_args), B2_ATTENTION),
+                                         sdpa_ms=sdpa_b)
             log("B1", json.dumps(fwd_cases[-1]))
             log("B2", json.dumps(bwd_cases[-1]))
     return fwd_cases, bwd_cases
@@ -395,7 +446,8 @@ def phase_serving(tmp: str, card: str) -> dict:
             srv.classify(batch)
         rates[b] = reps * b / (time.perf_counter() - t0)
         log(f"classify, bucket {b}, bf16: {rates[b]:.1f} img/s on {card}")
-    breakdown = device_profile(lambda: srv.classify(batch), {"attention_block": B3_KERNELS})
+    breakdown = device_profile(lambda: srv.classify(batch),
+                               {"attention_block": B3_KERNELS, "B3_attention": B3_ATTENTION})
     if breakdown:
         breakdown["rows"] = len(batch)
     return {"launches": launches, "cos_fp32": float(cos32.min()), "cos_bf16": float(cos16.min()), "img_s": rates,
@@ -407,12 +459,19 @@ def phase_serving(tmp: str, card: str) -> dict:
 # out-projection hold both operands untransposed, the backward's do and dY
 # hold B transposed and its dWqkv A transposed.  The attention templates
 # (attention.cuh) take kScaleQ (true for the attention block's kernels,
-# false for B5/B6) and kTrain (the forward) or the compute type and query
-# tile (the backward passes).
+# false for B5/B6) first and kTrain second in the forwards
+# (attention_fwd_kernel, the register route of bf16 rows up to 256 keys;
+# attention_mma_kernel and attention_fma_kernel, the shared-memory route),
+# and kScaleQ last in the backward passes (attention_bwd_q_kernel and
+# attention_bwd_k_kernel; attention_bwd_dq_kernel and
+# attention_bwd_dkv_kernel).
 _FWD_GEMM = r"gemm_(mma|fma)_kernel<false, false, "
-B3_KERNELS = rf"({_FWD_GEMM}|attention_(mma|fma)_kernel<true, false)"
-B1_KERNELS = rf"({_FWD_GEMM}|attention_(mma|fma)_kernel<true, true)"
-B2_KERNELS = (r"(gemm_(mma|fma)_kernel<(true, false|false, true), |attention_bwd_\w+_kernel<[^>]*true>|"
+B3_ATTENTION = r"attention_(fwd|mma|fma)_kernel<true, false"
+B1_ATTENTION = r"attention_(fwd|mma|fma)_kernel<true, true"
+B2_ATTENTION = r"attention_bwd_\w+_kernel<[^>]*true>"
+B3_KERNELS = rf"({_FWD_GEMM}|{B3_ATTENTION})"
+B1_KERNELS = rf"({_FWD_GEMM}|{B1_ATTENTION})"
+B2_KERNELS = (rf"(gemm_(mma|fma)_kernel<(true, false|false, true), |{B2_ATTENTION}|"
               r"ln_forward_kernel|ln_backward_kernel|colsum_partial_kernel|reduce_partials_kernel)")
 PORT_KERNELS = r"(flyp::|\(anonymous namespace\)::)"  # every kernel of csrc/, none of PyTorch's
 
@@ -607,7 +666,8 @@ def phase_training(card: str) -> dict:
     # 6. Profile of one train step.
     model.train()
     out["profile"] = device_profile(lambda: step(state, images, tokens),
-                                    {"B1": B1_KERNELS, "B2": B2_KERNELS, "port_kernels": PORT_KERNELS})
+                                    {"B1": B1_KERNELS, "B2": B2_KERNELS, "B1_attention": B1_ATTENTION,
+                                     "B2_attention": B2_ATTENTION, "port_kernels": PORT_KERNELS})
     return out
 
 
@@ -713,7 +773,13 @@ def sdpa_ms(q, k, v, g, causal):
 def phase_impl_kernels(peaks) -> dict:
     """B4, B5 (forward, backward) and B6 (forward, backward) against their
     plain versions; per-shape cases of each."""
-    from flyp_tpu_torch.testing import attention_errors, backward_without_delta, check_attention
+    from flyp_tpu_torch.testing import (
+        attention_errors,
+        backward_delta_from_o,
+        backward_without_delta,
+        check_attention,
+        forward_cast_before_normalising,
+    )
 
     out = {name: [] for name in ("B4", "B5_fwd", "B5_bwd", "B6_fwd", "B6_bwd")}
     for B, L, D, H, causal, dtypes in IMPL_SHAPES + LONG_SHAPES:
@@ -759,22 +825,33 @@ def phase_impl_kernels(peaks) -> dict:
                         common, max_abs_err=max(e["max_abs"] for e in errs.values()), errs=errs, ms=ms,
                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by))
                     log(f"{name}_{direction}", json.dumps(out[f"{name}_{direction}"][-1]))
-            # The check's teeth: the plain backward with delta dropped from ds
-            # (a planted fault) must fail it on the same inputs.
+            # The check's teeth: planted faults must fail it on the same
+            # inputs.  The plain backward with delta dropped from ds, at every
+            # shape; in bf16 also the forward that casts p before normalising
+            # it and the backward whose delta is rowsum(do T(o)) (in fp32 the
+            # casts round nothing, so those two are the op itself).
             with torch.no_grad():
-                faulty = backward_without_delta(q, k, v, g4, causal)
+                ref_o = fa.flash_attention_reference(q, k, v, causal)
                 ref = fa.flash_attention_backward_reference(q, k, v, g4, causal)
-            caught = {}
-            for n, a, r in zip(("dq", "dk"), faulty, ref):
-                try:
-                    check_attention("planted fault", a, r, where)
-                except AssertionError:
-                    caught[n] = attention_errors(a, r)
-            if len(caught) != 2:
-                raise AssertionError(f"the attention check let a backward without delta pass at {where}: {caught}")
-            out["B6_bwd"][-1]["planted_fault_errs"] = caught
-            log("planted fault (delta dropped) caught", json.dumps({"where": list(map(str, where)), **caught}))
-            del qkv, q, k, v, g, g4, ops, faulty, ref
+                faults = {"delta dropped": (("dq", "dk"), backward_without_delta(q, k, v, g4, causal)[:2], ref[:2])}
+                if dtype == torch.bfloat16:
+                    faults["p cast before normalising"] = (("o",), (forward_cast_before_normalising(q, k, v, causal),),
+                                                           (ref_o,))
+                    faults["delta from rounded o"] = (("dq", "dk"), backward_delta_from_o(q, k, v, g4, causal)[:2],
+                                                      ref[:2])
+            for fault, (names, faulty, refs) in faults.items():
+                caught = {}
+                for n, a, r in zip(names, faulty, refs):
+                    try:
+                        check_attention("planted fault", a, r, where)
+                    except AssertionError:
+                        caught[n] = attention_errors(a, r)
+                if len(caught) != len(names):
+                    raise AssertionError(f"the attention check let a planted fault ({fault}) pass at {where}: "
+                                         f"{caught}")
+                out["B6_bwd"][-1].setdefault("planted_fault_errs", {})[fault] = caught
+                log(f"planted fault ({fault}) caught", json.dumps({"where": list(map(str, where)), **caught}))
+            del qkv, q, k, v, g, g4, ops, faults, ref, ref_o
             if (B, L, D, H, causal, dtypes) in LONG_SHAPES:
                 continue
             args = mlp_inputs(B, L, D, dtype, seed=L + 3)
@@ -1163,10 +1240,11 @@ def zeroshot_head_cosine(head) -> float:
 
 
 def digests() -> dict:
-    """A SHA-256 prefix of each attention-block kernel's outputs (B3, B1, B2)
-    on seeded inputs at the main paths' shapes.  ``python3 chip_smoke.py
-    --digests`` run from two trees (this script copied into the other) says
-    whether a change kept the kernels' bits."""
+    """A SHA-256 prefix of each attention kernel's outputs (B3, B1, B2, and
+    B5 and B6 forward and backward) on seeded inputs at the main paths'
+    shapes.  ``python3 chip_smoke.py --digests`` run twice from one tree
+    says whether the kernels repeat bit for bit; run from two trees (this
+    script copied into the other), whether a change kept their bits."""
     import hashlib
 
     out = {}
@@ -1175,16 +1253,52 @@ def digests() -> dict:
             args = block_inputs(B, L, D, dtype, seed=L + 1)
             x, ln_s, ln_b, wqkv, _, wout, _ = args
             g = torch.randn(B, L, D, generator=torch.Generator().manual_seed(L)).cuda().to(dtype)
+            qkv = torch.randn(B, L, 3 * D, generator=torch.Generator().manual_seed(L + 2)).cuda().to(dtype)
+            heads = fq._heads(qkv, H)
+            g4 = g.reshape(B, L, H, _HEAD_DIM)
             with torch.no_grad():
                 b3 = ab.attention_block_inference(*args, H, causal)
                 b1 = ab._fwd_kernel_call(*args, H, causal, train=True)
                 _, _, q, k, v, lse = b1
                 b2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
-            for name, tensors in (("B3", (b3,)), ("B1", b1), ("B2", b2)):
+                b5 = (fq.fused_qkv_attention(qkv, H, causal), fq.fused_qkv_attention_backward(qkv, g, H, causal))
+                b6 = (fa.flash_attention(*heads, causal), *fa.flash_attention_backward(*heads, g4, causal))
+            for name, tensors in (("B3", (b3,)), ("B1", b1), ("B2", b2), ("B5", b5), ("B6", b6)):
                 h = hashlib.sha256()
                 for t in tensors:
                     h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
                 out[f"{name} B={B} L={L} {str(dtype).split('.')[-1]}"] = h.hexdigest()[:16]
+    return out
+
+
+def attention_times() -> dict:
+    """Device ms of the attention kernels alone at the vision shape (B=256,
+    L=197, D=768, H=12, bf16) and at text L=32 (B=256, D=512, H=8, causal):
+    B5 and B6 per op call, and the attention step inside B3, B1 and B2 (the
+    device time of their attention kernels under torch.profiler).
+    ``python3 chip_smoke.py --attention-times`` prints only these, for
+    comparing kernel designs in one call."""
+    out = {}
+    for B, L, D, H, causal in ((256, 197, 768, 12, False), (256, 32, 512, 8, True)):
+        dt = torch.bfloat16
+        gen = torch.Generator().manual_seed(L)
+        q, k, v, do = (torch.randn(B, L, H, _HEAD_DIM, generator=gen).cuda().to(dt) for _ in range(4))
+        qkv = torch.randn(B, L, 3 * D, generator=gen).cuda().to(dt)
+        g = do.reshape(B, L, D)
+        args = block_inputs(B, L, D, dt, seed=L + 1)
+        x, ln_s, ln_b, wqkv, _, wout, _ = args
+        with torch.no_grad():
+            _, _, bq, bk, bv, lse = ab._fwd_kernel_call(*args, H, causal, train=True)
+            res = {"B6_fwd": cuda_ms(lambda: fa.flash_attention(q, k, v, causal)),
+                   "B6_bwd": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, do, causal)),
+                   "B5_fwd": cuda_ms(lambda: fq.fused_qkv_attention(qkv, H, causal)),
+                   "B5_bwd": cuda_ms(lambda: fq.fused_qkv_attention_backward(qkv, g, H, causal)),
+                   "B3_attention": kernel_ms(lambda: ab.attention_block_inference(*args, H, causal), B3_ATTENTION),
+                   "B1_attention": kernel_ms(lambda: ab._fwd_kernel_call(*args, H, causal, train=True),
+                                             B1_ATTENTION),
+                   "B2_attention": kernel_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, bq, bk, bv,
+                                                                         lse, H, causal), B2_ATTENTION)}
+        out[f"B={B} L={L} D={D} H={H}{' causal' if causal else ''} bfloat16"] = res
     return out
 
 
@@ -1210,6 +1324,9 @@ def main() -> int:
 
     if "--digests" in sys.argv[1:]:
         log(json.dumps({"card": card, "digests": digests()}))
+        return 0
+    if "--attention-times" in sys.argv[1:]:
+        log(json.dumps({"card": card, "attention_times": attention_times()}))
         return 0
 
     # The default route ("auto", the fused block) for the phases before the
@@ -1238,6 +1355,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
                 **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
                 "library_ms": c.get("library_ms"), "composite_ms": c.get("composite_ms"),
+                **{k: c[k] for k in ("attention_ms", "sdpa_ms") if k in c},
                 "shape": c.get("shape") or f"B={c['B']} L={c['L']} D={c['D']} H={c['H']} {c['dtype']}",
                 "cases": cases}
 

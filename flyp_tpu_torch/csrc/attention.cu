@@ -22,13 +22,24 @@
 //   dq    = T(ds k),  dk = T(ds^T q)
 //
 // The backward recomputes p from q and k (the TPU op keeps only q, k and v):
-// its query-tile pass hands each row's m and l to its key-tile pass.
+// its query-tile pass hands each row's m, l and delta (fp32, [B, L, H]) to
+// its key-tile pass, which recomputes ds^T; nothing of size L^2 reaches
+// device memory.
+//
+// Which kernels run (attention.cuh): bf16 at L <= 256, the register route
+// (attention_fwd_kernel; attention_bwd_q_kernel then attention_bwd_k_kernel:
+// scores, probabilities and products in mma.sync registers, k/v or q/do
+// tiles by cp.async); fp32 at every L and bf16 at 257-1024, the
+// shared-memory route (attention_fma_kernel or attention_mma_kernel;
+// attention_bwd_dq_kernel then attention_bwd_dkv_kernel).
 //
 // What bounds it on the H100: per (batch item, head) the forward does 4 L^2
 // 64 FLOPs against 4 L 64 elements it must move (~L/2 FLOPs per byte in
 // bf16, under the card's ~295 at CLIP's L <= 1024), so an ideal kernel is
 // bound by memory: 0.092 ms forward and 0.162 ms backward at B=256, L=197,
-// D=768 in bf16.
+// D=768 in bf16.  The register route is bound by issue instead (mma.sync,
+// exp and the softmax's fragment arithmetic); its registers and shared
+// memory per block are in attention.cuh's header, its times in PERF.md.
 
 #include "attention.cuh"
 
@@ -60,16 +71,17 @@ int flyp_attention_fwd(const void* q, const void* k, const void* v, void* o, lon
 
 // dq, dk, dv (row j of head h of item b at + b * out_b + j * out_r + h * 64)
 // from q, k, v (as the forward takes them) and do [B, L, H * 64].
-// Workspaces: ds [B, H, L, L] of the compute type, stats [B, L, H, 2] fp32.
+// Workspaces, fp32, from the query-tile pass to the key-tile pass: stats
+// [B, L, H, 2] (each row's softmax max m and sum l) and delta [B, L, H].
 int flyp_attention_bwd(const void* q, const void* k, const void* v, const void* dout, void* dq, void* dk, void* dv,
-                       void* ds, void* stats, long long in_b, int in_r, long long out_b, int out_r, int B, int L,
-                       int H, int causal, int dtype, void* stream) {
+                       void* stats, void* delta, long long in_b, int in_r, long long out_b, int out_r, int B,
+                       int L, int H, int causal, int dtype, void* stream) {
   if (!shapes_ok(B, L, H)) return (int)cudaErrorInvalidValue;
   AttnArgs a = attn_args(q, k, v, in_b, in_r, L, causal);
   a.dout = dout;
   a.dq = dq; a.dk = dk; a.dv = dv;
-  a.ds = ds;
   a.stats = static_cast<float*>(stats);
+  a.delta = static_cast<float*>(delta);
   a.out_b = out_b; a.out_r = out_r;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)attention_backward<float, false>(a, B, H, st);

@@ -28,31 +28,71 @@
 // (masked) keys and rows past L get p = 0, as exp of the TPU kernels' -1e30
 // bias is.
 //
-// Design.  One block per (query tile, head, batch item) keeps the tile's
-// scores over its whole key range in fp32 shared memory, so the softmax is
-// normalised before p is cast, as on the TPU (an online softmax would cast
-// before it normalises).  bf16 runs every product on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulate); fp32 tiles FMA on the CUDA cores,
-// since the tensor cores would round fp32 operands to TF32.  The forward
-// keeps each warp's q fragments in registers over the key tiles; the
-// backward runs its products through tile_product (common.cuh).  Query
-// tiles: the largest of 64, 32 (bf16 forward) or 64, 32, 16 rows (backward;
-// one warp per 16 rows) whose shared memory fits a block's 227 KB, and 32
-// rows for the fp32 forward, so every L <= 1024 fits.  The launches, on the
-// caller's stream:
+// Two routes, picked per call by type and length; each output element is
+// written by one block, with no atomics, so a run repeats bit for bit.
+//
+// The register route (bf16, L <= 256 keys: every CLIP length but
+// ViT-L/14@336px's 577).  Blocks of four warps own 64 rows, each warp 16;
+// the block's rows and the whole opposite side of its (head, item) (at most
+// 256 rows of k and v, or of q and do) land in shared memory by cp.async,
+// one group per 64-row tile, and each tile's products start once it has
+// landed.  Every product is mma.sync m16n8k16 with fp32 accumulate, and an
+// accumulator's fragments, cast to bf16, are the next product's A
+// fragments (as in FlashAttention-2), so no score or probability leaves the
+// registers.  The key range is a template constant NT (1-4 tiles of 64) so
+// a row's NT * 32 scores a thread stay in registers; 16-key chunks past a
+// warp's last visible key are skipped, so L = 197 computes 208 keys.
+//
+//   forward (attention_fwd_kernel), per 64-row query tile: s for the
+//     warp's rows over all keys, then the exact max-then-sum softmax over
+//     the lane quad (p normalised in fp32, or e for kTrain), p cast straight
+//     into the A fragments of o = p v;
+//   backward pass (a) (attention_bwd_q_kernel), per 64-row query tile: s,
+//     then p in registers (from m and l computed here, or lse); a sweep of
+//     the key chunks for delta = sum p dp (dp in registers); a second for
+//     ds and dq += T(ds) k; it writes dq, (m, l) unless kScaleQ, and delta;
+//   backward pass (b) (attention_bwd_k_kernel), per 64-key tile: each warp
+//     keeps its 16 keys' k and v fragments and dk, dv in registers and
+//     walks the query rows that see them 16 at a time: s^T = k q^T,
+//     dp^T = v do^T, p^T from the rows' statistics, ds^T with their delta,
+//     dv += T(p)^T do, dk += T(ds)^T q.
+//
+// Per 16 x 16 block of scores the backward runs 8 products (s, dp twice,
+// dq; s^T, dp^T, dv, dk) where a backward with an atomic dq runs 5; both
+// passes recompute p, so nothing of size L^2 reaches device memory.  A
+// softmax division by a row's sum l goes through l's reciprocal and one FMA
+// correction (div_rn_by, common.cuh), as correctly rounded as __fdiv_rn
+// and a fraction of its instructions.  At B=256, L=197, D=768 the bound is
+// bytes (0.092 ms forward, 0.162 ms backward at 3.35 TB/s), but the kernels
+// are bound by latency: two blocks of four warps an SM (registers) leave
+// few warps to cover the loads, barriers and mma chains (times in PERF.md).
+// Registers a thread at NT = 4 (ptxas -v, sm_90a, no spills): forward 200
+// (B3), 204 (B5/B6), 255 (B1, which keeps l for o); pass (a) 216 (B2), 255
+// (B5/B6); pass (b) 161-163.  Blocks of 128 threads, two to an SM.  Shared
+// memory a block at NT = 4: forward (64 + 128 NT) x 144 B = 82,944 B, pass
+// (a) (128 + 128 NT) x 144 B = 92,160 B, pass (b) that plus 1,024 NT B of
+// row statistics = 96,256 B.
+//
+// The shared-memory route (fp32 at every L, bf16 above 256 keys, up to
+// 1024 for B5/B6 and 320 for B2).  One block per (query tile, head, batch
+// item) keeps the tile's scores over its whole key range in fp32 shared
+// memory, so the softmax is normalised before p is cast, as on the TPU (an
+// online softmax would cast before it normalises).  bf16 runs every product
+// on the tensor cores; fp32 tiles FMA on the CUDA cores, since the tensor
+// cores would round fp32 operands to TF32.  Query tiles: the largest of 64,
+// 32 (bf16 forward) or 64, 32, 16 rows (backward; one warp per 16 rows)
+// whose shared memory fits a block's 227 KB, and 32 rows for the fp32
+// forward, so every L <= 1024 fits.  The launches, on the caller's stream:
 //
 //   forward:  s tile by tile, the softmax row by row (p written over the
 //             front of its own score row), o = sum over key tiles of p v;
 //   backward: pass (a), per query tile: s and dp over the full key range, p,
-//             delta, ds (to a [B, H, L, L] workspace, and over the front of
-//             its row), dq = ds k;
+//             delta (to a [B, L, H] fp32 buffer), ds (over the front of its
+//             row), dq = ds k;
 //             pass (b), per 64-key tile, over the query tiles that see its
-//             keys: p^T rebuilt from k q^T and the rows' statistics,
-//             dv += T(p)^T do, dk += ds^T q.
-//
-// Each output element is written by one block: no atomics, and a run repeats
-// bit for bit.  wgmma/TMA pipelines and keeping products in registers are
-// later work.
+//             keys: p^T rebuilt from k q^T and the rows' statistics, dp^T =
+//             v do^T, ds^T from the rows' delta, dv += T(p)^T do,
+//             dk += ds^T q.
 
 #pragma once
 
@@ -69,7 +109,7 @@ struct AttnArgs {
   void *dq, *dk, *dv;     // row j of head h of item b at + b * out_b + j * out_r + h * 64
   float* stats;           // per (item, row, head), [B, L, H]: lse with kScaleQ (the training forward
                           // writes it, the backward reads it), else (m, l) pairs from backward pass (a)
-  void* ds;               // [B, H, L, L] workspace: T(ds), backward pass (a) to pass (b)
+  float* delta;           // [B, L, H]: rowsum(p dp), backward pass (a) to pass (b)
   long long in_b, out_b;
   int in_r, out_r;
   int L, causal;
@@ -207,7 +247,8 @@ __global__ void __launch_bounds__(kFmaThreads) attention_fma_kernel(const AttnAr
         if (i < L) a.stats[stat_index(i, L)] = m + logf(l);
       }
     } else {
-      for (int j = lane; j < cols; j += 32) row[j] = j < visible ? __fdiv_rn(expf(row[j] - m), l) : 0.f;
+      const float rl = __frcp_rn(l);
+      for (int j = lane; j < cols; j += 32) row[j] = j < visible ? div_rn_by(expf(row[j] - m), l, rl) : 0.f;
     }
   }
 
@@ -325,6 +366,7 @@ __global__ void __launch_bounds__(2 * QT) attention_mma_kernel(const AttnArgs a)
     const int visible = i < L ? (a.causal ? i + 1 : L) : 0;
     float m, l;
     row_softmax_stats(row, visible, m, l);
+    const float rl = __frcp_rn(l);
     if (kTrain && lane == 0) {
       row_l[r] = l;
       if (i < L) a.stats[stat_index(i, L)] = m + logf(l);
@@ -334,7 +376,7 @@ __global__ void __launch_bounds__(2 * QT) attention_mma_kernel(const AttnArgs a)
       const float v = row[j];
       __syncwarp();
       const float e = expf(v - m);
-      prow[j] = __float2bfloat16_rn(j < visible ? (kTrain ? e : __fdiv_rn(e, l)) : 0.f);
+      prow[j] = __float2bfloat16_rn(j < visible ? (kTrain ? e : div_rn_by(e, l, rl)) : 0.f);
       __syncwarp();
     }
   }
@@ -399,8 +441,8 @@ __global__ void __launch_bounds__(2 * QT) attention_bwd_dq_kernel(const AttnArgs
   float* DP = S + QT * a.s_stride;                         // [QT][s_stride]: dp, then the dq sums
   __shared__ float row_lse[QT];                            // kScaleQ: the rows' lse
 
-  const int L = a.L, H = gridDim.y, h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * QT;
-  const int D = H * kHeadDim;
+  const int L = a.L, h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * QT;
+  const int D = gridDim.y * kHeadDim;
   const T* Q = head_rows<T>(a.q, a.in_b);
   const T* K = head_rows<T>(a.k, a.in_b);
   const T* V = head_rows<T>(a.v, a.in_b);
@@ -428,10 +470,9 @@ __global__ void __launch_bounds__(2 * QT) attention_bwd_dq_kernel(const AttnArgs
   }
   __syncthreads();
 
-  // One warp per row: p, delta, ds, and ds to the workspace.  ds[j] in T
+  // One warp per row: p, delta (to a.delta for pass (b)), ds.  ds[j] in T
   // overwrites the front of the row (bf16: bytes 2j..2j+1, which only ever
   // cover entries already read).
-  T* ds_g = static_cast<T*>(a.ds) + ((size_t)b * H + h) * L * L;
   const int ds_stride = a.s_stride * (int)(sizeof(float) / sizeof(T));
   for (int r = warp; r < QT; r += QT / 16) {
     const int i = i0 + r;
@@ -447,12 +488,14 @@ __global__ void __launch_bounds__(2 * QT) attention_bwd_dq_kernel(const AttnArgs
       __syncwarp();
     }
     float delta = 0.f;
+    const float rl = __frcp_rn(l);
     for (int j = lane; j < cols; j += 32) {
-      const float p = j < visible ? (kScaleQ ? expf(srow[j] - lse) : __fdiv_rn(srow[j], l)) : 0.f;
+      const float p = j < visible ? (kScaleQ ? expf(srow[j] - lse) : div_rn_by(srow[j], l, rl)) : 0.f;
       srow[j] = p;
       delta += p * dprow[j];
     }
     delta = warp_sum(delta);
+    if (lane == 0 && i < L) a.delta[stat_index(i, L)] = delta;
     T* dsrow = reinterpret_cast<T*>(srow);
     for (int j0 = 0; j0 < cols; j0 += 32) {
       const int j = j0 + lane;
@@ -460,7 +503,6 @@ __global__ void __launch_bounds__(2 * QT) attention_bwd_dq_kernel(const AttnArgs
       const T ds = from_f<T>(kScaleQ ? pd : __fmul_rn(pd, a.scale));
       __syncwarp();
       dsrow[j] = ds;
-      if (i < L && j < L) ds_g[(size_t)i * L + j] = ds;
       __syncwarp();
     }
   }
@@ -485,7 +527,8 @@ __global__ void __launch_bounds__(2 * QT) attention_bwd_dq_kernel(const AttnArgs
 
 // Backward pass (b): one block of 128 threads per (64-key tile, head, item),
 // walking the 64-row query tiles that can see its keys: p^T rebuilt from
-// k q^T and the rows' statistics, dv += T(p)^T do and dk += ds^T q.
+// k q^T and the rows' statistics, dp^T = v do^T, ds^T from p, dp and the
+// rows' delta, dv += T(p)^T do and dk += ds^T q.
 
 constexpr int kDkvThreads = 2 * kTile;
 
@@ -494,33 +537,32 @@ __global__ void __launch_bounds__(kDkvThreads) attention_bwd_dkv_kernel(const At
   constexpr int TS = TileLayout<T>::kStride, TE = TileLayout<T>::kElems, kThreads = kDkvThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Ks = reinterpret_cast<T*>(smem_raw);  // k rows j0..
-  T* Qs = Ks + TE;                         // q (or T(q * scale)) rows i0..
+  T* Vs = Ks + TE;                         // v rows j0..
+  T* Qs = Vs + TE;                         // q (or T(q * scale)) rows i0..
   T* dOs = Qs + TE;                        // do rows i0..
-  T* dSs = dOs + TE;                       // ds[i][j]
-  T* Pt = dSs + TE;                        // T(p)[j][i]
+  T* dSt = dOs + TE;                       // T(ds)[j][i]
+  T* Pt = dSt + TE;                        // T(p)[j][i]
   float* ST = reinterpret_cast<float*>(Pt + TE);  // s^T [64][kAccStride]
-  float* DV = ST + kTile * kAccStride;
+  float* DPT = ST + kTile * kAccStride;    // dp^T
+  float* DV = DPT + kTile * kAccStride;
   float* DK = DV + kTile * kAccStride;
   float* row_m = DK + kTile * kAccStride;  // per query row i0..: lse (kScaleQ) or m
   float* row_l = row_m + kTile;            // l
+  float* row_rl = row_l + kTile;           // 1 / l
+  float* row_d = row_rl + kTile;           // delta
 
-  const int L = a.L, H = gridDim.y, h = blockIdx.y, b = blockIdx.z, j0 = blockIdx.x * kTile;
-  const int D = H * kHeadDim;
+  const int L = a.L, D = gridDim.y * kHeadDim, b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * kTile;
   const T* Q = head_rows<T>(a.q, a.in_b);
   const T* dO = head_rows<T>(a.dout, (long long)L * D);
-  const T* ds_g = static_cast<const T*>(a.ds) + ((size_t)b * H + h) * L * L;
   const int tid = threadIdx.x;
 
   load_tile<kTile, kThreads>(Ks, head_rows<T>(a.k, a.in_b), a.in_r, j0, L);
+  load_tile<kTile, kThreads>(Vs, head_rows<T>(a.v, a.in_b), a.in_r, j0, L);
   const int first = a.causal ? j0 : 0;
   for (int i0 = first; i0 < L; i0 += kTile) {
     __syncthreads();
     load_tile<kTile, kThreads>(Qs, Q, a.in_r, i0, L, kScaleQ ? a.scale : 0.f);
     load_tile<kTile, kThreads>(dOs, dO, D, i0, L);
-    for (int e = tid; e < kTile * kTile; e += kThreads) {
-      const int r = e / kTile, c = e % kTile, i = i0 + r, j = j0 + c;
-      dSs[r * TS + c] = i < L && j < L ? ds_g[(size_t)i * L + j] : from_f<T>(0.f);
-    }
     for (int r = tid; r < kTile; r += kThreads) {
       const int i = i0 + r;
       if (kScaleQ) {
@@ -529,23 +571,31 @@ __global__ void __launch_bounds__(kDkvThreads) attention_bwd_dkv_kernel(const At
         const float2 ml = i < L ? reinterpret_cast<const float2*>(a.stats)[stat_index(i, L)] : make_float2(0.f, 1.f);
         row_m[r] = ml.x;
         row_l[r] = ml.y;
+        row_rl[r] = __frcp_rn(ml.y);
       }
+      row_d[r] = i < L ? a.delta[stat_index(i, L)] : 0.f;
     }
     __syncthreads();
-    tile_product<false, true>(ST, kAccStride, Ks, TS, Qs, TS, false);  // s^T = k q^T
+    tile_product<false, true>(ST, kAccStride, Ks, TS, Qs, TS, false);    // s^T = k q^T
+    tile_product<false, true>(DPT, kAccStride, Vs, TS, dOs, TS, false);  // dp^T = v do^T
     __syncthreads();
     for (int e = tid; e < kTile * kTile; e += kThreads) {
       const int r = e / kTile, c = e % kTile, j = j0 + r, i = i0 + c;
       const bool keep = j < L && i < L && (!a.causal || j <= i);
       const float s = ST[r * kAccStride + c];
-      float p = 0.f;
-      if (keep) p = kScaleQ ? expf(s - row_m[c]) : __fdiv_rn(expf(__fmul_rn(s, a.scale) - row_m[c]), row_l[c]);
+      float p = 0.f, ds = 0.f;
+      if (keep) {
+        p = kScaleQ ? expf(s - row_m[c]) : div_rn_by(expf(__fmul_rn(s, a.scale) - row_m[c]), row_l[c], row_rl[c]);
+        const float pd = __fmul_rn(p, __fsub_rn(DPT[r * kAccStride + c], row_d[c]));
+        ds = kScaleQ ? pd : __fmul_rn(pd, a.scale);
+      }
       Pt[r * TS + c] = from_f<T>(p);
+      dSt[r * TS + c] = from_f<T>(ds);
     }
     __syncthreads();
     const bool acc = i0 != first;
     tile_product<false, false>(DV, kAccStride, Pt, TS, dOs, TS, acc);  // dv += T(p)^T do
-    tile_product<true, false>(DK, kAccStride, dSs, TS, Qs, TS, acc);   // dk += ds^T q
+    tile_product<false, false>(DK, kAccStride, dSt, TS, Qs, TS, acc);  // dk += ds^T q
   }
   __syncthreads();
   T* dK = static_cast<T*>(a.dk) + (size_t)b * a.out_b + (size_t)h * kHeadDim;
@@ -555,6 +605,511 @@ __global__ void __launch_bounds__(kDkvThreads) attention_bwd_dkv_kernel(const At
     if (j < L) {
       dK[(size_t)j * a.out_r + c] = from_f<T>(DK[r * kAccStride + c]);
       dV[(size_t)j * a.out_r + c] = from_f<T>(DV[r * kAccStride + c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The register route: bf16, L <= kRegKeys.  Blocks of four warps, each warp
+// owning 16 rows (query rows in the forward and pass (a), keys in pass (b));
+// a block's 64 rows and the whole key (or query) range of its (head, item)
+// sit in shared memory, loaded by cp.async in one group per 64-row tile so
+// the products of a tile start as soon as it lands.  Products run on
+// mma.sync m16n8k16 with fp32 accumulate; a product's accumulator
+// fragments, cast to bf16, are the next product's A fragments, as in
+// FlashAttention-2, so no score reaches shared or device memory.  NT, the
+// number of 64-key tiles, is a template constant so a row's scores stay in
+// registers (NT * 32 fp32 a thread); chunks of 16 keys past a warp's last
+// visible key are skipped.
+
+constexpr int kRegKeys = 256;  // the longest key range the register route keeps
+constexpr int kRegRows = 64;   // rows a block owns: four warps of 16
+constexpr int kRegThreads = 128;
+
+// kRows rows (row0.., zeros past L) x 64 bf16 of src (row stride ld) into a
+// [kRows][kStride] tile by cp.async, 16 bytes a copy, from all kRegThreads
+// threads; the caller commits.
+template <int kRows>
+__device__ __forceinline__ void cp_async_rows(bf16* dst, const bf16* __restrict__ src, long long ld, int row0,
+                                              int L) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+#pragma unroll
+  for (int e = threadIdx.x; e < kRows * 8; e += kRegThreads) {
+    const int r = e / 8, c = (e % 8) * 8, j = row0 + r;
+    cp_async16(&dst[r * TS + c], src + (size_t)(j < L ? j : 0) * ld + c, j < L);
+  }
+}
+
+// T(v * scale) in place over the pieces this thread copied with
+// cp_async_rows (visible to it once their group is waited for).
+template <int kRows>
+__device__ __forceinline__ void scale_rows(bf16* dst, int row0, int L, float scale) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+#pragma unroll
+  for (int e = threadIdx.x; e < kRows * 8; e += kRegThreads) {
+    const int r = e / 8, c = (e % 8) * 8;
+    if (row0 + r >= L) continue;
+    uint4* piece = reinterpret_cast<uint4*>(&dst[r * TS + c]);
+    uint4 u = *piece;
+    bf16* v = reinterpret_cast<bf16*>(&u);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(v[i]), scale));
+    *piece = u;
+  }
+}
+
+// acc[2c], acc[2c + 1] (16 x 16 each) = A times the 16 rows n0 + 16 c.. of
+// a tile held [n][feature], transposed (a q k^T-type product), for each of
+// the four chunks c < 4 with n0 + 16 c < n_end (the others are left as they
+// are).  A is a warp's 16 rows x 64 features held [row][feature] at row a0
+// of a_tile, its fragments loaded once per k-step; the chunks'
+// accumulators are independent, so eight mma chains are in flight.
+__device__ __forceinline__ void mma_nt_tile(float (*acc)[4], const bf16* a_tile, int a0, const bf16* tile, int n0,
+                                            int n_end) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t af[4];
+    ldmatrix_x4(af, &a_tile[(a0 + ldm_row(lane, false)) * TS + ks * 16 + ldm_col(lane, false)]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (n0 + 16 * c >= n_end) continue;
+      uint32_t r[4];
+      ldmatrix_x4(r, &tile[(n0 + 16 * c + ldm_row(lane, true)) * TS + ks * 16 + ldm_col(lane, true)]);
+      mma_bf16(acc[2 * c], af, r[0], r[1]);
+      mma_bf16(acc[2 * c + 1], af, r[2], r[3]);
+    }
+  }
+}
+
+// acc[0], acc[1] (16 x 16) = A times the 16 rows n0.. of a tile held
+// [n][feature], transposed, with A's fragments (a warp's 16 rows x 64
+// features, four k-steps) in registers.
+__device__ __forceinline__ void mma_nt(float (*acc)[4], const uint32_t (&af)[4][4], const bf16* tile, int n0) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    uint32_t r[4];
+    ldmatrix_x4(r, &tile[(n0 + ldm_row(lane, true)) * TS + ks * 16 + ldm_col(lane, true)]);
+    mma_bf16(acc[0], af[ks], r[0], r[1]);
+    mma_bf16(acc[1], af[ks], r[2], r[3]);
+  }
+}
+
+// The A fragments of a warp's 16 rows held [row][feature] at row r0.
+__device__ __forceinline__ void load_a_frags(uint32_t (&af)[4][4], const bf16* tile, int r0) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    ldmatrix_x4(af[ks], &tile[(r0 + ldm_row(lane, false)) * TS + ks * 16 + ldm_col(lane, false)]);
+  }
+}
+
+// acc (16 x 64 features) += A (16 rows x the 16 tile rows k0..) times those
+// tile rows, held [k][feature]: a p v-type product.
+__device__ __forceinline__ void mma_rows_nn(float (&acc)[8][4], const uint32_t (&a)[4], const bf16* tile, int k0) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t r[4];
+    ldmatrix_x4_trans(r, &tile[(k0 + ldm_row(lane, false)) * TS + np * 16 + ldm_col(lane, false)]);
+    mma_bf16(acc[2 * np], a, r[0], r[1]);
+    mma_bf16(acc[2 * np + 1], a, r[2], r[3]);
+  }
+}
+
+// Two 16 x 8 accumulator tiles (16 rows x 16 columns) as the bf16 A
+// fragment over those 16 columns.
+__device__ __forceinline__ void acc_to_a(uint32_t (&f)[4], const float (&c0)[4], const float (&c1)[4]) {
+  f[0] = pack_bf16(c0[0], c0[1]);
+  f[1] = pack_bf16(c0[2], c0[3]);
+  f[2] = pack_bf16(c1[0], c1[1]);
+  f[3] = pack_bf16(c1[2], c1[3]);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Scores s[n][e] of a warp's 16 query rows (row wr of Qs) over NT key
+// tiles, the tiles waited for one by one (groups 1..NT after the rows'
+// group 0, the V tiles' NT groups behind them), a tile's four chunks at
+// once.  Chunks of 16 keys at or past kv_warp stay 0.
+template <int NT>
+__device__ __forceinline__ void row_scores(float (&s)[NT * 8][4], const bf16* Qs, int wr, const bf16* Ks,
+                                           int kv_warp) {
+#pragma unroll
+  for (int n = 0; n < NT * 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    cp_async_wait(2 * NT - 1 - t);
+    __syncthreads();
+    mma_nt_tile(&s[8 * t], Qs, wr, Ks, t * kTile, kv_warp);
+  }
+}
+
+// The exact softmax statistics of a warp's rows over scores held in
+// registers: (scaled in place unless kScaleQ) m over the visible keys, then
+// s[n][e] = exp(s - m) and l = the sum of those, over the lane quad.
+// vis[h]: keys row lane/4 + 8h sees (0 for a row past L).
+template <int NT, bool kScaleQ>
+__device__ __forceinline__ void row_exp_regs(float (&s)[NT * 8][4], const int (&vis)[2], float scale, float (&m)[2],
+                                             float (&l)[2]) {
+  const int lane = threadIdx.x % 32;
+  m[0] = m[1] = -INFINITY;
+#pragma unroll
+  for (int n = 0; n < NT * 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (!kScaleQ) s[n][e] = __fmul_rn(s[n][e], scale);
+      if (n * 8 + (lane % 4) * 2 + (e & 1) < vis[e >> 1]) m[e >> 1] = fmaxf(m[e >> 1], s[n][e]);
+    }
+  m[0] = quad_max(m[0]);
+  m[1] = quad_max(m[1]);
+  l[0] = l[1] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT * 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = n * 8 + (lane % 4) * 2 + (e & 1) < vis[e >> 1] ? expf(s[n][e] - m[e >> 1]) : 0.f;
+      s[n][e] = x;
+      l[e >> 1] += x;
+    }
+  l[0] = quad_sum(l[0]);
+  l[1] = quad_sum(l[1]);
+}
+
+// Forward: one block per (64-row query tile, head, item).
+template <bool kScaleQ, bool kTrain, int NT>
+__global__ void __launch_bounds__(kRegThreads, 2) attention_fwd_kernel(const AttnArgs a) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][TS]
+  bf16* Ks = Qs + kRegRows * TS;                 // [NT * 64][TS]
+  bf16* Vs = Ks + NT * kTile * TS;               // [NT * 64][TS]
+
+  const int L = a.L, D = gridDim.y * kHeadDim, q0 = blockIdx.x * kRegRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wr = warp * 16;
+  const bf16* K = head_rows<bf16>(a.k, a.in_b);
+  const bf16* V = head_rows<bf16>(a.v, a.in_b);
+  const int n_tiles = ((a.causal ? min(q0 + kRegRows, L) : L) + kTile - 1) / kTile;
+
+  cp_async_rows<kRegRows>(Qs, head_rows<bf16>(a.q, a.in_b), a.in_r, q0, L);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < n_tiles) cp_async_rows<kTile>(Ks + t * kTile * TS, K, a.in_r, t * kTile, L);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < n_tiles) cp_async_rows<kTile>(Vs + t * kTile * TS, V, a.in_r, t * kTile, L);
+    cp_async_commit();
+  }
+  cp_async_wait(2 * NT);
+  if (kScaleQ) scale_rows<kRegRows>(Qs, q0, L, a.scale);  // q rounds to T(q * scale)
+  __syncthreads();
+
+  // Rows r (lane/4) and r + 8 of the warp's 16; a warp wholly past L skips
+  // every product (kv_warp = 0) but still takes part in the barriers.
+  const int r = q0 + wr + lane / 4;
+  const int kv_warp = q0 + wr >= L ? 0 : a.causal ? min(q0 + wr + 16, L) : L;
+  int vis[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) vis[h] = r + 8 * h < L ? (a.causal ? r + 8 * h + 1 : L) : 0;
+
+  float s[NT * 8][4];
+  row_scores<NT>(s, Qs, wr, Ks, kv_warp);
+  float m[2], l[2];
+  row_exp_regs<NT, kScaleQ>(s, vis, a.scale, m, l);
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+  if (kTrain) {
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r + 8 * h < L) a.stats[stat_index(r + 8 * h, L)] = m[h] + logf(l[h]);
+    }
+  } else {  // p = e / l, normalised in fp32 before its cast
+#pragma unroll
+    for (int n = 0; n < NT * 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n * 8 + (lane % 4) * 2 + (e & 1) < vis[e >> 1]) s[n][e] = div_rn_by(s[n][e], l[e >> 1], rl[e >> 1]);
+  }
+
+  cp_async_wait(0);
+  __syncthreads();
+  float o[8][4] = {};
+#pragma unroll
+  for (int c = 0; c < NT * 4; ++c) {
+    if (c * 16 >= kv_warp) continue;
+    uint32_t pa[4];
+    acc_to_a(pa, s[2 * c], s[2 * c + 1]);
+    mma_rows_nn(o, pa, Vs, c * 16);
+  }
+
+  bf16* O = static_cast<bf16*>(a.o) + (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * kHeadDim;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r + 8 * h;
+    if (i >= L) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float v0 = o[nt][2 * h], v1 = o[nt][2 * h + 1];
+      if (kTrain) {
+        v0 = div_rn_by(v0, l[h], rl[h]);
+        v1 = div_rn_by(v1, l[h], rl[h]);
+      }
+      *reinterpret_cast<bf162*>(O + (size_t)i * D + nt * 8 + (lane % 4) * 2) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// Backward pass (a): one block per (64-row query tile, head, item).  Each
+// warp keeps its rows' p in registers (from s, the statistics computed here
+// or the forward's lse), sweeps the key chunks for delta = sum p dp with dp
+// in registers, then again for ds and dq += T(ds) k.  It writes dq, the
+// statistics ((m, l) unless kScaleQ) and delta.
+template <int NT, bool kScaleQ>
+__global__ void __launch_bounds__(kRegThreads, 2) attention_bwd_q_kernel(const AttnArgs a) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][TS]: q, or T(q * scale)
+  bf16* dOs = Qs + kRegRows * TS;                // [64][TS]
+  bf16* Ks = dOs + kRegRows * TS;                // [NT * 64][TS]
+  bf16* Vs = Ks + NT * kTile * TS;               // [NT * 64][TS]
+
+  const int L = a.L, D = gridDim.y * kHeadDim, i0 = blockIdx.x * kRegRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wr = warp * 16;
+  const bf16* K = head_rows<bf16>(a.k, a.in_b);
+  const bf16* V = head_rows<bf16>(a.v, a.in_b);
+  const int n_tiles = ((a.causal ? min(i0 + kRegRows, L) : L) + kTile - 1) / kTile;
+
+  cp_async_rows<kRegRows>(Qs, head_rows<bf16>(a.q, a.in_b), a.in_r, i0, L);
+  cp_async_rows<kRegRows>(dOs, head_rows<bf16>(a.dout, (long long)L * D), D, i0, L);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < n_tiles) cp_async_rows<kTile>(Ks + t * kTile * TS, K, a.in_r, t * kTile, L);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t < n_tiles) cp_async_rows<kTile>(Vs + t * kTile * TS, V, a.in_r, t * kTile, L);
+    cp_async_commit();
+  }
+  cp_async_wait(2 * NT);
+  if (kScaleQ) scale_rows<kRegRows>(Qs, i0, L, a.scale);
+  __syncthreads();
+
+  const int r = i0 + wr + lane / 4;
+  const int kv_warp = i0 + wr >= L ? 0 : a.causal ? min(i0 + wr + 16, L) : L;
+  int vis[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) vis[h] = r + 8 * h < L ? (a.causal ? r + 8 * h + 1 : L) : 0;
+
+  float p[NT * 8][4];
+  row_scores<NT>(p, Qs, wr, Ks, kv_warp);
+  if (kScaleQ) {  // p = exp(s - lse)
+    float lse[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lse[h] = r + 8 * h < L ? a.stats[stat_index(r + 8 * h, L)] : 0.f;
+#pragma unroll
+    for (int n = 0; n < NT * 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = n * 8 + (lane % 4) * 2 + (e & 1) < vis[e >> 1] ? expf(p[n][e] - lse[e >> 1]) : 0.f;
+  } else {  // p = exp(s scale - m) / l, the statistics handed to pass (b)
+    float m[2], l[2];
+    row_exp_regs<NT, false>(p, vis, a.scale, m, l);
+    const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+    for (int n = 0; n < NT * 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (n * 8 + (lane % 4) * 2 + (e & 1) < vis[e >> 1]) p[n][e] = div_rn_by(p[n][e], l[e >> 1], rl[e >> 1]);
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r + 8 * h < L) reinterpret_cast<float2*>(a.stats)[stat_index(r + 8 * h, L)] = make_float2(m[h], l[h]);
+    }
+  }
+
+  cp_async_wait(0);
+  __syncthreads();
+  // dp = do v^T in registers, one chunk of 16 keys at a time, in both
+  // sweeps; do's fragments stay in registers.
+  uint32_t da[4][4];
+  load_a_frags(da, dOs, wr);
+  float delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int c = 0; c < NT * 4; ++c) {
+    if (c * 16 >= kv_warp) continue;
+    float dp[2][4] = {};
+    mma_nt(dp, da, Vs, c * 16);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) delta[e >> 1] += p[2 * c + u][e] * dp[u][e];
+  }
+  delta[0] = quad_sum(delta[0]);
+  delta[1] = quad_sum(delta[1]);
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r + 8 * h < L) a.delta[stat_index(r + 8 * h, L)] = delta[h];
+  }
+
+  float dq[8][4] = {};
+#pragma unroll
+  for (int c = 0; c < NT * 4; ++c) {
+    if (c * 16 >= kv_warp) continue;
+    float dp[2][4] = {};
+    mma_nt(dp, da, Vs, c * 16);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pd = __fmul_rn(p[2 * c + u][e], __fsub_rn(dp[u][e], delta[e >> 1]));
+        dp[u][e] = kScaleQ ? pd : __fmul_rn(pd, a.scale);  // ds
+      }
+    uint32_t dsa[4];
+    acc_to_a(dsa, dp[0], dp[1]);
+    mma_rows_nn(dq, dsa, Ks, c * 16);  // dq += T(ds) k
+  }
+
+  bf16* dQ = static_cast<bf16*>(a.dq) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * kHeadDim;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r + 8 * h;
+    if (i >= L) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float v0 = dq[nt][2 * h], v1 = dq[nt][2 * h + 1];
+      if (kScaleQ) {
+        v0 = __fmul_rn(v0, a.scale);
+        v1 = __fmul_rn(v1, a.scale);
+      }
+      *reinterpret_cast<bf162*>(dQ + (size_t)i * a.out_r + nt * 8 + (lane % 4) * 2) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// Backward pass (b): one block per (64-key tile, head, item).  Each warp
+// keeps its 16 keys' k and v fragments and dk, dv in registers and sweeps
+// the query rows that can see them, 16 at a time: s^T = k q^T and
+// dp^T = v do^T in registers, p^T from the rows' statistics, ds^T with
+// their delta, dv += T(p)^T do and dk += T(ds)^T q.
+template <int NT, bool kScaleQ>
+__global__ void __launch_bounds__(kRegThreads, 2) attention_bwd_k_kernel(const AttnArgs a) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][TS]
+  bf16* Vs = Ks + kRegRows * TS;                 // [64][TS]
+  bf16* Qs = Vs + kRegRows * TS;                 // [NT * 64][TS]: q, or T(q * scale)
+  bf16* dOs = Qs + NT * kTile * TS;              // [NT * 64][TS]
+  // Per query row: (lse, -, -, delta) with kScaleQ, else (m, l, 1 / l, delta).
+  float4* row_st = reinterpret_cast<float4*>(dOs + NT * kTile * TS);
+
+  const int L = a.L, D = gridDim.y * kHeadDim, j0 = blockIdx.x * kRegRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wr = warp * 16;
+  const bf16* Q = head_rows<bf16>(a.q, a.in_b);
+  const bf16* dO = head_rows<bf16>(a.dout, (long long)L * D);
+  const int first = a.causal ? (int)blockIdx.x : 0;  // the first query tile that sees these keys
+
+  cp_async_rows<kRegRows>(Ks, head_rows<bf16>(a.k, a.in_b), a.in_r, j0, L);
+  cp_async_rows<kRegRows>(Vs, head_rows<bf16>(a.v, a.in_b), a.in_r, j0, L);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (t >= first && t * kTile < L) {
+      cp_async_rows<kTile>(Qs + t * kTile * TS, Q, a.in_r, t * kTile, L);
+      cp_async_rows<kTile>(dOs + t * kTile * TS, dO, D, t * kTile, L);
+    }
+    cp_async_commit();
+  }
+  for (int i = threadIdx.x; i < NT * kTile; i += kRegThreads) {
+    float m = 0.f, l = 1.f, d = 0.f;
+    if (i < L) {
+      if (kScaleQ) {
+        m = a.stats[stat_index(i, L)];
+      } else {
+        const float2 ml = reinterpret_cast<const float2*>(a.stats)[stat_index(i, L)];
+        m = ml.x;
+        l = ml.y;
+      }
+      d = a.delta[stat_index(i, L)];
+    }
+    row_st[i] = make_float4(m, l, __frcp_rn(l), d);
+  }
+  cp_async_wait(NT);
+  __syncthreads();
+
+  const int jw = j0 + wr;       // the warp's first key
+  const int j = jw + lane / 4;  // keys j (accumulator rows lane/4) and j + 8
+  uint32_t ka[4][4], va[4][4];
+  load_a_frags(ka, Ks, wr);
+  load_a_frags(va, Vs, wr);
+  float dk[8][4] = {}, dv[8][4] = {};
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    cp_async_wait(NT - 1 - t);
+    if (kScaleQ && t >= first && t * kTile < L) scale_rows<kTile>(Qs + t * kTile * TS, t * kTile, L, a.scale);
+    __syncthreads();
+    if (t < first || jw >= L) continue;
+#pragma unroll
+    for (int qc = 0; qc < 4; ++qc) {
+      const int ib = t * kTile + qc * 16;  // the chunk's first query row
+      if (ib >= L || (a.causal && ib + 15 < jw)) continue;
+      float st[2][4] = {}, dpt[2][4] = {};
+      mma_nt(st, ka, Qs, ib);    // s^T = k q^T
+      mma_nt(dpt, va, dOs, ib);  // dp^T = v do^T
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = ib + u * 8 + (lane % 4) * 2 + (e & 1), jj = j + 8 * (e >> 1);
+          float pv = 0.f, ds = 0.f;
+          if (jj < L && i < L && (!a.causal || jj <= i)) {
+            const float4 st_i = row_st[i];
+            pv = kScaleQ ? expf(st[u][e] - st_i.x)
+                         : div_rn_by(expf(__fmul_rn(st[u][e], a.scale) - st_i.x), st_i.y, st_i.z);
+            const float pd = __fmul_rn(pv, __fsub_rn(dpt[u][e], st_i.w));
+            ds = kScaleQ ? pd : __fmul_rn(pd, a.scale);
+          }
+          st[u][e] = pv;
+          dpt[u][e] = ds;
+        }
+      uint32_t pa[4], dsa[4];
+      acc_to_a(pa, st[0], st[1]);
+      acc_to_a(dsa, dpt[0], dpt[1]);
+      mma_rows_nn(dv, pa, dOs, ib);  // dv += T(p)^T do
+      mma_rows_nn(dk, dsa, Qs, ib);  // dk += T(ds)^T q
+    }
+  }
+
+  bf16* dK = static_cast<bf16*>(a.dk) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * kHeadDim;
+  bf16* dV = static_cast<bf16*>(a.dv) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * kHeadDim;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int jj = j + 8 * h;
+    if (jj >= L) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const size_t off = (size_t)jj * a.out_r + nt * 8 + (lane % 4) * 2;
+      *reinterpret_cast<bf162*>(dK + off) = __floats2bfloat162_rn(dk[nt][2 * h], dk[nt][2 * h + 1]);
+      *reinterpret_cast<bf162*>(dV + off) = __floats2bfloat162_rn(dv[nt][2 * h], dv[nt][2 * h + 1]);
     }
   }
 }
@@ -575,6 +1130,49 @@ cudaError_t launch_attention_kernel(Kernel kernel, int rows, int threads, size_t
   return cudaGetLastError();
 }
 
+// Bytes of the register route's tiles: `rows` own rows and two [nt * 64]
+// tiles of the other side.
+inline size_t reg_smem(int rows, int nt) {
+  return (size_t)(rows + 2 * nt * kTile) * TileLayout<bf16>::kStride * sizeof(bf16);
+}
+
+// One of a kernel template's four instantiations, by the number of 64-key
+// tiles (1-4), launched over 64-row blocks of kRegThreads.
+#define FLYP_REG_LAUNCH(nt, KERNEL, smem)                                                   \
+  switch (nt) {                                                                            \
+    case 1: return launch_attention_kernel(KERNEL(1), kRegRows, kRegThreads, smem, a, B, H, st); \
+    case 2: return launch_attention_kernel(KERNEL(2), kRegRows, kRegThreads, smem, a, B, H, st); \
+    case 3: return launch_attention_kernel(KERNEL(3), kRegRows, kRegThreads, smem, a, B, H, st); \
+    case 4: return launch_attention_kernel(KERNEL(4), kRegRows, kRegThreads, smem, a, B, H, st); \
+    default: return cudaErrorInvalidValue;                                                 \
+  }
+
+template <bool kScaleQ, bool kTrain>
+cudaError_t attention_forward_regs(const AttnArgs& a, int B, int H, cudaStream_t st) {
+  const int nt = (a.L + kTile - 1) / kTile;
+#define FLYP_FWD(n) attention_fwd_kernel<kScaleQ, kTrain, n>
+  FLYP_REG_LAUNCH(nt, FLYP_FWD, reg_smem(kRegRows, nt))
+#undef FLYP_FWD
+}
+
+template <bool kScaleQ>
+cudaError_t attention_bwd_q_regs(const AttnArgs& a, int B, int H, cudaStream_t st) {
+  const int nt = (a.L + kTile - 1) / kTile;
+#define FLYP_BWD_Q(n) attention_bwd_q_kernel<n, kScaleQ>
+  FLYP_REG_LAUNCH(nt, FLYP_BWD_Q, reg_smem(2 * kRegRows, nt))
+#undef FLYP_BWD_Q
+}
+
+template <bool kScaleQ>
+cudaError_t attention_bwd_k_regs(const AttnArgs& a, int B, int H, cudaStream_t st) {
+  const int nt = (a.L + kTile - 1) / kTile;
+  const size_t smem = reg_smem(2 * kRegRows, nt) + 4 * (size_t)nt * kTile * sizeof(float);
+#define FLYP_BWD_K(n) attention_bwd_k_kernel<n, kScaleQ>
+  FLYP_REG_LAUNCH(nt, FLYP_BWD_K, smem)
+#undef FLYP_BWD_K
+}
+#undef FLYP_REG_LAUNCH
+
 // The forward: a.o, and with kTrain lse into a.stats.
 template <typename T, bool kScaleQ, bool kTrain>
 cudaError_t attention_forward(const AttnArgs& a, int B, int H, cudaStream_t st) {
@@ -583,6 +1181,7 @@ cudaError_t attention_forward(const AttnArgs& a, int B, int H, cudaStream_t st) 
     if (!fits_block(smem, kFmaQT)) return cudaErrorInvalidValue;
     return launch_attention_kernel(attention_fma_kernel<kScaleQ, kTrain>, kFmaQT, kFmaThreads, smem, a, B, H, st);
   } else {
+    if (a.L <= kRegKeys) return attention_forward_regs<kScaleQ, kTrain>(a, B, H, st);
     auto smem = [&](int qt) {
       return (size_t)(qt + kTile) * TileLayout<bf16>::kStride * sizeof(bf16) + (size_t)qt * a.s_stride * sizeof(float);
     };
@@ -596,17 +1195,25 @@ cudaError_t attention_forward(const AttnArgs& a, int B, int H, cudaStream_t st) 
   }
 }
 
-// The backward, pass (a) then pass (b): a.dq, a.dk, a.dv.
+// The backward, pass (a) then pass (b): a.dq, a.dk, a.dv; pass (a) also
+// writes a.delta (and, unless kScaleQ, the (m, l) pairs into a.stats).
 template <typename T, bool kScaleQ>
 cudaError_t attention_backward(const AttnArgs& a, int B, int H, cudaStream_t st) {
+  cudaError_t err;
+  if constexpr (sizeof(T) == 2) {
+    if (a.L <= kRegKeys) {
+      err = attention_bwd_q_regs<kScaleQ>(a, B, H, st);
+      if (err != cudaSuccess) return err;
+      return attention_bwd_k_regs<kScaleQ>(a, B, H, st);
+    }
+  }
   constexpr int TS = TileLayout<T>::kStride;
   auto dq_smem = [&](int qt) {
     return (size_t)(2 * qt + kTile) * TS * sizeof(T) + 2 * (size_t)qt * a.s_stride * sizeof(float);
   };
   // The query tile: the largest of 64, 32, 16 rows whose footprint fits a
-  // block (64 at CLIP's lengths; a 32-row pass (a), two blocks to an SM, ran
+  // block (64 up to L = 320; a 32-row pass (a), two blocks to an SM, ran
   // slower on the H100: fewer rows reload each k and v tile more often).
-  cudaError_t err;
   if (fits_block(dq_smem(64), 64)) {
     err = launch_attention_kernel(attention_bwd_dq_kernel<T, 64, kScaleQ>, 64, 128, dq_smem(64), a, B, H, st);
   } else if (fits_block(dq_smem(32), 32)) {
@@ -617,8 +1224,8 @@ cudaError_t attention_backward(const AttnArgs& a, int B, int H, cudaStream_t st)
     return cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return err;
-  const size_t dkv_smem = 5 * (size_t)TileLayout<T>::kElems * sizeof(T) +
-                          (3 * (size_t)kTile * kAccStride + 2 * kTile) * sizeof(float);
+  const size_t dkv_smem = 6 * (size_t)TileLayout<T>::kElems * sizeof(T) +
+                          (4 * (size_t)kTile * kAccStride + 4 * kTile) * sizeof(float);
   return launch_attention_kernel(attention_bwd_dkv_kernel<T, kScaleQ>, kTile, kDkvThreads, dkv_smem, a, B, H, st);
 }
 

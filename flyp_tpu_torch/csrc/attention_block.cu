@@ -29,11 +29,12 @@
 //      epilogue, q/k/v written to scratch;
 //   2. attention (attention.cuh, shared with the backward and the attention
 //      ops, in the attention block's rounding scheme), one block per (query
-//      tile, head, batch item): scores for the tile's full key range kept in
-//      shared memory so the softmax is normalised before p is cast (the TPU
-//      kernel's rounding point); the causal mask comes from indices and key
-//      tiles past the diagonal are skipped; rows and keys past L are masked,
-//      never read as garbage;
+//      tile, head, batch item): scores for the tile's full key range kept
+//      whole (in registers for bf16 up to 256 keys, else in shared memory)
+//      so the softmax is normalised before p is cast (the TPU kernel's
+//      rounding point); the causal mask comes from indices and key chunks
+//      past the diagonal are skipped; rows and keys past L are masked
+//      (zero-filled), never read as garbage;
 //   3. the out-projection GEMM (common.cuh) with a +x +bout epilogue.
 //
 // bf16 runs every product on the tensor cores (mma.sync m16n8k16, fp32

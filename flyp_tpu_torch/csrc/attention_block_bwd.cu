@@ -34,12 +34,14 @@
 //
 //   1. y = T(LN(x)) into scratch;
 //   2. do = T(g @ Wout^T)                    (GEMM, B held transposed);
-//   3. attention pass (a), per (query tile, head, item): p and dp for the
-//      tile's full key range in shared memory, delta, ds (to scratch), dq;
-//   4. attention pass (b), per (key tile, head, item): p recomputed from lse
-//      tile by tile, dv and dk accumulated over the query tiles (both passes
-//      are the templates of attention.cuh, in the attention block's
-//      rounding scheme);
+//   3. attention pass (a), per (query tile, head, item): p from lse and dp
+//      over the tile's key range, delta = rowsum(p dp) (to a [B, L, H] fp32
+//      scratch), ds, dq;
+//   4. attention pass (b), per (key tile, head, item): p and dp recomputed
+//      tile by tile, ds from the rows' delta, dv and dk accumulated over the
+//      query tiles (both passes are the templates of attention.cuh, in the
+//      attention block's rounding scheme: bf16 up to 256 keys in registers,
+//      fp32 and longer rows in shared memory);
 //   5. dbqkv: column partials of d_t, then their sum;
 //   6. dWqkv: y^T d_t per tower, split over rows, then the partials' sum;
 //   7. dY = sum_t d_t Wqkv[t]^T              (GEMM, 3 D-long segments);
@@ -185,8 +187,8 @@ template <typename T>
 struct Bwd {
   // Scratch carved from one workspace, each piece 256-byte aligned.
   struct Scratch {
-    T *y, *dout, *d, *ds;
-    float *dY, *part_w, *part_b, *part_ln;
+    T *y, *dout, *d;
+    float *delta, *dY, *part_w, *part_b, *part_ln;
   };
 
   static int k_chunk(int M, int D) {
@@ -213,7 +215,7 @@ struct Bwd {
     char* y = take(M * D * sizeof(T));
     char* dout = take(M * D * sizeof(T));
     char* d = take(3 * M * D * sizeof(T));
-    char* ds = take((size_t)B * H * L * L * sizeof(T));
+    char* delta = take(M * H * sizeof(float));
     char* dY = take(M * D * sizeof(float));
     char* pw = take((size_t)splits * 3 * D * D * sizeof(float));
     char* pb = take((size_t)c_chunks * 3 * D * sizeof(float));
@@ -222,7 +224,7 @@ struct Bwd {
       s->y = reinterpret_cast<T*>(y);
       s->dout = reinterpret_cast<T*>(dout);
       s->d = reinterpret_cast<T*>(d);
-      s->ds = reinterpret_cast<T*>(ds);
+      s->delta = reinterpret_cast<float*>(delta);
       s->dY = reinterpret_cast<float*>(dY);
       s->part_w = reinterpret_cast<float*>(pw);
       s->part_b = reinterpret_cast<float*>(pb);
@@ -263,7 +265,7 @@ struct Bwd {
     AttnArgs a = attn_args(q, k, v, (long long)L * D, D, L, causal);
     a.dout = s.dout;
     a.stats = const_cast<float*>(lse);  // read only, in the attention block's scheme
-    a.ds = s.ds;
+    a.delta = s.delta;
     a.dq = s.d; a.dk = s.d + (size_t)M * D; a.dv = s.d + 2 * (size_t)M * D;
     a.out_b = (long long)L * D; a.out_r = D;
     FLYP_CHECK((attention_backward<T, true>(a, B, H, st)));

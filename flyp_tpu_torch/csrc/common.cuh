@@ -77,6 +77,46 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// a / b rounded to nearest, as __fdiv_rn gives it, from rb = __frcp_rn(b)
+// (one reciprocal for many quotients by the same b): q = a rb is within an
+// ulp, and one correction with the exact residual a - q b (an FMA) rounds
+// it correctly (Markstein), for finite a, b whose quotient is normal or 0.
+// A softmax's p = e / l, with 0 <= e <= 1 <= l, is such a quotient (e near
+// fp32's underflow rounds to within an ulp of its subnormal quotient).
+__device__ __forceinline__ float div_rn_by(float a, float b, float rb) {
+  const float q = __fmul_rn(a, rb);
+  return __fmaf_rn(__fmaf_rn(-q, b, a), rb, q);
+}
+
+// Two fp32 as the bf16 pair of one mma fragment register (lo in the low half).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const bf162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// cp.async: 16 bytes from device memory into shared memory, bypassing L1;
+// zeros when !valid (nothing is read then).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most n (0-8) of the calling thread's committed cp.async
+// groups are pending; the copies of the others are then visible to it (to
+// the block after a __syncthreads).  n is a constant once loops unroll.
+__device__ __forceinline__ void cp_async_wait(int n) {
+  if (n <= 0) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1) asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else if (n == 2) asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (n == 3) asm volatile("cp.async.wait_group 3;\n" ::: "memory");
+  else if (n == 4) asm volatile("cp.async.wait_group 4;\n" ::: "memory");
+  else if (n == 5) asm volatile("cp.async.wait_group 5;\n" ::: "memory");
+  else if (n == 6) asm volatile("cp.async.wait_group 6;\n" ::: "memory");
+  else if (n == 7) asm volatile("cp.async.wait_group 7;\n" ::: "memory");
+  else asm volatile("cp.async.wait_group 8;\n" ::: "memory");
+}
+
 // Fragment lanes: accumulator element e of lane l sits at row l/4 (+8 for
 // e >= 2) and column 2*(l%4) (+1 for odd e) of the 16 x 8 tile.
 //

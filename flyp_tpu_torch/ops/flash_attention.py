@@ -141,15 +141,15 @@ def kernel_backward(q, k, v, do, causal: bool, dq, dk, dv):
     do = do.to(q.dtype).contiguous()
     if not (dq.stride() == dk.stride() == dv.stride() and dq.stride(3) == 1 and dq.stride(2) == _HEAD_DIM):
         raise ValueError("dq, dk, dv must share a layout dense in (head, feature)")
-    # T(ds) and each row's softmax max and sum, from the backward's
-    # query-tile pass to its key-tile pass.
-    ds = torch.empty((B, H, L, L), dtype=q.dtype, device=q.device)
+    # Each row's softmax max and sum, and delta = rowsum(p dp), from the
+    # backward's query-tile pass to its key-tile pass.
     stats = torch.empty((B, L, H, 2), dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, L, H), dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         code = lib.flyp_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            ds.data_ptr(), stats.data_ptr(), sb, sr, dq.stride(0), dq.stride(1), B, L, H, int(bool(causal)),
+            stats.data_ptr(), delta.data_ptr(), sb, sr, dq.stride(0), dq.stride(1), B, L, H, int(bool(causal)),
             _DTYPE_CODES[q.dtype], _stream(q.device))
     _kernels.check(lib, code, "attention backward kernel launch")
 

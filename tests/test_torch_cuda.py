@@ -286,20 +286,40 @@ def _attention_ops(op, H, causal):
             tfa.flash_attention)
 
 
+def _strided_views(B, L, H, dt, seed, card):
+    """q, k, v as head views of one [B, L, 3D] projection (row stride 3D),
+    and a cotangent."""
+    rng = np.random.default_rng(seed)
+    D = H * 64
+    qkv = torch.from_numpy(rng.standard_normal((B, L, 3 * D)).astype(np.float32)).to(card).to(dt)
+    g = torch.from_numpy(rng.standard_normal((B, L, H, 64)).astype(np.float32)).to(card).to(dt)
+    return [qkv[..., t * D:(t + 1) * D].reshape(B, L, H, 64) for t in range(3)], g
+
+
+# (B, L, H, causal): CLIP's vision and text lengths, every query tile the
+# shared-memory route picks up to 1024, and the lengths that end a 16-row
+# warp tile or a 64-key tile on both sides of the register route's 256 keys.
+ATTENTION_SHAPES = [(4, 197, 12, False), (4, 77, 8, True), (3, 13, 2, True), (2, 577, 4, False), (1, 800, 2, False),
+                    (1, 1024, 2, True)] + [(2, L, 2, causal) for L in (1, 17, 63, 65, 197, 255, 256, 257)
+                                           for causal in (False, True)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4, 197, 12, False), (4, 77, 8, True), (3, 13, 2, True), (2, 577, 4, False),
-                                   (1, 800, 2, False), (1, 1024, 2, True)])
-@pytest.mark.parametrize("op", ["fused_qkv", "flash"])
+@pytest.mark.parametrize("shape", ATTENTION_SHAPES)
+@pytest.mark.parametrize("op", ["fused_qkv", "flash", "flash_strided"])
 def test_attention_kernels_match_plain_on_card(card, op, shape, dtype):
-    """B5 and B6, forward and backward, against their plain versions at every
-    query tile the kernels pick (L up to 1024): o and each of dq, dk, dv
-    within check_attention's bounds."""
+    """B5 and B6 (B6 also over strided views of one projection), forward and
+    backward, against their plain versions on both routes: o and each of dq,
+    dk, dv within check_attention's bounds."""
     B, L, H, causal = shape
     dt = getattr(torch, dtype)
-    inputs, g = _attention_inputs(op, B, L, H, dt, seed=L, card=card)
-    fn, plain, plain_bwd, counted = _attention_ops(op, H, causal)
+    if op == "flash_strided":
+        inputs, g = _strided_views(B, L, H, dt, seed=L, card=card)
+    else:
+        inputs, g = _attention_inputs(op, B, L, H, dt, seed=L, card=card)
+    fn, plain, plain_bwd, counted = _attention_ops("fused_qkv" if op == "fused_qkv" else "flash", H, causal)
     before = (counted.fwd_launches, counted.bwd_launches)
-    leaves = [t.requires_grad_(True) for t in inputs]
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
     out = fn(*leaves)
     grads = torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
@@ -308,13 +328,14 @@ def test_attention_kernels_match_plain_on_card(card, op, shape, dtype):
         ref = plain(*inputs)
         ref_grads = plain_bwd(*inputs, g)
     assert out.dtype == dt and out.shape == ref.shape
-    check_attention("forward", out, ref, shape)
+    where = (op, *shape, dtype)
+    check_attention("forward", out, ref, where)
     for a, b in zip(grads, ref_grads):
         assert a.dtype == dt and a.shape == b.shape
     if op == "fused_qkv":  # one dqkv: its q, k and v thirds
         grads, ref_grads = tfq._heads(grads[0], H), tfq._heads(ref_grads[0], H)
     for name, a, b in zip(("dq", "dk", "dv"), grads, ref_grads):
-        check_attention(name, a, b, shape)
+        check_attention(name, a, b, where)
 
 
 def test_flash_kernel_reads_strided_heads(card):
@@ -331,6 +352,68 @@ def test_flash_kernel_reads_strided_heads(card):
     assert torch.equal(out_v, out_c)
     for a, b in zip(torch.autograd.grad(out_v, leaves, g), torch.autograd.grad(out_c, copies, g)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [256, 257])
+def test_attention_block_at_the_register_route_boundary(card, L, causal):
+    """B3, B1 and B2 in bf16 at 256 keys (the register route's last length)
+    and 257 (the shared-memory route's first), against their plain versions
+    at the tolerances of test_kernel_matches_plain_on_card and
+    test_training_kernels_match_plain_on_card."""
+    B, D, H = 2, 128, 2
+    dt = torch.bfloat16
+    elem, norm = TRAIN_TOL["bfloat16"]
+    x, *params = (torch.from_numpy(a).to(card) for a in _inputs(B, L, D, seed=L))
+    x = x.to(dt)
+    g = torch.from_numpy(np.random.default_rng(L).standard_normal((B, L, D)).astype(np.float32)).to(card).to(dt)
+    with torch.no_grad():
+        out = tab.attention_block_inference(x, *params, H, causal)
+        ref = tab.attention_block_inference_reference(x, *params, H, causal)
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2, msg="B3")
+        got = tab._fwd_kernel_call(x, *params, H, causal, train=True)
+        ref = tab.attention_block_reference(x, *params, H, causal)
+        for name, a, b in zip(("out", "o", "q", "k", "v"), got, ref):
+            torch.testing.assert_close(a.float(), b.float(), atol=elem, rtol=elem, msg=f"B1 {name}")
+        _, o, q, k, v, lse = got
+        torch.testing.assert_close(lse, ref[5], atol=1e-2, rtol=0.0, msg="B1 lse")
+        ln_s, ln_b, wqkv, _, wout, _ = params
+        dx, dscale, dbias, dwqkv, dbqkv = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+        ref_b = tab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
+    torch.testing.assert_close(dx.float(), ref_b[0].float(), atol=elem, rtol=elem, msg="B2 dx")
+    for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv"), (dscale, dbias, dwqkv, dbqkv), ref_b[1:5]):
+        assert _rel(a, b) < norm, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("L", [197, 77, 300])
+def test_attention_kernels_repeat_bit_for_bit(card, L):
+    """Two launches of each of B3, B1, B2, B5 and B6 on the same inputs give
+    the same bits (every output element written by one block, no atomics),
+    on the register route (L <= 256) and the shared-memory one (L = 300)."""
+    B, D, H, causal, dt = 2, 256, 4, L == 77, torch.bfloat16
+    x, *params = (torch.from_numpy(a).to(card) for a in _inputs(B, L, D, seed=L))
+    x = x.to(dt)
+    g = torch.from_numpy(np.random.default_rng(L).standard_normal((B, L, D)).astype(np.float32)).to(card).to(dt)
+    ln_s, ln_b, wqkv, _, wout, _ = params
+    qkv = torch.from_numpy(np.random.default_rng(L + 1).standard_normal((B, L, 3 * D)).astype(np.float32))
+    qkv = qkv.to(card).to(dt)
+    q, k, v = tfq._heads(qkv, H)
+    g4 = g.reshape(B, L, H, 64)
+
+    def run():
+        with torch.no_grad():
+            b1 = tab._fwd_kernel_call(x, *params, H, causal, train=True)
+            _, _, bq, bk, bv, lse = b1
+            return {"B3": (tab.attention_block_inference(x, *params, H, causal),), "B1": b1,
+                    "B2": tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, bq, bk, bv, lse, H, causal),
+                    "B5": (tfq.fused_qkv_attention(qkv, H, causal),
+                           tfq.fused_qkv_attention_backward(qkv, g, H, causal)),
+                    "B6": (tfa.flash_attention(q, k, v, causal), *tfa.flash_attention_backward(q, k, v, g4, causal))}
+
+    first, second = run(), run()
+    for name in first:
+        for a, b in zip(first[name], second[name]):
+            assert torch.equal(a, b), name
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(card):
