@@ -4,14 +4,21 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --digests            # only the B1-B3, B5 and B6 output digests
     python3 chip_smoke.py --attention-times    # only the attention kernels' device ms
+    python3 chip_smoke.py --gemm               # only the five products of gemm_sm90.cuh (G1-G5)
 
 Phases, each of which raises on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 2. build every CUDA kernel of the package from ``flyp_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once;
-3. each kernel against its plain PyTorch version at its path's shapes (B=64
-   in fp32 (TF32 off) and bf16, and the main paths' batch 256 in bf16),
+3. the five bf16 products of ``csrc/gemm_sm90.cuh`` that B1-B3 run (G1-G5,
+   ``ops/gemm_sm90.py``) alone, at the vision (M = 256 x 197, D = 768) and
+   text (M = 256 x 32 and 64 x 77, D = 512) shapes, each over a poisoned
+   output against its plain version, two launches bit-equal, timed beside
+   ``torch.mm`` and the card's bound, untileable shapes refused; then
+   each kernel against its plain PyTorch version at its path's shapes (B=64
+   in fp32 (TF32 off) and bf16, the main paths' batch 256 in bf16, and
+   ViT-L/14's L = 257 and 577 at D = 1024 for B1-B3),
    timed with CUDA events beside the plain
    version, a composite PyTorch yardstick and the card's bound: the
    inference forward (B3), the training forward (B1) on all it returns,
@@ -60,7 +67,8 @@ Phases, each of which raises on failure:
    at batch 256, every ``mfu_levers`` probe, the head rebuild at 100
    classes), each kernel's launches counted exactly.
 
-The line before the last is a JSON object of per-kernel numbers; the last
+The products' numbers are a JSON line of their own (``"gemm"``); the line
+before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
 """
@@ -88,11 +96,12 @@ from flyp_tpu_torch.ops import attention as attention_dispatch  # noqa: E402
 from flyp_tpu_torch.ops import attention_block as ab  # noqa: E402
 from flyp_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from flyp_tpu_torch.ops import fused_qkv_attention as fq  # noqa: E402
+from flyp_tpu_torch.ops import gemm_sm90 as gs  # noqa: E402
 from flyp_tpu_torch.ops import mlp_block as mb  # noqa: E402
 from flyp_tpu_torch.ops.losses import clip_loss  # noqa: E402
 from flyp_tpu_torch.serving import ClipServer  # noqa: E402
 from flyp_tpu_torch.templates import simple_template  # noqa: E402
-from flyp_tpu_torch.testing import check_gemm  # noqa: E402
+from flyp_tpu_torch.testing import check_gemm, check_gemm_product  # noqa: E402
 from flyp_tpu_torch.tokenizer import shrink_context  # noqa: E402
 from flyp_tpu_torch.tools import int8_matmul_probe as tip  # noqa: E402
 from flyp_tpu_torch.tools import mfu_levers as tml  # noqa: E402
@@ -122,15 +131,18 @@ LSE_OWN_TOL = 1e-4
 BOTH = (torch.float32, torch.bfloat16)
 # (B, L, D, H, causal, dtypes).  The training main path runs B1 and B2 at
 # batch 256 in bf16 on vision L=197 and on text L=32 (captions of 6-20
-# tokens after shrink_context); the B=64 rows add fp32 and L=77.
+# tokens after shrink_context); the B=64 rows add fp32 and L=77, the B=8
+# rows ViT-L/14 at 224 px (L=257) and 336 px (L=577), D=1024.
+VIT_L_SHAPES = [(8, 257, 1024, 16, False, BOTH), (8, 577, 1024, 16, False, (torch.bfloat16,))]
 TRAIN_SHAPES = [(64, 197, 768, 12, False, BOTH), (64, 32, 512, 8, True, BOTH), (64, 77, 512, 8, True, BOTH),
-                (256, 197, 768, 12, False, (torch.bfloat16,)), (256, 32, 512, 8, True, (torch.bfloat16,))]
+                (256, 197, 768, 12, False, (torch.bfloat16,)), (256, 32, 512, 8, True, (torch.bfloat16,)),
+                *VIT_L_SHAPES]
 # The serving main path runs B3 at buckets up to 256 images (vision L=197)
 # and on text chunks (L=16 after shrink_context); the zero-shot probe of
 # phase 8 on text chunks of 2048 and 1856 prompts (L=16).
 INFER_SHAPES = [(64, 197, 768, 12, False, BOTH), (64, 16, 512, 8, True, BOTH), (64, 77, 512, 8, True, BOTH),
                 (256, 197, 768, 12, False, (torch.bfloat16,)), (2048, 16, 512, 8, True, (torch.bfloat16,)),
-                (1856, 16, 512, 8, True, (torch.bfloat16,))]
+                (1856, 16, 512, 8, True, (torch.bfloat16,)), *VIT_L_SHAPES]
 MAIN_SHAPE = (256, 197, "bfloat16")  # the kernels line reports each kernel at the main path's vision shape
 # Dense peaks (NVIDIA data sheets): bf16 and int8 tensor cores, fp32 CUDA cores, HBM.
 PEAKS = {
@@ -367,6 +379,89 @@ def phase_train_kernels(peaks):
     return fwd_cases, bwd_cases
 
 
+# The five products of csrc/gemm_sm90.cuh alone (G1-G5, ops/gemm_sm90.py):
+# at the training main path's vision shape (batch 256, L=197, D=768), its
+# text shape (batch 256, L=32, D=512) and the text tower's L=77 at batch 64
+# (M = 4,928, not a multiple of the 128-row tile).
+GEMM_SHAPES = [("vision", 256 * 197, 768), ("text", 256 * 32, 512), ("text L=77", 64 * 77, 512)]
+GEMM_REFUSED = [(512, 200, "D=200"), (512, 64, "D=64")]
+
+
+def gemm_bound_ms(name, M, D, peaks):
+    """(ms, "operations" | "bytes"): max(2MNK / bf16 peak, bytes / bandwidth),
+    each input read once and each output written once."""
+    t_ops = gs.product_flops(name, M, D) / peaks[torch.bfloat16]
+    t_bytes = gs.product_bytes(name, M, D) / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def gemm_library_call(name, ops):
+    """One ``torch.mm`` over the product's operands (relaid out beforehand,
+    untimed, so one call covers G1's three towers and G4/G5's three terms;
+    fp32 out for G4 and G5 where torch has ``out_dtype``): timed only, the
+    port never calls it."""
+    f32 = {"out_dtype": torch.float32} if tip.has_out_dtype("mm") else {}
+    if name == "G1":
+        y, w, _ = ops
+        wc = w.permute(1, 0, 2).reshape(w.shape[1], -1).contiguous()
+        return lambda: torch.mm(y, wc)
+    if name == "G2":
+        o, w, _, _ = ops
+        return lambda: torch.mm(o, w)
+    if name == "G3":
+        g, w = ops
+        return lambda: torch.mm(g, w.t())
+    if name == "G4":
+        y, d = ops
+        dc = d.permute(1, 0, 2).reshape(d.shape[1], -1).contiguous()
+        return lambda: torch.mm(y.t(), dc, **f32)
+    d, w = ops
+    dc = d.permute(1, 0, 2).reshape(d.shape[1], -1).contiguous()
+    wc = w.transpose(1, 2).reshape(-1, w.shape[1]).contiguous()
+    return lambda: torch.mm(dc, wc, **f32)
+
+
+def phase_gemm(peaks) -> list:
+    """G1-G5 alone at GEMM_SHAPES: each output poisoned with NaN before the
+    launch and checked (testing.py's check_gemm_product), a second launch
+    bit-equal to the first, timed beside the plain version, torch.mm and
+    the card's bound; then shapes the kernel cannot tile must raise
+    ValueError naming D."""
+    cases = []
+    for label, M, D in GEMM_SHAPES:
+        for name, (op, plain, _) in gs.PRODUCTS.items():
+            where = (name, label, M, D)
+            ops = gs.product_operands(name, M, D, "cuda", seed=M + D)
+            shape, dtype = gs.product_output(name, M, D)
+            got = op(*ops, out=torch.full(shape, float("nan"), dtype=dtype, device="cuda"))
+            torch.cuda.synchronize()
+            errs = check_gemm_product(name, got, ops, where)
+            if not torch.equal(got, op(*ops)):
+                raise AssertionError(f"{name} differs between two launches at {where}")
+            ms = cuda_ms(lambda: op(*ops))
+            plain_ms = cuda_ms(lambda: plain(*ops))
+            library_ms = cuda_ms(gemm_library_call(name, ops))
+            bound, by = gemm_bound_ms(name, M, D, peaks)
+            cases.append(dict(product=name, shape=label, M=M, D=D, max_abs_err=errs["max_abs_vs_plain"], errs=errs,
+                              ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=by,
+                              tflops=gs.product_flops(name, M, D) / ms / 1e9))
+            log("gemm", json.dumps(cases[-1]))
+            del ops, got
+    for M, D, dim in GEMM_REFUSED:
+        y = torch.zeros(M, D, dtype=torch.bfloat16, device="cuda")
+        w = torch.zeros(3, D, D, dtype=torch.bfloat16, device="cuda")
+        try:
+            gs.qkv_product(y, w, torch.zeros(3, D, device="cuda"))
+        except ValueError as e:
+            if dim not in str(e):
+                raise AssertionError(f"G1 refused M={M} D={D} without naming {dim}: {e}") from e
+            log(f"G1 refuses M={M} D={D}: {e}")
+            continue
+        raise AssertionError(f"G1 accepted D={D}, which its tiles cannot cover")
+    torch.cuda.empty_cache()
+    return cases
+
+
 def chunks(n: int) -> int:
     return math.ceil(n / BUCKETS[-1])
 
@@ -454,25 +549,30 @@ def phase_serving(tmp: str, card: str) -> dict:
             "breakdown": breakdown}
 
 
-# Kernel names by port kernel, as the profiler reports them.  The GEMM
-# (common.cuh) takes <kAT, kBT, kLN[, TOut]>: the forwards' QKV and
-# out-projection hold both operands untransposed, the backward's do and dY
-# hold B transposed and its dWqkv A transposed.  The attention templates
-# (attention.cuh) take kScaleQ (true for the attention block's kernels,
+# Kernel names by port kernel, as the profiler reports them.  The bf16 GEMM
+# (gemm_sm90.cuh) takes <tile width, A MN-major, B MN-major, kOps, TOut>: the
+# forwards' QKV and out-projection (G1, G2) hold B MN-major, the backward's
+# do and dY (G3, G5) both operands K-major, its dWqkv (G4) both MN-major.
+# The fp32 GEMM (common.cuh) takes <kAT, kBT, kOps>: the forwards hold both
+# operands untransposed, the backward's do and dY hold B transposed and its
+# dWqkv A transposed.  ln_forward_kernel (y = LN(x), once per row) runs in
+# B1, B2 and B3 and is its own group in the training profile.  The
+# attention templates (attention.cuh) take kScaleQ (true for the attention block's kernels,
 # false for B5/B6) first and kTrain second in the forwards
 # (attention_fwd_kernel, the register route of bf16 rows up to 256 keys;
 # attention_mma_kernel and attention_fma_kernel, the shared-memory route),
 # and kScaleQ last in the backward passes (attention_bwd_q_kernel and
 # attention_bwd_k_kernel; attention_bwd_dq_kernel and
 # attention_bwd_dkv_kernel).
-_FWD_GEMM = r"gemm_(mma|fma)_kernel<false, false, "
+_FWD_GEMM = r"(gemm_fma_kernel<false, false, |gemm_sm90_kernel<\d+, false, true, )"
+LN_FORWARD = r"ln_forward_kernel"
 B3_ATTENTION = r"attention_(fwd|mma|fma)_kernel<true, false"
 B1_ATTENTION = r"attention_(fwd|mma|fma)_kernel<true, true"
 B2_ATTENTION = r"attention_bwd_\w+_kernel<[^>]*true>"
-B3_KERNELS = rf"({_FWD_GEMM}|{B3_ATTENTION})"
+B3_KERNELS = rf"({_FWD_GEMM}|{B3_ATTENTION}|{LN_FORWARD})"
 B1_KERNELS = rf"({_FWD_GEMM}|{B1_ATTENTION})"
-B2_KERNELS = (rf"(gemm_(mma|fma)_kernel<(true, false|false, true), |{B2_ATTENTION}|"
-              r"ln_forward_kernel|ln_backward_kernel|colsum_partial_kernel|reduce_partials_kernel)")
+B2_KERNELS = (rf"(gemm_fma_kernel<(true, false|false, true), |gemm_sm90_kernel<\d+, (false, false|true, true), |"
+              rf"{B2_ATTENTION}|ln_backward_kernel|colsum_partial_kernel|reduce_partials_kernel)")
 PORT_KERNELS = r"(flyp::|\(anonymous namespace\)::)"  # every kernel of csrc/, none of PyTorch's
 
 
@@ -666,8 +766,9 @@ def phase_training(card: str) -> dict:
     # 6. Profile of one train step.
     model.train()
     out["profile"] = device_profile(lambda: step(state, images, tokens),
-                                    {"B1": B1_KERNELS, "B2": B2_KERNELS, "B1_attention": B1_ATTENTION,
-                                     "B2_attention": B2_ATTENTION, "port_kernels": PORT_KERNELS})
+                                    {"B1": B1_KERNELS, "B2": B2_KERNELS, "ln_forward": LN_FORWARD,
+                                     "B1_attention": B1_ATTENTION, "B2_attention": B2_ATTENTION,
+                                     "port_kernels": PORT_KERNELS})
     return out
 
 
@@ -1328,10 +1429,14 @@ def main() -> int:
     if "--attention-times" in sys.argv[1:]:
         log(json.dumps({"card": card, "attention_times": attention_times()}))
         return 0
+    if "--gemm" in sys.argv[1:]:
+        log(json.dumps({"card": card, "gemm": phase_gemm(peaks)}))
+        return 0
 
     # The default route ("auto", the fused block) for the phases before the
     # route phase, whatever the environment says.
     use_impl("auto")
+    gemm_cases = phase_gemm(peaks)
     cases = phase_kernels(peaks)
     fwd_cases, bwd_cases = phase_train_kernels(peaks)
     impl_cases = phase_impl_kernels(peaks)
@@ -1399,6 +1504,7 @@ def main() -> int:
     log(json.dumps({"card": card, "training": training}))
     log(json.dumps({"card": card, "routes": impls}))
     log(json.dumps({"card": card, "tools": tools}))
+    log(json.dumps({"card": card, "gemm": gemm_cases}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,9 @@
 // Two routes, picked per call by type and length; each output element is
 // written by one block, with no atomics, so a run repeats bit for bit.
 //
-// The register route (bf16, L <= 256 keys: every CLIP length but
-// ViT-L/14@336px's 577).  Blocks of four warps own 64 rows, each warp 16;
+// The register route (bf16, L <= 256 keys, kRegKeys: ViT-B's 197 and the
+// text tower's 77, but not ViT-L/14's 257 or ViT-L/14@336px's 577, which
+// take the shared-memory route).  Blocks of four warps own 64 rows, each warp 16;
 // the block's rows and the whole opposite side of its (head, item) (at most
 // 256 rows of k and v, or of q and do) land in shared memory by cp.async,
 // one group per 64-row tile, and each tile's products start once it has
@@ -74,7 +75,7 @@
 // row statistics = 96,256 B.
 //
 // The shared-memory route (fp32 at every L, bf16 above 256 keys, up to
-// 1024 for B5/B6 and 320 for B2).  One block per (query tile, head, batch
+// 1024 for B5/B6 and B2).  One block per (query tile, head, batch
 // item) keeps the tile's scores over its whole key range in fp32 shared
 // memory, so the softmax is normalised before p is cast, as on the TPU (an
 // online softmax would cast before it normalises).  bf16 runs every product

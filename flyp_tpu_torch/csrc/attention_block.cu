@@ -22,12 +22,12 @@
 // bound by the tensor cores (68 us per B=64 launch at 989 TFLOP/s).  The
 // TPU kernel held the whole [3, D, D] weight (3.4 MB bf16) in VMEM; the
 // H100 gives a block 227 KB of shared memory, so the fusion is split into
-// three kernels launched back to back on the caller's stream:
+// four launches back to back on the caller's stream:
 //
-//   1. the QKV GEMM (common.cuh, shared with the backward) with LN fused
-//      into its A-tile load (fp32 row stats computed per block) and a bias
-//      epilogue, q/k/v written to scratch;
-//   2. attention (attention.cuh, shared with the backward and the attention
+//   1. y = T(LN(x)) into scratch, once per row (common.cuh's
+//      ln_forward_kernel, shared with the backward);
+//   2. the QKV GEMM with a bias epilogue, q/k/v written to scratch;
+//   3. attention (attention.cuh, shared with the backward and the attention
 //      ops, in the attention block's rounding scheme), one block per (query
 //      tile, head, batch item): scores for the tile's full key range kept
 //      whole (in registers for bf16 up to 256 keys, else in shared memory)
@@ -35,14 +35,14 @@
 //      rounding point); the causal mask comes from indices and key chunks
 //      past the diagonal are skipped; rows and keys past L are masked
 //      (zero-filled), never read as garbage;
-//   3. the out-projection GEMM (common.cuh) with a +x +bout epilogue.
+//   4. the out-projection GEMM with a +x +bout epilogue.
 //
-// bf16 runs every product on the tensor cores (mma.sync m16n8k16, fp32
-// accumulate); fp32 tiles FMA on the CUDA cores, since the tensor cores
-// would round fp32 operands to TF32.  wgmma/TMA pipelines and keeping
-// q/k/v/o on chip are later work.
+// bf16 runs both GEMMs on gemm_sm90.cuh (TMA into a ring of shared-memory
+// stages, wgmma on the tensor cores, fp32 accumulate; G1 and G2 there);
+// fp32 runs common.cuh's FMA tiles on the CUDA cores, since the tensor cores
+// would round fp32 operands to TF32.  Keeping q/k/v/o on chip is later work.
 //
-// The training forward (kTrain) runs the same three kernels and keeps what
+// The training forward (kTrain) runs the same four launches and keeps what
 // the backward needs: q/k/v and o go to caller-owned outputs instead of
 // scratch, and the attention kernel writes lse = m + log(l) per (row, head)
 // (relative to the scaled scores).  It also moves one rounding point, as
@@ -50,51 +50,68 @@
 // the fp32 product is divided by l, o_h = T((T(e) @ v_h) / l).
 
 #include "attention.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
 using namespace flyp;
 
-// q|k|v [3, M, D] = T(LN(x)) @ Wqkv[t] + bqkv[t]: three towers, LN prologue.
-GemmArgs qkv_args(const void* x, const float* g, const float* beta, const void* wqkv, const float* bqkv, void* qkv,
-                  int M, int D) {
-  GemmArgs a = gemm_args(x, wqkv, qkv, M, D, D, D, D);
+// q|k|v [3, M, D] = y @ Wqkv[t] + bqkv[t] (fp32): three towers.
+GemmArgs qkv_args(const float* y, const float* wqkv, const float* bqkv, float* qkv, int M, int D) {
+  GemmArgs a = gemm_args(y, wqkv, qkv, M, D, D, D, D);
   a.b_z = (long long)D * D;
   a.bias = bqkv;
-  a.ln_scale = g;
-  a.ln_bias = beta;
   return a;
 }
 
-// out = T(x + o @ Wout + bout).
-GemmArgs out_args(const void* o, const void* wout, const float* bout, const void* x, void* out, int M, int D) {
+// out = x + o @ Wout + bout (fp32).
+GemmArgs out_args(const float* o, const float* wout, const float* bout, const float* x, float* out, int M, int D) {
   GemmArgs a = gemm_args(o, wout, out, M, D, D, D, D);
   a.bias = bout;
   a.resid = x;
   return a;
 }
 
+cudaError_t qkv_gemm(const float* y, const float* wqkv, const float* bqkv, float* qkv, int M, int D,
+                     cudaStream_t st) {
+  return launch_gemm<float, false, false, kOpBias, float>(qkv_args(y, wqkv, bqkv, qkv, M, D), 3, st);
+}
+cudaError_t qkv_gemm(const bf16* y, const bf16* wqkv, const float* bqkv, bf16* qkv, int M, int D, cudaStream_t st) {
+  return sm90::qkv(y, wqkv, bqkv, qkv, M, D, st);
+}
+cudaError_t out_gemm(const float* o, const float* wout, const float* bout, const float* x, float* out, int M, int D,
+                     cudaStream_t st) {
+  return launch_gemm<float, false, false, kOpBias | kOpResid, float>(out_args(o, wout, bout, x, out, M, D), 1, st);
+}
+cudaError_t out_gemm(const bf16* o, const bf16* wout, const float* bout, const bf16* x, bf16* out, int M, int D,
+                     cudaStream_t st) {
+  return sm90::out_proj(o, wout, bout, x, out, M, D, st);
+}
+
 // lse == nullptr: the inference forward; otherwise the training forward.
+// y: [B, L, D] scratch of the compute type.
 template <typename T>
 cudaError_t run(const T* x, const float* g, const float* beta, const T* wqkv, const float* bqkv, const T* wout,
-                const float* bout, T* out, T* qkv, T* o, float* lse, int B, int L, int D, int H, int causal,
+                const float* bout, T* out, T* qkv, T* o, T* y, float* lse, int B, int L, int D, int H, int causal,
                 cudaStream_t stream) {
-  cudaError_t err = launch_gemm<T, false, false, kOpLN | kOpBias, T>(qkv_args(x, g, beta, wqkv, bqkv, qkv, B * L, D),
-                                                                     3, stream);
+  const int M = B * L;
+  cudaError_t err = ln_forward(x, g, beta, y, M, D, stream);
   if (err != cudaSuccess) return err;
-  const size_t MD = (size_t)B * L * D;
+  err = qkv_gemm(y, wqkv, bqkv, qkv, M, D, stream);
+  if (err != cudaSuccess) return err;
+  const size_t MD = (size_t)M * D;
   AttnArgs a = attn_args(qkv, qkv + MD, qkv + 2 * MD, (long long)L * D, D, L, causal);
   a.o = o;
   a.stats = lse;
   err = lse != nullptr ? attention_forward<T, true, true>(a, B, H, stream)
                        : attention_forward<T, true, false>(a, B, H, stream);
   if (err != cudaSuccess) return err;
-  return launch_gemm<T, false, false, kOpBias | kOpResid, T>(out_args(o, wout, bout, x, out, B * L, D), 1, stream);
+  return out_gemm(o, wout, bout, x, out, M, D, stream);
 }
 
 int launch(const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* bqkv,
-           const void* wout, const void* bout, void* out, void* qkv, void* o, float* lse, int B, int L, int D, int H,
-           int causal, int dtype, void* stream) {
+           const void* wout, const void* bout, void* out, void* qkv, void* o, void* y, float* lse, int B, int L,
+           int D, int H, int causal, int dtype, void* stream) {
   if (D != H * kHeadDim || D % kBN != 0) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(ln_scale);
@@ -104,12 +121,14 @@ int launch(const void* x, const void* ln_scale, const void* ln_bias, const void*
   if (dtype == 0) {
     using T = float;
     return (int)run(static_cast<const T*>(x), g, beta, static_cast<const T*>(wqkv), bq, static_cast<const T*>(wout),
-                    bo, static_cast<T*>(out), static_cast<T*>(qkv), static_cast<T*>(o), lse, B, L, D, H, causal, s);
+                    bo, static_cast<T*>(out), static_cast<T*>(qkv), static_cast<T*>(o), static_cast<T*>(y), lse, B, L,
+                    D, H, causal, s);
   }
   if (dtype == 1) {
     using T = bf16;
     return (int)run(static_cast<const T*>(x), g, beta, static_cast<const T*>(wqkv), bq, static_cast<const T*>(wout),
-                    bo, static_cast<T*>(out), static_cast<T*>(qkv), static_cast<T*>(o), lse, B, L, D, H, causal, s);
+                    bo, static_cast<T*>(out), static_cast<T*>(qkv), static_cast<T*>(o), static_cast<T*>(y), lse, B, L,
+                    D, H, causal, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -118,25 +137,25 @@ int launch(const void* x, const void* ln_scale, const void* ln_bias, const void*
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  qkv_scratch holds 3*B*L*D and
-// o_scratch B*L*D elements of the compute type.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  qkv_scratch holds 3*B*L*D, o_scratch
+// and y_scratch B*L*D elements of the compute type.  Returns a cudaError_t.
 int flyp_attention_block_fwd(const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv,
                              const void* bqkv, const void* wout, const void* bout, void* out,
-                             void* qkv_scratch, void* o_scratch, int B, int L, int D, int H, int causal,
-                             int dtype, void* stream) {
-  return launch(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, out, qkv_scratch, o_scratch, nullptr, B, L, D, H,
-                causal, dtype, stream);
+                             void* qkv_scratch, void* o_scratch, void* y_scratch, int B, int L, int D, int H,
+                             int causal, int dtype, void* stream) {
+  return launch(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, out, qkv_scratch, o_scratch, y_scratch, nullptr, B, L,
+                D, H, causal, dtype, stream);
 }
 
 // The training forward: as flyp_attention_block_fwd, and q|k|v ([3, B, L, D]
 // in qkv), o ([B, L, D]) and lse ([B, L, H] fp32) are the caller's outputs.
 int flyp_attention_block_fwd_train(const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv,
                                    const void* bqkv, const void* wout, const void* bout, void* out, void* qkv,
-                                   void* o, void* lse, int B, int L, int D, int H, int causal, int dtype,
-                                   void* stream) {
+                                   void* o, void* y_scratch, void* lse, int B, int L, int D, int H, int causal,
+                                   int dtype, void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, out, qkv, o, static_cast<float*>(lse), B, L, D, H,
-                causal, dtype, stream);
+  return launch(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, out, qkv, o, y_scratch, static_cast<float*>(lse), B,
+                L, D, H, causal, dtype, stream);
 }
 
 const char* flyp_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

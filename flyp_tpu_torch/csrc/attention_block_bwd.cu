@@ -32,7 +32,8 @@
 // partials reduced by one more pass.  No atomics, so a run repeats bit for
 // bit.  The launches, in order, on the caller's stream:
 //
-//   1. y = T(LN(x)) into scratch;
+//   1. y = T(LN(x)) into scratch (common.cuh's ln_forward_kernel, the
+//      forward's);
 //   2. do = T(g @ Wout^T)                    (GEMM, B held transposed);
 //   3. attention pass (a), per (query tile, head, item): p from lse and dp
 //      over the tile's key range, delta = rowsum(p dp) (to a [B, L, H] fp32
@@ -41,45 +42,28 @@
 //      tile by tile, ds from the rows' delta, dv and dk accumulated over the
 //      query tiles (both passes are the templates of attention.cuh, in the
 //      attention block's rounding scheme: bf16 up to 256 keys in registers,
-//      fp32 and longer rows in shared memory);
+//      fp32 and longer rows in shared memory, up to kMaxL keys);
 //   5. dbqkv: column partials of d_t, then their sum;
-//   6. dWqkv: y^T d_t per tower, split over rows, then the partials' sum;
+//   6. dWqkv: y^T d_t per tower, split over fixed row chunks, then the
+//      partials' sum;
 //   7. dY = sum_t d_t Wqkv[t]^T              (GEMM, 3 D-long segments);
 //   8. LN backward per row with dscale/dbias partials per block, then their
 //      sum.
 //
-// The three GEMMs (do, dWqkv, dY) are the forward's tiled GEMM from
-// common.cuh with other operand layouts.  bf16 products run on the tensor
-// cores (mma.sync m16n8k16, fp32 accumulate); fp32 products are FMA tiles on
-// the CUDA cores, since the tensor cores would round fp32 operands to TF32.
+// bf16 runs the three GEMMs (do, dWqkv, dY) on gemm_sm90.cuh (G3, G4 and G5
+// there: TMA into a ring of shared-memory stages, wgmma on the tensor cores,
+// fp32 accumulate); fp32 runs them on common.cuh's FMA tiles on the CUDA
+// cores, since the tensor cores would round fp32 operands to TF32.
 
 #include "attention.cuh"
-
-#include <algorithm>
+#include "gemm_sm90.cuh"
 
 namespace {
 
 using namespace flyp;
 
-constexpr int kThreads = 256;  // LN and reduction blocks
-constexpr int kMaxL = 320;  // the longest rows this backward takes (its attention passes would take 1024)
-
-// ---------------------------------------------------------------------------
-// Row LayerNorm.
-
-// y = T(LN(x)), one warp per row (the row statistics of the forward's QKV
-// GEMM, so y is recomputed exactly).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ln_forward_kernel(const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
-                  T* __restrict__ y, int M, int D) {
-  const int m = blockIdx.x * (kThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (m >= M) return;
-  const T* row = x + (size_t)m * D;
-  float mean, rstd;
-  row_stats(row, D, mean, rstd);
-  for (int k = lane; k < D; k += 32) y[(size_t)m * D + k] = from_f<T>(ln_apply(to_f(row[k]), mean, rstd, g[k], b[k]));
-}
+constexpr int kThreads = kRowThreads;  // LN and reduction blocks
+constexpr int kMaxL = 1024;  // the longest rows this backward takes, its attention passes' limit
 
 constexpr int kMaxCols = 32;  // columns per lane: D <= 1024
 
@@ -171,17 +155,39 @@ colsum_partial_kernel(const T* __restrict__ src, float* __restrict__ partial, in
   partial[((size_t)c * gridDim.z + z) * N + n] = s;
 }
 
-// out[x] = sum over p of partial[p][x], in order of p.
-__global__ void __launch_bounds__(kThreads)
-reduce_partials_kernel(const float* __restrict__ partial, int parts, long long X, float* __restrict__ out) {
-  for (long long x = (long long)blockIdx.x * kThreads + threadIdx.x; x < X; x += (long long)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int p = 0; p < parts; ++p) s += partial[p * X + x];
-    out[x] = s;
-  }
-}
-
 // ---------------------------------------------------------------------------
+
+// The three GEMMs: fp32 on common.cuh's FMA tiles, bf16 on gemm_sm90.cuh
+// (G3, G4, G5).  dWqkv's row chunks are gemm_sm90.cuh's fixed split for
+// both types.
+cudaError_t grad_out_gemm(const float* g, const float* wout, float* dout, int M, int D, cudaStream_t st) {
+  return launch_gemm<float, false, true, kOpNone, float>(gemm_args(g, wout, dout, M, D, D, D, D), 1, st);
+}
+cudaError_t grad_out_gemm(const bf16* g, const bf16* wout, bf16* dout, int M, int D, cudaStream_t st) {
+  return sm90::grad_out(g, wout, dout, M, D, st);
+}
+cudaError_t weight_grad_gemm(const float* y, const float* d, float* partial, float* dw, int M, int D,
+                             cudaStream_t st) {
+  GemmArgs g = gemm_args(y, d, partial, D, D, M, D, D);
+  g.b_z = (long long)M * D;
+  g.k_chunk = sm90::weight_grad_chunk(M, D);
+  g.splits = (M + g.k_chunk - 1) / g.k_chunk;
+  const cudaError_t err = launch_gemm<float, true, false, kOpNone, float>(g, 3, st);
+  if (err != cudaSuccess) return err;
+  return reduce_partials(partial, g.splits, 3LL * D * D, dw, st);
+}
+cudaError_t weight_grad_gemm(const bf16* y, const bf16* d, float* partial, float* dw, int M, int D,
+                             cudaStream_t st) {
+  return sm90::weight_grad(y, d, partial, dw, M, D, st);
+}
+cudaError_t input_grad_gemm(const float* d, const float* wqkv, float* dY, int M, int D, cudaStream_t st) {
+  GemmArgs g = gemm_args(d, wqkv, dY, M, D, D, D, D);
+  g.nseg = 3; g.a_seg = (long long)M * D; g.b_seg = (long long)D * D;
+  return launch_gemm<float, false, true, kOpNone, float>(g, 1, st);
+}
+cudaError_t input_grad_gemm(const bf16* d, const bf16* wqkv, float* dY, int M, int D, cudaStream_t st) {
+  return sm90::input_grad(d, wqkv, dY, M, D, st);
+}
 
 template <typename T>
 struct Bwd {
@@ -191,19 +197,11 @@ struct Bwd {
     float *delta, *dY, *part_w, *part_b, *part_ln;
   };
 
-  static int k_chunk(int M, int D) {
-    // Split the dW contraction so the grid covers ~2 waves of 132 SMs, each
-    // chunk at least 256 rows and a multiple of the k-tile.
-    const int tiles = 3 * (D / kBN) * (D / kBM);
-    const int splits = (264 + tiles - 1) / tiles;
-    const int chunk = (M + splits - 1) / splits;
-    return std::max(256, ((chunk + 31) / 32) * 32);
-  }
   static int ln_rows() { return 64; }
 
   static size_t carve(Scratch* s, char* base, int B, int L, int D, int H) {
     const size_t M = (size_t)B * L;
-    const int chunk = k_chunk((int)M, D), splits = (int)((M + chunk - 1) / chunk);
+    const int splits = sm90::weight_grad_splits((int)M, D);
     const int c_rows = 256, c_chunks = (int)((M + c_rows - 1) / c_rows);
     const int ln_blocks = (int)((M + ln_rows() - 1) / ln_rows());
     size_t off = 0;
@@ -233,12 +231,6 @@ struct Bwd {
     return off;
   }
 
-  static cudaError_t reduce(const float* partial, int parts, long long X, float* out, cudaStream_t st) {
-    const int blocks = (int)std::min((X + kThreads - 1) / kThreads, 4096LL);
-    reduce_partials_kernel<<<blocks, kThreads, 0, st>>>(partial, parts, X, out);
-    return cudaGetLastError();
-  }
-
   static cudaError_t run(const T* x, const T* gout, const T* q, const T* k, const T* v, const float* lse,
                          const float* ln_scale, const float* ln_bias, const T* wqkv, const T* wout, T* dx,
                          float* dwqkv, float* dbqkv, float* dln, void* workspace, int B, int L, int D, int H,
@@ -254,12 +246,10 @@ struct Bwd {
   } while (0)
 
     // 1. y = T(LN(x)).
-    ln_forward_kernel<T><<<(M + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(x, ln_scale, ln_bias,
-                                                                                        s.y, M, D);
-    FLYP_CHECK(cudaGetLastError());
+    FLYP_CHECK(ln_forward(x, ln_scale, ln_bias, s.y, M, D, st));
 
     // 2. do = T(g @ Wout^T).
-    FLYP_CHECK((launch_gemm<T, false, true, kOpNone, T>(gemm_args(gout, wout, s.dout, M, D, D, D, D), 1, st)));
+    FLYP_CHECK(grad_out_gemm(gout, wout, s.dout, M, D, st));
 
     // 3, 4. Attention backward (attention.cuh), pass (a) then pass (b).
     AttnArgs a = attn_args(q, k, v, (long long)L * D, D, L, causal);
@@ -275,26 +265,19 @@ struct Bwd {
     colsum_partial_kernel<T><<<dim3((D + kThreads - 1) / kThreads, c_chunks, 3), kThreads, 0, st>>>(
         s.d, s.part_b, M, D, c_rows);
     FLYP_CHECK(cudaGetLastError());
-    FLYP_CHECK(reduce(s.part_b, c_chunks, 3LL * D, dbqkv, st));
+    FLYP_CHECK(reduce_partials(s.part_b, c_chunks, 3LL * D, dbqkv, st));
 
     // 6. dWqkv[t] = y^T d_t, split over rows, then the partials' sum.
-    GemmArgs g = gemm_args(s.y, s.d, s.part_w, D, D, M, D, D);
-    g.b_z = (long long)M * D;
-    g.k_chunk = k_chunk(M, D);
-    g.splits = (M + g.k_chunk - 1) / g.k_chunk;
-    FLYP_CHECK((launch_gemm<T, true, false, kOpNone, float>(g, 3, st)));
-    FLYP_CHECK(reduce(s.part_w, g.splits, 3LL * D * D, dwqkv, st));
+    FLYP_CHECK(weight_grad_gemm(s.y, s.d, s.part_w, dwqkv, M, D, st));
 
     // 7. dY = sum_t d_t Wqkv[t]^T.
-    g = gemm_args(s.d, wqkv, s.dY, M, D, D, D, D);
-    g.nseg = 3; g.a_seg = (long long)M * D; g.b_seg = (long long)D * D;
-    FLYP_CHECK((launch_gemm<T, false, true, kOpNone, float>(g, 1, st)));
+    FLYP_CHECK(input_grad_gemm(s.d, wqkv, s.dY, M, D, st));
 
     // 8. LN backward, then dscale/dbias from the per-block partials.
     const int ln_blocks = (M + ln_rows() - 1) / ln_rows();
     ln_backward_kernel<T><<<ln_blocks, kThreads, 0, st>>>(x, gout, s.dY, ln_scale, dx, s.part_ln, M, D, ln_rows());
     FLYP_CHECK(cudaGetLastError());
-    FLYP_CHECK(reduce(s.part_ln, ln_blocks, 2LL * D, dln, st));
+    FLYP_CHECK(reduce_partials(s.part_ln, ln_blocks, 2LL * D, dln, st));
 #undef FLYP_CHECK
     return cudaSuccess;
   }

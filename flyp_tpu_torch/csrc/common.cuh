@@ -161,6 +161,50 @@ __device__ __forceinline__ void row_stats(const T* __restrict__ row, int K, floa
   rstd = rsqrtf(warp_sum(ss) / (float)K + kEps);
 }
 
+// ---------------------------------------------------------------------------
+// Row passes shared by the attention block's forward and backward.
+
+constexpr int kRowThreads = 256;
+
+// y = T(LN(x)) for x [M, D], one warp per row: row_stats and ln_apply, the
+// rounding of the GEMM's LN prologue, so the attention block's forward and
+// backward compute the same y.
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+ln_forward_kernel(const T* __restrict__ x, const float* __restrict__ g, const float* __restrict__ b,
+                  T* __restrict__ y, int M, int D) {
+  const int m = blockIdx.x * (kRowThreads / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (m >= M) return;
+  const T* row = x + (size_t)m * D;
+  float mean, rstd;
+  row_stats(row, D, mean, rstd);
+  for (int k = lane; k < D; k += 32) y[(size_t)m * D + k] = from_f<T>(ln_apply(to_f(row[k]), mean, rstd, g[k], b[k]));
+}
+
+template <typename T>
+cudaError_t ln_forward(const T* x, const float* g, const float* b, T* y, int M, int D, cudaStream_t st) {
+  constexpr int kRows = kRowThreads / 32;
+  ln_forward_kernel<T><<<(M + kRows - 1) / kRows, kRowThreads, 0, st>>>(x, g, b, y, M, D);
+  return cudaGetLastError();
+}
+
+// out[x] = sum over p of partial[p][x], in order of p.
+__global__ void __launch_bounds__(kRowThreads)
+reduce_partials_kernel(const float* __restrict__ partial, int parts, long long X, float* __restrict__ out) {
+  for (long long x = (long long)blockIdx.x * kRowThreads + threadIdx.x; x < X;
+       x += (long long)gridDim.x * kRowThreads) {
+    float s = 0.f;
+    for (int p = 0; p < parts; ++p) s += partial[p * X + x];
+    out[x] = s;
+  }
+}
+
+inline cudaError_t reduce_partials(const float* partial, int parts, long long X, float* out, cudaStream_t st) {
+  const long long blocks = (X + kRowThreads - 1) / kRowThreads;
+  reduce_partials_kernel<<<(int)(blocks < 4096 ? blocks : 4096), kRowThreads, 0, st>>>(partial, parts, X, out);
+  return cudaGetLastError();
+}
+
 template <typename TOut>
 __device__ __forceinline__ void store_pair(TOut* p, float v0, float v1);
 template <>
@@ -260,17 +304,17 @@ __device__ void gemm_ln_stats(const T* A, int M, int K, int lda, int m0, float* 
   }
 }
 
-// The epilogue on two adjacent outputs (m, n), (m, n + 1) of C [M, N].
-template <int kOps, typename TOut>
-__device__ __forceinline__ void gemm_store(TOut* C, const TOut* resid, const float* bias, int N, int m, int n,
-                                           float v0, float v1) {
+// The epilogue on two adjacent outputs (n, n + 1) of a row whose residual
+// pair is r (read only with kOpResid), in fp32 with each step rounded, before
+// C's rounding.
+template <int kOps>
+__device__ __forceinline__ float2 epilogue_pair(float2 r, const float* bias, int n, float v0, float v1) {
   constexpr bool kBiasFirst = (kOps & kOpBias) && (kOps & kOpResidLast);
   if (kBiasFirst) {
     v0 = __fadd_rn(v0, __ldg(bias + n));
     v1 = __fadd_rn(v1, __ldg(bias + n + 1));
   }
   if (kOps & kOpResid) {
-    const float2 r = load_pair(resid + (size_t)m * N + n);
     v0 = __fadd_rn(r.x, v0);
     v1 = __fadd_rn(r.y, v1);
   }
@@ -278,7 +322,22 @@ __device__ __forceinline__ void gemm_store(TOut* C, const TOut* resid, const flo
     v0 = __fadd_rn(v0, __ldg(bias + n));
     v1 = __fadd_rn(v1, __ldg(bias + n + 1));
   }
-  store_pair<TOut>(C + (size_t)m * N + n, v0, v1);
+  return make_float2(v0, v1);
+}
+
+// The epilogue on two adjacent outputs (m, n), (m, n + 1) of C [M, N].
+template <int kOps, typename TOut>
+__device__ __forceinline__ float2 gemm_epilogue(const TOut* resid, const float* bias, int N, int m, int n, float v0,
+                                                float v1) {
+  const float2 r = (kOps & kOpResid) ? load_pair(resid + (size_t)m * N + n) : make_float2(0.f, 0.f);
+  return epilogue_pair<kOps>(r, bias, n, v0, v1);
+}
+
+template <int kOps, typename TOut>
+__device__ __forceinline__ void gemm_store(TOut* C, const TOut* resid, const float* bias, int N, int m, int n,
+                                           float v0, float v1) {
+  const float2 v = gemm_epilogue<kOps, TOut>(resid, bias, N, m, n, v0, v1);
+  store_pair<TOut>(C + (size_t)m * N + n, v.x, v.y);
 }
 
 // fp32: 128 x 128 tiles, each of the 256 threads owning an 8 x 8 piece

@@ -1,0 +1,68 @@
+// The five bf16 products of gemm_sm90.cuh (G1-G5), each on its own, for
+// Hopper (sm_90a).  The attention block's kernels (attention_block.cu,
+// attention_block_bwd.cu) launch the same products inside B1, B3 and B2; these
+// entries let flyp_tpu_torch/ops/gemm_sm90.py hold each product against its
+// plain version and time it beside torch.mm at the main path's shapes.
+//
+// Shapes: M >= 1 rows, D a multiple of 128; bf16 operands, 16-byte aligned
+// and contiguous.  Each entry returns a cudaError_t (cudaErrorInvalidValue for
+// a shape the kernel cannot tile).
+
+#include "gemm_sm90.cuh"
+
+namespace {
+
+using namespace flyp;
+
+bool shape_ok(int M, int D) { return M >= 1 && D >= 128 && D % 128 == 0; }
+
+const bf16* in(const void* p) { return static_cast<const bf16*>(p); }
+
+}  // namespace
+
+extern "C" {
+
+// G1: qkv [3, M, D] = T(y @ wqkv[t] + bqkv[t]); y [M, D], wqkv [3, D, D],
+// bqkv [3, D] fp32.
+int flyp_gemm_qkv(const void* y, const void* wqkv, const void* bqkv, void* qkv, int M, int D, void* stream) {
+  if (!shape_ok(M, D)) return (int)cudaErrorInvalidValue;
+  return (int)sm90::qkv(in(y), in(wqkv), static_cast<const float*>(bqkv), static_cast<bf16*>(qkv), M, D,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// G2: out [M, D] = T(x + o @ wout + bout); bout [D] fp32.
+int flyp_gemm_out(const void* o, const void* wout, const void* bout, const void* x, void* out, int M, int D,
+                  void* stream) {
+  if (!shape_ok(M, D)) return (int)cudaErrorInvalidValue;
+  return (int)sm90::out_proj(in(o), in(wout), static_cast<const float*>(bout), in(x), static_cast<bf16*>(out), M, D,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// G3: dout [M, D] = T(g @ wout^T).
+int flyp_gemm_grad_out(const void* g, const void* wout, void* dout, int M, int D, void* stream) {
+  if (!shape_ok(M, D)) return (int)cudaErrorInvalidValue;
+  return (int)sm90::grad_out(in(g), in(wout), static_cast<bf16*>(dout), M, D, static_cast<cudaStream_t>(stream));
+}
+
+// Bytes of fp32 partials G4 needs at (M, D).
+long long flyp_gemm_weight_grad_workspace(int M, int D) {
+  if (!shape_ok(M, D)) return -1;
+  return (long long)sm90::weight_grad_splits(M, D) * 3 * D * D * (long long)sizeof(float);
+}
+
+// G4: dw [3, D, D] fp32 = y^T d[t]; y [M, D], d [3, M, D].
+int flyp_gemm_weight_grad(const void* y, const void* d, void* workspace, void* dw, int M, int D, void* stream) {
+  if (!shape_ok(M, D)) return (int)cudaErrorInvalidValue;
+  return (int)sm90::weight_grad(in(y), in(d), static_cast<float*>(workspace), static_cast<float*>(dw), M, D,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// G5: dY [M, D] fp32 = sum_t d[t] @ wqkv[t]^T.
+int flyp_gemm_input_grad(const void* d, const void* wqkv, void* dY, int M, int D, void* stream) {
+  if (!shape_ok(M, D)) return (int)cudaErrorInvalidValue;
+  return (int)sm90::input_grad(in(d), in(wqkv), static_cast<float*>(dY), M, D, static_cast<cudaStream_t>(stream));
+}
+
+const char* flyp_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }
+
+}  // extern "C"

@@ -2,9 +2,10 @@
 
 Counterpart of ``flyp_tpu/evaluation/classifier.py``: a batch pads to one
 fixed ``batch_size`` (the shape every evaluation batch shares), the image
-features optionally renormalise, and the head gives the logits.  The model
-runs as the caller left it; in eval mode every block takes the inference
-kernel (B3).  ``*_device`` calls launch the work and return device tensors
+features optionally renormalise, and the head gives the logits.  The image
+tower runs in eval mode whatever the model's mode (the JAX package's
+``train=False``; every block takes the inference kernel, B3), and the
+model's mode is restored afterwards.  ``*_device`` calls launch the work and return device tensors
 without a host fetch, so an evaluation loop can launch batch i+1 before it
 fetches batch i.
 """
@@ -18,6 +19,7 @@ import torch
 
 from flyp_tpu_torch.models.clip import CLIPModel
 from flyp_tpu_torch.models.head import ClassificationHead
+from flyp_tpu_torch.models.modes import pinned_mode
 from flyp_tpu_torch.utils.pipeline import host_cast_images, to_device
 
 
@@ -50,7 +52,8 @@ class Classifier:
     def features_device(self, images) -> Tuple[torch.Tensor, int]:
         """(device features [batch_size, D], n_valid), no host fetch."""
         padded, n = self._pad(images)
-        return self.model.encode_image(padded), n
+        with pinned_mode(self.model, train=False):
+            return self.model.encode_image(padded), n
 
     @torch.inference_mode()
     def predict_logits_device(self, images) -> Tuple[torch.Tensor, int]:

@@ -18,6 +18,7 @@ import torch
 
 from flyp_tpu_torch.models.clip import CLIPModel
 from flyp_tpu_torch.models.head import ClassificationHead
+from flyp_tpu_torch.models.modes import pinned_mode
 from flyp_tpu_torch.tokenizer import shrink_context, tokenize
 
 
@@ -37,7 +38,9 @@ def class_embeddings(
     template: Sequence,
     encode_batch: int = 1024,
 ) -> np.ndarray:
-    """[num_classes, embed_dim] normalised mean-of-templates embeddings."""
+    """[num_classes, embed_dim] normalised mean-of-templates embeddings.  The
+    text tower runs in eval mode whatever the model's mode (the JAX package's
+    ``train=False``); the model's mode is restored afterwards."""
     prompts = [t(name) for name in classnames for t in template]
     tokens = shrink_context(_tokenize_tuple(tuple(prompts)))  # [C*T, <=ctx]
 
@@ -48,10 +51,11 @@ def class_embeddings(
         tokens = np.concatenate([tokens, np.tile(tokens[:1], (pad, 1))], axis=0)
 
     device = model.device
-    chunks = [
-        model.encode_text(torch.from_numpy(np.ascontiguousarray(tokens[s : s + encode_batch])).to(device))
-        for s in range(0, tokens.shape[0], encode_batch)
-    ]
+    with pinned_mode(model, train=False):
+        chunks = [
+            model.encode_text(torch.from_numpy(np.ascontiguousarray(tokens[s : s + encode_batch])).to(device))
+            for s in range(0, tokens.shape[0], encode_batch)
+        ]
     emb = torch.cat([c.float().cpu() for c in chunks])[:n].numpy()
 
     emb /= np.linalg.norm(emb, axis=-1, keepdims=True)

@@ -17,7 +17,12 @@ On the H100 the ideal kernels are bound by the tensor cores (the block does
 ~1500 FLOPs per byte it must move at ViT-B/16 widths).  The TPU kernels'
 single fused bodies needed the whole weight in VMEM, which does not fit in
 227 KB of shared memory, so each CUDA version is a few kernels launched back
-to back; the sources describe the designs.
+to back; the sources describe the designs.  The forwards write ``LN(x)``
+once per row into a ``[B, L, D]`` scratch of the compute type that the QKV
+product reads (77 MB at batch 256 and the vision shape in bf16, for the
+call's duration); in bf16 every product runs on ``csrc/gemm_sm90.cuh``
+(``ops/gemm_sm90.py`` exposes each alone).  The backward takes rows of up
+to 1024 keys.
 
 A tensor on the CPU takes the plain PyTorch versions
 (:func:`attention_block_inference_reference`,
@@ -40,7 +45,7 @@ from flyp_tpu_torch.ops import _kernels
 EPS = 1e-5
 _NEG = -1e30
 _HEAD_DIM = 64
-_MAX_TRAIN_LEN = 320  # keys per score row the backward kernel keeps in shared memory
+_MAX_TRAIN_LEN = 1024  # keys per row the backward kernel takes (its attention passes' limit)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -187,7 +192,7 @@ def attention_block_backward_reference(
 @functools.lru_cache(maxsize=None)
 def _fwd_lib() -> ctypes.CDLL:
     lib = _kernels.load("attention_block")
-    for name, n_ptrs in (("flyp_attention_block_fwd", 10), ("flyp_attention_block_fwd_train", 11)):
+    for name, n_ptrs in (("flyp_attention_block_fwd", 11), ("flyp_attention_block_fwd_train", 12)):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -241,10 +246,11 @@ def _fwd_kernel_call(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out
     out = torch.empty_like(x)
     qkv = torch.empty((3, B, L, D), dtype=dtype, device=x.device)
     o = torch.empty((B, L, D), dtype=dtype, device=x.device)
+    y = torch.empty((B, L, D), dtype=dtype, device=x.device)  # LN(x), written once per row
     lse = torch.empty((B, L, heads), dtype=torch.float32, device=x.device) if train else None
     lib = _fwd_lib()
     ptrs = [x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), wqkv.data_ptr(), f32[2].data_ptr(),
-            wout.data_ptr(), f32[3].data_ptr(), out.data_ptr(), qkv.data_ptr(), o.data_ptr()]
+            wout.data_ptr(), f32[3].data_ptr(), out.data_ptr(), qkv.data_ptr(), o.data_ptr(), y.data_ptr()]
     with torch.cuda.device(x.device):
         if train:
             code = lib.flyp_attention_block_fwd_train(*ptrs, lse.data_ptr(), B, L, D, heads, int(bool(causal)),

@@ -15,7 +15,9 @@ Counterpart of ``flyp_tpu/serving/engine.py``.  ``ClipServer`` packages:
   batch in flight (``utils.pipeline.OneStepLag``).
 
 Every transformer block of both towers runs the attention-block CUDA kernel
-(``ops/attention_block.py``); requests run under ``torch.inference_mode()``.
+(``ops/attention_block.py``); requests run under ``torch.inference_mode()``
+and in eval mode whatever the model's mode (the JAX package's
+``train=False``), which is restored after each dispatch.
 Measured rates on the H100 are in PERF.md.
 """
 
@@ -29,6 +31,7 @@ import torch
 
 from flyp_tpu_torch.models.clip import CLIPModel
 from flyp_tpu_torch.models.head import ClassificationHead
+from flyp_tpu_torch.models.modes import pinned_mode
 from flyp_tpu_torch.tokenizer import shrink_context, tokenize
 from flyp_tpu_torch.utils.pipeline import OneStepLag, host_cast_images, to_device
 
@@ -154,15 +157,18 @@ class ClipServer:
         return torch.cat(out).numpy()
 
     def _img_fn(self, x: torch.Tensor) -> torch.Tensor:
-        return self.model.encode_image(x, normalize=self.normalize)
+        with pinned_mode(self.model, train=False):
+            return self.model.encode_image(x, normalize=self.normalize)
 
     def _txt_fn(self, t: torch.Tensor) -> torch.Tensor:
-        return self.model.encode_text(t, normalize=self.normalize)
+        with pinned_mode(self.model, train=False):
+            return self.model.encode_text(t, normalize=self.normalize)
 
     def _logits_fn(self, x: torch.Tensor) -> torch.Tensor:
         # Raw tower features: the zero-shot head normalises internally, and
         # normalising here too would drift from the evaluator's numbers.
-        return self.head(self.model.encode_image(x))
+        with pinned_mode(self.model, train=False):
+            return self.head(self.model.encode_image(x))
 
     # -- request APIs ---------------------------------------------------------
 

@@ -1,5 +1,7 @@
 """Tolerances that hold the attention kernels (B5, B6) to their plain
-versions, and the bf16 probe GEMM (T1) to the exact product.
+versions, the bf16 probe GEMM (T1) and the fp32 products of the attention
+block's GEMM (G4, G5) to the exact product, and its bf16 products (G1-G3)
+to their plain versions' rounding.
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` use :func:`check_attention`
 on the forward's ``o`` and on each of ``dq``, ``dk``, ``dv``.  Kernel and
@@ -85,6 +87,58 @@ def check_gemm(name: str, got, a, b, where=None) -> dict:
     if not bool(torch.isfinite(got).all()) or errs["bound_share"] > 1.0:
         raise AssertionError(f"{name} is not the product of its operands at {where}: {errs}")
     return errs
+
+
+def check_rounded_product(name: str, got, ref, pairs, where=None) -> dict:
+    """Hold ``got``, a bf16 product ``T(epilogue(a @ b))`` (G1-G3 of
+    ``ops/gemm_sm90.py``), to ``ref``, the plain version's rounding of the
+    same epilogue over an fp32 product.  Both fp32 sums are within the
+    block-FMA bound ``e = (K / 16 + 1) 2^-23 (|a| @ |b|)`` of the exact
+    product (:func:`check_gemm`), so the two roundings differ by at most a
+    bf16 ulp of the value (``2^-7 |ref|``) plus ``2 e``: elementwise
+    ``|got - ref| <= 2^-7 |ref| + 2 e``.  ``pairs`` are the ``(a, b)`` whose
+    products make ``got``'s leading slices (one for ``[M, N]``, three for
+    G1's ``[3, M, N]``).  A wrong fragment, tile or epilogue step, or an
+    element left unwritten (non-finite), breaks it.  Returns the max abs
+    error, the largest share of the bound used and the share of elements
+    unequal to ``ref``."""
+    got3, ref3 = (t.reshape(len(pairs), *t.shape[-2:]).float() for t in (got, ref))
+    used, max_abs = 0.0, 0.0
+    for i, (a, b) in enumerate(pairs):
+        e = (a.shape[-1] / 16 + 1) * 2.0 ** -23 * torch.matmul(a.float().abs(), b.float().abs())
+        err = (got3[i] - ref3[i]).abs()
+        used = max(used, float((err / (2.0 ** -7 * ref3[i].abs() + 2 * e).clamp_min(1e-30)).max()))
+        max_abs = max(max_abs, float(err.max()))
+    errs = {"max_abs": max_abs, "bound_share": used, "unequal_share": float((got != ref).float().mean())}
+    if not bool(torch.isfinite(got).all()) or used > 1.0:
+        raise AssertionError(f"{name} is not its plain version's rounding at {where}: {errs}")
+    return errs
+
+
+def check_gemm_product(name: str, got, ops, where=None) -> dict:
+    """Hold ``got``, product ``name`` (G1-G5 of ``ops/gemm_sm90.py``) of the
+    operands ``ops``: G1-G3 (bf16 out) to the plain version's rounding
+    (:func:`check_rounded_product`), G4 and G5 (fp32 out) to the exact
+    product (:func:`check_gemm`: G4 per tower over the rows, G5 over its
+    three terms' contraction at once).  Returns the errors, with the max abs
+    error against the plain version."""
+    from flyp_tpu_torch.ops import gemm_sm90
+
+    ref = gemm_sm90.PRODUCTS[name][1](*ops)
+    if name == "G4":
+        y, d = ops
+        errs = [check_gemm(f"{name}[{t}]", got[t], y.t(), d[t], where) for t in range(3)]
+        out = {"max_abs": max(e["max_abs"] for e in errs), "bound_share": max(e["bound_share"] for e in errs)}
+    elif name == "G5":
+        d, w = ops
+        out = check_gemm(name, got, d.permute(1, 0, 2).reshape(d.shape[1], -1),
+                         w.transpose(1, 2).reshape(-1, w.shape[1]), where)
+    else:
+        a, w = ops[0], ops[1]
+        pairs = [(a, w[t]) for t in range(3)] if name == "G1" else [(a, w if name == "G2" else w.t())]
+        out = check_rounded_product(name, got, ref, pairs, where)
+    out["max_abs_vs_plain"] = float((got.float() - ref.float()).abs().max())
+    return out
 
 
 def backward_without_delta(q, k, v, do, causal: bool = False):

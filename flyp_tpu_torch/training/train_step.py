@@ -3,9 +3,10 @@ and an AdamW update.
 
 Counterpart of ``flyp_tpu/training/train_step.py`` for one device.  The
 update semantics are the reference's: per-item loss -> mean -> backward ->
-AdamW step -> scheduler step (folded into the schedule).  In training mode
-every transformer block runs the attention-block training kernels (forward
-B1, backward B2) on the card.  The step launches work and returns: its
+AdamW step -> scheduler step (folded into the schedule).  The step runs the
+model in training mode whatever its mode (the JAX step's ``train=True``;
+every transformer block runs the attention-block training kernels, forward
+B1 and backward B2, on the card) and restores its mode afterwards.  The step launches work and returns: its
 metrics stay on the device until the caller fetches them.
 """
 
@@ -16,6 +17,7 @@ from typing import Callable, Dict
 import torch
 
 from flyp_tpu_torch.models.clip import CLIPModel
+from flyp_tpu_torch.models.modes import pinned_mode
 from flyp_tpu_torch.ops.losses import clip_loss
 from flyp_tpu_torch.training.train_state import AdamW, TrainState
 
@@ -65,14 +67,15 @@ def make_train_step(
         if state.model is not model:
             raise ValueError("the state holds another model than the one this step was built for")
         params = state.params
-        img_f, txt_f, scale = model(images, tokens)
-        per_item = clip_loss(
-            img_f, txt_f, scale, ground_labels if use_ground_labels else None,
-            ignore=ignore, google_sup_loss=google_sup_loss,
-        )
-        loss = per_item.mean()
-        trained = [p for p, f in zip(params, frozen) if not f]
-        it = iter(torch.autograd.grad(loss, trained))
+        with pinned_mode(model, train=True):  # the JAX step's train=True, whatever the model's mode
+            img_f, txt_f, scale = model(images, tokens)
+            per_item = clip_loss(
+                img_f, txt_f, scale, ground_labels if use_ground_labels else None,
+                ignore=ignore, google_sup_loss=google_sup_loss,
+            )
+            loss = per_item.mean()
+            trained = [p for p, f in zip(params, frozen) if not f]
+            it = iter(torch.autograd.grad(loss, trained))
         grads = [torch.zeros_like(p) if f else next(it) for p, f in zip(params, frozen)]
         lr = optimizer.update(params, grads, state.opt_state, frozen=frozen)
         state.step += 1

@@ -119,11 +119,12 @@ TRAIN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 1e-2)}
 @pytest.mark.parametrize(
     "shape",
     [(4, 197, 768, 12, False), (4, 77, 512, 8, True), (3, 32, 512, 8, True), (3, 13, 128, 2, True),
-     (2, 257, 768, 12, False), (2, 320, 128, 2, True)],
+     (2, 257, 768, 12, False), (2, 320, 128, 2, True), (2, 577, 1024, 16, False)],
 )
 def test_training_kernels_match_plain_on_card(card, shape, dtype):
     """B1 on out, o, q, k, v and lse; B2 on dx, dWqkv, dbqkv, dscale and
-    dbias against the plain backward, and through autograd."""
+    dbias against the plain backward, and through autograd; up to
+    ViT-L/14@336px's 577 keys at D = 1024."""
     B, L, D, H, causal = shape
     dt = getattr(torch, dtype)
     elem, norm = TRAIN_TOL[dtype]
@@ -167,11 +168,16 @@ def test_training_kernels_match_plain_on_card(card, shape, dtype):
 
 
 def test_training_backward_refuses_longer_rows(card):
-    """The backward keeps full score rows of at most 320 keys on chip."""
-    x, *params = (torch.from_numpy(a).to(card).requires_grad_(True) for a in _inputs(1, 321, 128, seed=3))
-    out = tab.attention_block(x, *params, 2, False)
-    with pytest.raises(ValueError, match="L <= 320"):
-        out.sum().backward()
+    """The backward takes rows of at most 1024 keys, its attention passes'
+    limit, and refuses a longer one before any launch."""
+    B, L, D, H = 1, 1025, 128, 2
+    x, ln_s, ln_b, wqkv, _, wout, _ = (torch.from_numpy(a).to(card) for a in _inputs(B, L, D, seed=3))
+    q = k = v = torch.zeros_like(x)
+    lse = torch.zeros(B, L, H, device=card)
+    before = tab.attention_block.bwd_launches
+    with pytest.raises(ValueError, match="L <= 1024"):
+        tab._bwd_kernel_call(x, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, False)
+    assert tab.attention_block.bwd_launches == before
 
 
 def test_training_kernels_are_deterministic(card):
@@ -522,3 +528,39 @@ def test_adamw_update_matches_plain_on_card(card, mdtype, n):
     assert got[0] is p
     assert bool(((got[0] - ref[0]).abs() <= scale).all())
     assert torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+
+
+# ---------------------------------------------------------------------------
+# The five products of csrc/gemm_sm90.cuh (G1-G5) alone.
+
+from flyp_tpu_torch.ops import gemm_sm90 as tgs  # noqa: E402
+from flyp_tpu_torch.testing import check_gemm_product  # noqa: E402
+
+@pytest.mark.parametrize("name", list(tgs.PRODUCTS))
+@pytest.mark.parametrize("M, D", [(256 * 197, 768), (64 * 77, 512), (45, 128)])
+def test_gemm_products_match_plain_on_card(card, name, M, D):
+    """Each product over a NaN-poisoned output against its plain version
+    (``check_gemm_product``): at the vision shape, at the text tower's
+    M = 4,928 rows (not a multiple of the 128-row tile) and at one ragged
+    128-wide tile; a second launch equals the first bit for bit."""
+    op = tgs.PRODUCTS[name][0]
+    ops = tgs.product_operands(name, M, D, card, seed=M + D)
+    shape, dtype = tgs.product_output(name, M, D)
+    before = op.launches
+    got = op(*ops, out=torch.full(shape, float("nan"), dtype=dtype, device=card))
+    torch.cuda.synchronize()
+    check_gemm_product(name, got, ops, (name, M, D))
+    assert torch.equal(got, op(*ops))
+    assert op.launches == before + 2
+
+
+def test_gemm_products_refuse_what_they_cannot_tile(card):
+    y = torch.zeros(64, 200, dtype=torch.bfloat16, device=card)
+    w = torch.zeros(3, 200, 200, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="D=200"):
+        tgs.qkv_product(y, w, torch.zeros(3, 200, device=card))
+    with pytest.raises(TypeError, match="bfloat16"):
+        tgs.grad_out_product(torch.zeros(64, 128, device=card), torch.zeros(128, 128, device=card))
+    with pytest.raises(ValueError, match="shape"):
+        tgs.input_grad_product(torch.zeros(3, 64, 128, dtype=torch.bfloat16, device=card),
+                               torch.zeros(3, 256, 256, dtype=torch.bfloat16, device=card))
