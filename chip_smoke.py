@@ -57,11 +57,13 @@ Phases, each of which raises on failure:
    measured for the default route in phase 5).
 
 8. the measurement probes: T1 (the probe GEMM, bf16 into fp32 and int8
-   into int32), T2 (the per-head score sum, hd 64/128/256), T3 (the
-   row-count GEMM, R 197/200/208/256) and T4 (the fused AdamW update, fp32
-   and bf16 moments) against their plain versions at the tools' shapes (T1
-   also at ``tests/test_tools.py``'s shapes and a ragged one, its output
-   poisoned before each launch; shapes it cannot tile must raise), timed
+   into int32), T2 (the per-head score sum, hd 64/128/256, at L = 208 and
+   the odd 197, 257 and 577), T3 (the row-count GEMM, R 197/200/208/256) and T4 (the
+   fused AdamW update, fp32 and bf16 moments) against their plain versions
+   at the tools' shapes (T1 also at ``tests/test_tools.py``'s shapes and a
+   ragged one; T1-T3's outputs poisoned before each launch, T2's and T3's
+   with a guard region past the end that must stay untouched, and a second
+   launch bit-equal to the first; shapes T1 cannot tile must raise), timed
    beside the plain version, a library call and the card's bound; then the
    ported tools end to end (``int8_matmul_probe`` ``main``/``main_pallas``
    at batch 256, every ``mfu_levers`` probe, the head rebuild at 100
@@ -1067,12 +1069,16 @@ PROBE_GEMM_SHAPES = [("qkv", 53248, 768, 2304), ("out", 53248, 768, 768), ("big"
                      ("ragged M", 1000, 768, 640)]
 PROBE_REFUSED = [((512, 768, 200), torch.int8, "N=200"), ((512, 96, 512), torch.int8, "K=96"),
                  ((512, 100, 512), torch.bfloat16, "K=100")]
-PROBE_SCORE = (256, 208, 768)  # T2's q, k [B, L, D]: the vision tower at batch 256
+# T2's q, k [B, L, D]: ViT-B/16 at batch 256, at the TPU tool's padded
+# length and at its exact one (odd: the column mask, scalar stores), and
+# ViT-L/14's odd lengths at batch 64, wider than one 256-column tile.
+PROBE_SCORE = [(256, 208, 768), (256, 197, 768), (64, 257, 1024), (64, 577, 1024)]
 PROBE_ROWS = (256, 768, 2304)  # T3's B, D, N: the QKV projection at batch 256
 ADAMW_CHECK_PARAMS = 16 * 1024 * 1024
 ADAMW_PARAMS = 150_000_000 // 1024 // 2048 * 2048 * 1024  # the TPU probe's 148,897,792
 TOOL_BATCH = 256
 ZEROSHOT_CLASSES = 100  # the probe's default of 1000 stays on its CLI
+PROBE_GUARD = 1 << 16  # elements past a probe's output that must stay NaN
 
 
 def probe_gemm_bound_ms(M, K, N, kind, peaks):
@@ -1157,59 +1163,99 @@ def probe_gemm_cases(peaks) -> dict:
     return out
 
 
-def phase_probes(peaks) -> dict:
-    """T1-T4 against their plain versions, then the ported tools' paths with
-    every kernel's launches counted."""
-    cases = {"T1_bf16": [], "T1_int8": [], "T2": [], "T3": [], "T4": []}
-    t1 = probe_gemm_cases(peaks)
-    cases["T1_bf16"], cases["T1_int8"] = t1["bf16"], t1["int8"]
+def poisoned(shape, dtype):
+    """A NaN-filled output and the NaN guard region of PROBE_GUARD elements
+    just past its end, in one buffer."""
+    n = math.prod(shape)
+    buf = torch.full((n + PROBE_GUARD,), float("nan"), dtype=dtype, device="cuda")
+    return buf[:n].view(shape), buf[n:]
 
+
+def check_guard(name, guard, where):
+    if not bool(torch.isnan(guard).all()):
+        raise AssertionError(f"{name} wrote past the end of its output at {where}: "
+                             f"{int((~torch.isnan(guard)).sum())} guard elements")
+
+
+def score_depth_cases(peaks) -> list:
+    """T2 at each PROBE_SCORE shape and hd: over a poisoned output with a
+    guard (1e-4 + 1e-5 |ref| of the plain version, which holds every
+    element, so one left unwritten fails), a second launch bit-equal, timed
+    beside the plain version, ``torch.bmm`` and the card's bound."""
+    out = []
     gen = torch.Generator(device="cuda").manual_seed(9)
-    B, L, D = PROBE_SCORE
-    q = torch.randn(B, L, D, generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn(B, L, D, generator=gen, device="cuda").to(torch.bfloat16)
     bmm_fp32 = tip.has_out_dtype("bmm")
-    for hd in tml.SCORE_DEPTHS:
-        where = ("T2", B, L, D, hd)
-        got = tml.score_depth(q, k, hd)
-        torch.cuda.synchronize()
-        err = check_close("T2", got, tml.score_depth_reference(q, k, hd), 1e-4, where, rtol=1e-5)
-        library = ((lambda: torch.bmm(q, k.mT, out_dtype=torch.float32)) if bmm_fp32
-                   else (lambda: torch.bmm(q, k.mT)))
-        bound, by = score_depth_bound_ms(B, L, D, peaks)
-        cases["T2"].append(dict(shape=f"hd={hd} q,k [{B},{L},{D}] bf16", hd=hd, max_abs_err=err,
-                                ms=cuda_ms(lambda: tml.score_depth(q, k, hd)),
-                                plain_ms=cuda_ms(lambda: tml.score_depth_reference(q, k, hd)),
-                                library_ms=cuda_ms(library), library_out="float32" if bmm_fp32 else "bfloat16",
-                                bound_ms=bound, bound_by=by))
-        log("T2", json.dumps(cases["T2"][-1]))
-    del q, k, got
+    for B, L, D in PROBE_SCORE:
+        q = torch.randn(B, L, D, generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn(B, L, D, generator=gen, device="cuda").to(torch.bfloat16)
+        for hd in tml.SCORE_DEPTHS:
+            where = ("T2", B, L, D, hd)
+            o, guard = poisoned((B, L, L), torch.float32)
+            got = tml.score_depth(q, k, hd, out=o)
+            torch.cuda.synchronize()
+            err = check_close("T2", got, tml.score_depth_reference(q, k, hd), 1e-4, where, rtol=1e-5)
+            check_guard("T2", guard, where)
+            if not torch.equal(got, tml.score_depth(q, k, hd)):
+                raise AssertionError(f"T2 differs between two launches at {where}")
+            library = ((lambda: torch.bmm(q, k.mT, out_dtype=torch.float32)) if bmm_fp32
+                       else (lambda: torch.bmm(q, k.mT)))
+            bound, by = score_depth_bound_ms(B, L, D, peaks)
+            out.append(dict(shape=f"hd={hd} q,k [{B},{L},{D}] bf16", hd=hd, L=L, max_abs_err=err,
+                            ms=cuda_ms(lambda: tml.score_depth(q, k, hd)),
+                            plain_ms=cuda_ms(lambda: tml.score_depth_reference(q, k, hd)),
+                            library_ms=cuda_ms(library), library_out="float32" if bmm_fp32 else "bfloat16",
+                            bound_ms=bound, bound_by=by))
+            log("T2", json.dumps(out[-1]))
+            del o, guard, got
+        del q, k
+    torch.cuda.empty_cache()
+    return out
 
+
+def row_gemm_cases(peaks) -> list:
+    """T3 at each of the tool's row counts: over a poisoned output with a
+    guard, within one bf16 ulp of the plain version plus 1e-4, mean error
+    under 1e-3, a second launch bit-equal, timed beside the plain version,
+    ``torch.matmul`` and the card's bound."""
+    out = []
+    gen = torch.Generator(device="cuda").manual_seed(11)
     B, D, N = PROBE_ROWS
     w = torch.randn(D, N, generator=gen, device="cuda").to(torch.bfloat16)
     for R in tml.ROW_COUNTS:
+        where = ("T3", B, R, D, N)
         x = torch.randn(B, R, D, generator=gen, device="cuda").to(torch.bfloat16)
-        got = tml.row_gemm(x, w).float()
+        o, guard = poisoned((B, R, N), torch.bfloat16)
+        got = tml.row_gemm(x, w, out=o)
         torch.cuda.synchronize()
         ref = tml.row_gemm_reference(x, w).float()
         # One bf16 ulp of the value (2^-7 |ref|), plus 1e-4 for outputs near
         # zero, where the fp32 sums' order (T1's 1e-4 at K=768) is not small
         # beside the value; mean abs error under 1e-3.
-        err = check_close("T3", got, ref, 1e-4, ("T3", B, R, D, N), rtol=2.0 ** -7)
-        mean_err = (got - ref).abs().mean().item()
+        err = check_close("T3", got.float(), ref, 1e-4, where, rtol=2.0 ** -7)
+        mean_err = (got.float() - ref).abs().mean().item()
         if mean_err >= 1e-3:
             raise AssertionError(f"T3 at R={R}: mean abs err {mean_err}")
+        check_guard("T3", guard, where)
+        if not torch.equal(got, tml.row_gemm(x, w)):
+            raise AssertionError(f"T3 differs between two launches at {where}")
         bound, by = row_gemm_bound_ms(B, R, D, N, peaks)
-        cases["T3"].append(dict(shape=f"R={R} x [{B},{R},{D}] w [{D},{N}] bf16", R=R, max_abs_err=err,
-                                mean_abs_err=mean_err, ms=cuda_ms(lambda: tml.row_gemm(x, w)),
-                                plain_ms=cuda_ms(lambda: tml.row_gemm_reference(x, w)),
-                                library_ms=cuda_ms(lambda: torch.matmul(x, w)), bound_ms=bound, bound_by=by))
-        log("T3", json.dumps(cases["T3"][-1]))
-        del x, got, ref
+        out.append(dict(shape=f"R={R} x [{B},{R},{D}] w [{D},{N}] bf16", R=R, max_abs_err=err,
+                        mean_abs_err=mean_err, ms=cuda_ms(lambda: tml.row_gemm(x, w)),
+                        plain_ms=cuda_ms(lambda: tml.row_gemm_reference(x, w)),
+                        library_ms=cuda_ms(lambda: torch.matmul(x, w)), bound_ms=bound, bound_by=by))
+        log("T3", json.dumps(out[-1]))
+        del x, o, guard, got, ref
     del w
+    torch.cuda.empty_cache()
+    return out
 
-    cases["T4"] = adamw_cases(peaks)
-    return cases
+
+def phase_probes(peaks) -> dict:
+    """T1-T4 against their plain versions, then the ported tools' paths with
+    every kernel's launches counted."""
+    t1 = probe_gemm_cases(peaks)
+    return {"T1_bf16": t1["bf16"], "T1_int8": t1["int8"], "T2": score_depth_cases(peaks),
+            "T3": row_gemm_cases(peaks), "T4": adamw_cases(peaks)}
 
 
 def adamw_cases(peaks) -> list:
@@ -1471,6 +1517,7 @@ def main() -> int:
         return sum(t["launches"].get(kernel, 0) for t in tools.values())
 
     gemm = "flyp_tpu_torch/csrc/probe_gemm.cu"
+    sm90 = "flyp_tpu_torch/csrc/gemm_sm90.cuh"  # T2's and T3's kernel (entries score_depth.cu, probe_gemm.cu)
 
     kernels = [
         line("attention_block_inference", "flyp_tpu_torch/csrc/attention_block.cu",
@@ -1493,9 +1540,9 @@ def main() -> int:
              lambda c: c["shape"].startswith("qkv")),
         line("probe_gemm_int8", gemm, "tools/int8_matmul_probe.py:73", tool("T1_int8"), probes["T1_int8"],
              lambda c: c["shape"].startswith("qkv")),
-        line("score_depth", "flyp_tpu_torch/csrc/score_depth.cu", "tools/mfu_levers.py:102", tool("T2"),
-             probes["T2"], lambda c: c["hd"] == 64),
-        line("row_quant_gemm", gemm, "tools/mfu_levers.py:145", tool("T3"), probes["T3"], lambda c: c["R"] == 197),
+        line("score_depth", sm90, "tools/mfu_levers.py:102", tool("T2"), probes["T2"],
+             lambda c: (c["hd"], c["L"]) == (64, 208)),
+        line("row_quant_gemm", sm90, "tools/mfu_levers.py:145", tool("T3"), probes["T3"], lambda c: c["R"] == 197),
         line("adamw_update", "flyp_tpu_torch/csrc/adamw.cu", "tools/mfu_levers.py:229", tool("T4"), probes["T4"],
              lambda c: c["moments"] == "float32"),
     ]

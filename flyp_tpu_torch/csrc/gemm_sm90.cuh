@@ -1,6 +1,6 @@
-// The bf16 GEMM of the attention block's kernels (B1, B3 and B2), written for
-// Hopper (sm_90a): TMA loads into a ring of shared-memory stages, wgmma
-// products on the tensor cores, fp32 accumulate.
+// The bf16 GEMM of the attention block's kernels (B1, B3 and B2) and of the
+// probes T2 and T3, written for Hopper (sm_90a): TMA loads into a ring of
+// shared-memory stages, wgmma products on the tensor cores, fp32 accumulate.
 //
 // It replaces, for bf16, common.cuh's gemm_mma_kernel (mma.sync m16n8k16 on
 // 128 x 128 x 32 tiles, one k-tile staged through registers) in the five
@@ -12,6 +12,11 @@
 //   G4 dWqkv[t] = y^T d_t                  fp32 partials over fixed row chunks,
 //                                          summed in a fixed order
 //   G5 dY     = sum_t d_t Wqkv[t]^T        fp32, 3 segments
+//
+// and the probes' two (score_depth.cu, probe_gemm.cu):
+//
+//   T2 o[b]   = q[b] k[b]^T                fp32 [L, L] a tower, both K-major
+//   T3 out    = T(x @ w)                   x [B R, D] flat, w held [K, N]
 //
 // What bounds them on the H100: at the vision shape (M = 256 x 197 rows, D =
 // 768) G1 is 178 GFLOP against ~0.3 GB moved, 0.18 ms of tensor-core time and
@@ -45,6 +50,14 @@
 //   past M, and a contraction past K, load as zeros (TMA's out-of-bounds
 //   fill); rows past M are not stored.  Nothing is summed with atomics, so a
 //   product repeats bit for bit.
+// * N is a multiple of 128, except in a launch that asks for ragged columns
+//   (kRagged, an fp32 output with no bias or residual: T2's N = L = 197 or
+//   208; the other products compile without it).  There the last column
+//   tile is ragged, B's rows past N load as zeros and columns past N are
+//   not stored.  An even N stores pairs from the accumulators as a whole
+//   tile does; an odd N (rows 4-byte aligned only) stores each value alone,
+//   in every tile.  A ragged N up to 256 takes one 256-wide tile, so A's
+//   rows are read once.
 //
 // Clusters with multicast loads and a ping-pong schedule of the two
 // consumers (one's epilogue under the other's products) are later work.
@@ -245,7 +258,7 @@ struct Wgmma<256> {
 // block b takes output tiles b, b + gridDim.x, ..., numbered with N's tile
 // fastest, then M's, then z.  The producer runs on into the next tile's
 // k-tiles while the consumers store the last one.
-template <int kBN, bool kAMN, bool kBMN, int kOps, typename TOut>
+template <int kBN, bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                      const __grid_constant__ CUtensorMap map_c, const __grid_constant__ CUtensorMap map_r,
@@ -261,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto resid_bar = [&](int wg) { return bar0 + 8u * (2 * kStages + wg); };
 
   const int tid = threadIdx.x, warp = tid / 32;
-  const int n_tiles = a.N / kBN, m_tiles = (a.M + kBM - 1) / kBM;
+  const int n_tiles = (a.N + kBN - 1) / kBN, m_tiles = (a.M + kBM - 1) / kBM;
   const int tiles = n_tiles * m_tiles * a.towers * a.splits;
   // The tile's corner, tower, split and contraction range [kbeg, kend).
   struct Work {
@@ -414,14 +427,36 @@ __global__ void __launch_bounds__(kThreads, 1)
       ++e;
     } else {
       TOut* C = static_cast<TOut*>(a.C) + ((size_t)w.split * a.towers + w.tower) * (size_t)a.M * a.N;
+      if (!kRagged || (a.N % 2 == 0 && w.n0 + kBN <= a.N)) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = row + 8 * h;
-        if (m >= a.M) continue;
+        for (int h = 0; h < 2; ++h) {
+          const int m = row + 8 * h;
+          if (m >= a.M) continue;
 #pragma unroll
-        for (int j = 0; j < kBN / 8; ++j) {
-          gemm_store<kOps, TOut>(C, resid, bias, a.N, m, w.n0 + 8 * j + 2 * (lane % 4), d[4 * j + 2 * h],
-                                 d[4 * j + 2 * h + 1]);
+          for (int j = 0; j < kBN / 8; ++j) {
+            gemm_store<kOps, TOut>(C, resid, bias, a.N, m, w.n0 + 8 * j + 2 * (lane % 4), d[4 * j + 2 * h],
+                                   d[4 * j + 2 * h + 1]);
+          }
+        }
+      } else {
+        // A ragged column tile or an odd N (kRagged: fp32, kOpNone): columns
+        // past N are not stored, and an odd N's rows are only 4-byte
+        // aligned, so it stores each value alone rather than in pairs.
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = row + 8 * h;
+          if (m >= a.M) continue;
+#pragma unroll
+          for (int j = 0; j < kBN / 8; ++j) {
+            const int n = w.n0 + 8 * j + 2 * (lane % 4);
+            TOut* dst = C + (size_t)m * a.N + n;
+            if (a.N % 2 == 0) {
+              if (n < a.N) store_pair<TOut>(dst, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+            } else {
+              if (n < a.N) dst[0] = d[4 * j + 2 * h];
+              if (n + 1 < a.N) dst[1] = d[4 * j + 2 * h + 1];
+            }
+          }
         }
       }
     }
@@ -496,18 +531,19 @@ inline Product product(const void* A, const void* B, void* C, int M, int N, int 
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// Whether the kernel tiles the product: N a multiple of 128, every
-// contiguous extent a multiple of 8 (16-byte rows for TMA), the chunks of a
-// split contraction multiples of the k-tile, the grid within CUDA's limits.
-template <bool kAMN, bool kBMN>
+// Whether the kernel tiles the product: N a multiple of 128 (any N >= 1
+// with kRagged), every contiguous extent a multiple of 8 (16-byte rows for
+// TMA), the chunks of a split contraction multiples of the k-tile, the tile
+// count within an int.
+template <bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged>
 bool tiles(const Product& p) {
-  return p.M >= 1 && p.K >= 1 && p.N >= 128 && p.N % 128 == 0 && (kAMN ? p.M : p.K) % 8 == 0 &&
+  return p.M >= 1 && p.K >= 1 && p.N >= 1 && (p.N % 128 == 0 || kRagged) && (kAMN ? p.M : p.K) % 8 == 0 &&
          (kBMN ? p.N : p.K) % 8 == 0 && p.k_chunk >= 1 && (p.splits == 1 || p.k_chunk % kBK == 0) &&
-         (long long)(p.N / 128) * ((p.M + kBM - 1) / kBM) * p.towers * p.splits < (1LL << 31) && aligned16(p.A) &&
-         aligned16(p.B);
+         (long long)((p.N + 127) / 128) * ((p.M + kBM - 1) / kBM) * p.towers * p.splits < (1LL << 31) &&
+         aligned16(p.A) && aligned16(p.B);
 }
 
-template <int kBN, bool kAMN, bool kBMN, int kOps, typename TOut>
+template <int kBN, bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged>
 cudaError_t launch_tile(const Product& p, cudaStream_t st) {
   using Cfg = Tile<kBN, TOut>;
   CUtensorMap map_a, map_b, map_c{}, map_r{};
@@ -525,28 +561,34 @@ cudaError_t launch_tile(const Product& p, cudaStream_t st) {
   }
   const Args a{p.M, p.N, p.K, p.towers, p.nseg, p.splits, p.k_chunk, p.a_seg, p.a_tower, p.b_seg, p.b_tower,
                p.C, p.bias, p.resid};
-  auto kernel = gemm_sm90_kernel<kBN, kAMN, kBMN, kOps, TOut>;
+  auto kernel = gemm_sm90_kernel<kBN, kAMN, kBMN, kOps, TOut, kRagged>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
   err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const long long tiles = (long long)(p.N / kBN) * ((p.M + kBM - 1) / kBM) * p.towers * p.splits;
+  const long long tiles = (long long)((p.N + kBN - 1) / kBN) * ((p.M + kBM - 1) / kBM) * p.towers * p.splits;
   const int blocks = (int)std::min<long long>(tiles, sms);
   kernel<<<blocks, kThreads, Cfg::kSmemBytes, st>>>(map_a, map_b, map_c, map_r, a);
   return cudaGetLastError();
 }
 
 // The tile width: 256 where N allows it (half the shared-memory reads of A
-// per product and 128 accumulators a thread), else 128.
-inline int tile_n(int N) { return N % 256 == 0 ? 256 : 128; }
+// per product and 128 accumulators a thread), else 128.  A ragged N
+// (kRagged) between 129 and 256 takes one 256-wide tile, so each of A's row
+// tiles is read once.
+inline int tile_n(int N) {
+  if (N % 128 != 0) return N > 128 && N <= 256 ? 256 : 128;
+  return N % 256 == 0 ? 256 : 128;
+}
 
-template <bool kAMN, bool kBMN, int kOps, typename TOut>
+template <bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged = false>
 cudaError_t launch(const Product& p, cudaStream_t st) {
-  if (!tiles<kAMN, kBMN>(p)) return cudaErrorInvalidValue;
-  return tile_n(p.N) == 256 ? launch_tile<256, kAMN, kBMN, kOps, TOut>(p, st)
-                            : launch_tile<128, kAMN, kBMN, kOps, TOut>(p, st);
+  static_assert(!kRagged || (sizeof(TOut) == 4 && kOps == kOpNone), "a ragged N takes an fp32 output alone");
+  if (!tiles<kAMN, kBMN, kOps, TOut, kRagged>(p)) return cudaErrorInvalidValue;
+  return tile_n(p.N) == 256 ? launch_tile<256, kAMN, kBMN, kOps, TOut, kRagged>(p, st)
+                            : launch_tile<128, kAMN, kBMN, kOps, TOut, kRagged>(p, st);
 }
 
 // G1: qkv[t] = T(y @ Wqkv[t] + bqkv[t]); y [M, D], Wqkv [3, D, D] held

@@ -24,14 +24,17 @@
 //
 // T3 replaces tools/mfu_levers.py::row_quant's kernel (pl.pallas_call :173):
 // out[b] = T(x[b] @ w) for x [B, R, D], w [D, N] bf16, fp32 accumulate,
-// rounded to bf16.  launch_gemm's tower axis is this kernel: towers = B,
-// M = R, A advancing R*D elements a tower and B none, C [B, R, N].  A
-// block's 128 rows stay inside one item, and rows past R read as zeros, so
-// R = 197 pays for two 128-row tiles as the TPU's per-program block paid for
-// its padded sublanes: time against R stays the probe's question.  Bound by
-// operations at every R.
+// rounded to bf16.  The items' rows lie one after another, so this is one
+// flat product of gemm_sm90.cuh (TMA + wgmma, persistent): x as [B R, D]
+// K-major, w held [K, N] (MN-major, as G1's Wqkv), the bf16 output staged in
+// shared memory and stored by TMA; G1's instantiation without the bias and
+// with one tower.  Row tiles cross item boundaries, so B R rows cost B R
+// rows (50,432 at R = 197, none of them padding), and time follows B R.
+// The TPU probe asked whether the hardware pads each item's rows to its
+// tile; on this card the answer is "not when the rows are laid out flat".
+// Bound by operations at every R.
 
-#include "common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -60,15 +63,13 @@ int flyp_probe_mm_int8(const void* a, const void* b, void* c, int M, int N, int 
   return (int)launch_gemm<int8_t, false, false, kOpNone, int>(g, 1, static_cast<cudaStream_t>(stream));
 }
 
-// T3: x [B, R, D], w [D, N], out [B, R, N], all bf16.  N % 128 == 0,
-// D % 32 == 0, B <= 65535.  Returns a cudaError_t.
+// T3: x [B, R, D], w [D, N], out [B, R, N], all bf16, contiguous and
+// 16-byte aligned.  N % 128 == 0, D % 8 == 0 (TMA's 16-byte rows),
+// B R < 2^31.  Returns a cudaError_t.
 int flyp_row_gemm(const void* x, const void* w, void* out, int B, int R, int D, int N, void* stream) {
-  if (B < 1 || B > 65535 || !rows_ok(R) || N < kBN || N % kBN != 0 || D < kMmaBK || D % kMmaBK != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  GemmArgs g = gemm_args(x, w, out, R, N, D, D, N);
-  g.a_z = (long long)R * D;
-  return (int)launch_gemm<bf16, false, false, kOpNone, bf16>(g, B, static_cast<cudaStream_t>(stream));
+  if (B < 1 || R < 1 || (long long)B * R > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  return (int)sm90::launch<false, true, kOpNone, bf16>(sm90::product(x, w, out, B * R, N, D),
+                                                       static_cast<cudaStream_t>(stream));
 }
 
 const char* flyp_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

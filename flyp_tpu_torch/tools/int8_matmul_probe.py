@@ -69,6 +69,14 @@ def check_shape(M: int, K: int, N: int, kind: str) -> None:
         raise ValueError(f"probe_mm: K={K} is not a multiple of {depth}, the {kind} kernel's k-tile")
 
 
+def check_out(name, out, shape, dtype, device):
+    """Raise ``ValueError`` unless ``out`` is None or a contiguous ``dtype``
+    tensor of ``shape`` on ``device``: the probes' kernels write into it."""
+    if out is not None and (tuple(out.shape) != tuple(shape) or out.dtype != dtype or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(f"{name}: out must be a contiguous {dtype} {list(shape)} on {device}")
+
+
 @functools.lru_cache(maxsize=None)
 def probe_gemm_lib() -> ctypes.CDLL:
     """``csrc/probe_gemm.cu``, built and bound once: T1's two entry points
@@ -95,9 +103,7 @@ def probe_mm(a, b, out_dtype, out=None):
         raise ValueError(f"probe_mm: a [M, K] and b [K, N], got {tuple(a.shape)} and {tuple(b.shape)}")
     (M, K), N = a.shape, b.shape[1]
     check_shape(M, K, N, kind)
-    if out is not None and (tuple(out.shape) != (M, N) or out.dtype != out_dtype or out.device != a.device
-                            or not out.is_contiguous()):
-        raise ValueError(f"probe_mm: out must be a contiguous {out_dtype} [{M}, {N}] on {a.device}")
+    check_out("probe_mm", out, (M, N), out_dtype, a.device)
     if b.device != a.device:
         raise ValueError(f"probe_mm: b is on {b.device}, a on {a.device}")
     if not _device_route(a, "probe_mm"):

@@ -12,13 +12,17 @@ with CUDA events and ending in a host fetch of one element
    as the JAX tool asks XLA to (``torch.bmm(..., out_dtype=torch.float32)``;
    a torch without it writes bf16), and each line says which.
 2. ``pallas_score_depth``: the same question inside a kernel (T2,
-   ``csrc/score_depth.cu``): per item, the sum over heads of [Lp, hd] x [hd,
-   Lp] score products, one fp32 accumulator, hd = 64, 128, 256 features a
-   step.  The output traffic is the same at every hd, so a time difference
-   is the contraction depth's.
+   ``csrc/score_depth.cu`` on ``csrc/gemm_sm90.cuh``): per item, the sum
+   over heads of [Lp, hd] x [hd, Lp] score products, one fp32 accumulator,
+   hd = 64, 128, 256 features a step.  The output traffic is the same at
+   every hd, so a time difference is the contraction depth's.  On the
+   H100 the sum is one D-deep product whose schedule does not depend on hd
+   (``wgmma`` steps 16 deep, the ring stages 64), so the three should agree.
 3. ``row_quant``: the QKV projection [R, 768] @ [768, 2304] per item (T3,
-   ``csrc/probe_gemm.cu``) for R in 197 (exact ViT-B/16), 200, 208, 256: does
-   the time follow R, or the 128-row tiles R is padded to?
+   ``csrc/probe_gemm.cu`` on ``csrc/gemm_sm90.cuh``) for R in 197 (exact
+   ViT-B/16), 200, 208, 256: does the time follow R, or the 128-row tiles
+   R is padded to?  The TPU's per-item blocks pad; on the H100 the items'
+   rows are tiled flat as one [B R, 768] product, so time follows B R.
 4. ``adamw_tail``: the isolated 150M-parameter AdamW update in plain PyTorch
    (the XLA chain's counterpart), fp32 against bf16 moments, against the
    memory-bandwidth floor.
@@ -50,7 +54,7 @@ from flyp_tpu_torch.models.factory import resolve_device
 from flyp_tpu_torch.ops import _kernels
 from flyp_tpu_torch.ops.attention_block import _DTYPE_CODES, _device_route, _stream
 from flyp_tpu_torch.tools._timing import fetch, normal, time_call
-from flyp_tpu_torch.tools.int8_matmul_probe import has_out_dtype, probe_gemm_lib
+from flyp_tpu_torch.tools.int8_matmul_probe import check_out, has_out_dtype, probe_gemm_lib
 
 ITERS = 30
 ADAMW_ITERS = 20
@@ -59,7 +63,7 @@ LR, B1, B2, EPS, WD = 1e-5, 0.9, 0.999, 1e-8, 0.1
 SCORE_DEPTHS = (64, 128, 256)
 ROW_COUNTS = (197, 200, 208, 256)
 _TILE_N = 128
-_MMA_K = 32
+_TMA_ROW = 8  # bf16 elements in the 16 bytes TMA needs a row to be a multiple of
 
 
 # ---------------------------------------------------------------------------
@@ -87,33 +91,45 @@ def _score_lib() -> ctypes.CDLL:
     return lib
 
 
-def score_depth(q, k, hd):
+def score_depth(q, k, hd, out=None):
     """T2: q, k bf16 [B, L, D] -> fp32 [B, L, L], ``hd`` (64, 128 or 256)
-    features a step.  A CUDA tensor launches the kernel; a CPU tensor takes
-    the plain version."""
+    features a step.  ``out`` (optional, contiguous fp32 [B, L, L]) takes
+    the result.  A CUDA tensor launches the kernel; a CPU tensor takes the
+    plain version."""
     if q.dtype != torch.bfloat16 or k.dtype != torch.bfloat16 or q.dim() != 3 or q.shape != k.shape:
         raise TypeError(f"score_depth takes bfloat16 q, k [B, L, D] of one shape, got {q.dtype} {tuple(q.shape)}, "
                         f"{k.dtype} {tuple(k.shape)}")
     B, L, D = q.shape
     if hd not in SCORE_DEPTHS or D % hd:
         raise ValueError(f"score_depth: hd={hd} must be one of {SCORE_DEPTHS} and divide D={D}")
-    if not 1 <= B <= 65535 or L < 1:
-        raise ValueError(f"score_depth: B={B} must be in 1..65535 and L={L} positive")
+    if B < 1 or L < 1:
+        raise ValueError(f"score_depth: B={B} and L={L} must be positive")
     if k.device != q.device:
         raise ValueError(f"score_depth: k is on {k.device}, q on {q.device}")
+    check_out("score_depth", out, (B, L, L), torch.float32, q.device)
     if not _device_route(q, "score_depth"):
-        return score_depth_reference(q, k, hd)
+        res = score_depth_reference(q, k, hd)
+        return res if out is None else out.copy_(res)
     q, k = q.contiguous(), k.contiguous()
-    o = torch.empty((B, L, L), dtype=torch.float32, device=q.device)
+    if out is None:
+        out = torch.empty((B, L, L), dtype=torch.float32, device=q.device)
+    _aligned("score_depth", q, k, out)
     lib = _score_lib()
     with torch.cuda.device(q.device):
-        code = lib.flyp_score_depth(q.data_ptr(), k.data_ptr(), o.data_ptr(), B, L, D, hd, _stream(q.device))
+        code = lib.flyp_score_depth(q.data_ptr(), k.data_ptr(), out.data_ptr(), B, L, D, hd, _stream(q.device))
     _kernels.check(lib, code, "score-depth kernel launch")
     score_depth.launches += 1
-    return o
+    return out
 
 
 score_depth.launches = 0
+
+
+def _aligned(name, *tensors):
+    """The kernels read and write through TMA or 16-byte vector accesses,
+    which need 16-byte aligned addresses."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: the kernel needs 16-byte aligned tensors")
 
 
 # ---------------------------------------------------------------------------
@@ -126,10 +142,13 @@ def row_gemm_reference(x, w):
     return torch.matmul(x.float(), w.float()).to(torch.bfloat16)
 
 
-def row_gemm(x, w):
+def row_gemm(x, w, out=None):
     """T3: x [B, R, D] @ w [D, N] per item, bf16 in and out, fp32
-    accumulate.  A CUDA tensor launches the kernel; a CPU tensor takes the
-    plain version."""
+    accumulate.  ``out`` (optional, contiguous bf16 [B, R, N]) takes the
+    result.  A CUDA tensor launches the kernel; a CPU tensor takes the
+    plain version.  The kernel tiles N in 128 columns and reads rows by
+    TMA (D a multiple of 8); other shapes raise ``ValueError`` on both
+    devices."""
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16 or x.dim() != 3 or w.dim() != 2 \
             or x.shape[2] != w.shape[0]:
         raise TypeError(f"row_gemm takes bfloat16 x [B, R, D] and w [D, N], got {x.dtype} {tuple(x.shape)}, "
@@ -138,16 +157,20 @@ def row_gemm(x, w):
     N = w.shape[1]
     if N < _TILE_N or N % _TILE_N:
         raise ValueError(f"row_gemm: N={N} is not a multiple of {_TILE_N}, the kernel's output tile width")
-    if D < _MMA_K or D % _MMA_K:
-        raise ValueError(f"row_gemm: D={D} is not a multiple of {_MMA_K}, the kernel's k-tile")
-    if not 1 <= B <= 65535 or not 1 <= R <= 65535 * 128:
-        raise ValueError(f"row_gemm: B={B} must be in 1..65535 and R={R} positive")
+    if D < _TMA_ROW or D % _TMA_ROW:
+        raise ValueError(f"row_gemm: D={D} is not a multiple of {_TMA_ROW}: TMA reads rows of 16 bytes")
+    if B < 1 or R < 1 or B * R >= 2 ** 31:
+        raise ValueError(f"row_gemm: B={B} and R={R} must be positive, B*R below 2^31")
     if w.device != x.device:
         raise ValueError(f"row_gemm: w is on {w.device}, x on {x.device}")
+    check_out("row_gemm", out, (B, R, N), torch.bfloat16, x.device)
     if not _device_route(x, "row_gemm"):
-        return row_gemm_reference(x, w)
+        res = row_gemm_reference(x, w)
+        return res if out is None else out.copy_(res)
     x, w = x.contiguous(), w.contiguous()
-    out = torch.empty((B, R, N), dtype=torch.bfloat16, device=x.device)
+    if out is None:
+        out = torch.empty((B, R, N), dtype=torch.bfloat16, device=x.device)
+    _aligned("row_gemm", x, w, out)
     lib = probe_gemm_lib()
     with torch.cuda.device(x.device):
         code = lib.flyp_row_gemm(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, R, D, N, _stream(x.device))
@@ -207,8 +230,7 @@ def adamw_update(p, m, v, g, count, lr=LR, b1=B1, b2=B2, eps=EPS, wd=WD):
         for t, new in zip((p, m, v), adamw_update_reference(p, m, v, g, count, lr, b1, b2, eps, wd)):
             t.copy_(new)
         return p, m, v
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("adamw_update: the kernel needs 16-byte aligned tensors")
+    _aligned("adamw_update", *tensors)
     f32 = [float(np.float32(c)) for c in (b1, 1 - b1, b2, 1 - b2, 1 - b1 ** count, 1 - b2 ** count, lr, eps, wd)]
     lib = _adamw_lib()
     with torch.cuda.device(p.device):
@@ -295,7 +317,9 @@ def pallas_score_depth(*, B=256, Lp=208, D=768, iters=ITERS, device="cuda"):
 
 def row_quant(*, B=256, D=768, N=2304, rows=ROW_COUNTS, iters=ITERS, device="cuda"):
     """T3 at each row count R: if time follows R, exact-length row blocks
-    are a real lever; if it follows the 128-row tiles, they buy only bytes."""
+    are a real lever; if it follows the 128-row tiles, they buy only bytes.
+    On the H100 the kernel tiles the B R rows flat, so no item is padded and
+    time follows B R."""
     device = resolve_device(device)
     rng = np.random.default_rng(0)
     w = normal(rng, (D, N), torch.bfloat16, device)

@@ -482,29 +482,72 @@ def test_probe_gemm_refuses_on_card(card):
                          out_dtype)
 
 
+def _poisoned(shape, dtype, device, guard=4096):
+    """A NaN-filled output and the NaN guard region just past its end."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + guard,), float("nan"), dtype=dtype, device=device)
+    return buf[:n].view(shape), buf[n:]
+
+
 @pytest.mark.parametrize("hd", [64, 128, 256])
-@pytest.mark.parametrize("L", [208, 77, 13])
+@pytest.mark.parametrize("L", [208, 77, 13, 197, 257, 577])
 def test_score_depth_matches_plain_on_card(card, hd, L):
+    """T2 over a poisoned output (an element left unwritten fails the
+    check), nothing written past its end, two launches bit-equal."""
     from flyp_tpu_torch.tools import mfu_levers as tml
 
     rng = np.random.default_rng(L)
     q, k = (torch.from_numpy(rng.standard_normal((3, L, 768), dtype=np.float32)).to(card).to(torch.bfloat16)
             for _ in range(2))
-    torch.testing.assert_close(tml.score_depth(q, k, hd), tml.score_depth_reference(q, k, hd), rtol=1e-5, atol=1e-4)
+    out, guard = _poisoned((3, L, L), torch.float32, card)
+    got = tml.score_depth(q, k, hd, out=out)
+    assert got is out
+    torch.testing.assert_close(got, tml.score_depth_reference(q, k, hd), rtol=1e-5, atol=1e-4)
+    assert bool(torch.isnan(guard).all())
+    assert torch.equal(got, tml.score_depth(q, k, hd))
 
 
 @pytest.mark.parametrize("R", [197, 200, 13])
 def test_row_gemm_matches_plain_on_card(card, R):
-    """T3 within one bf16 ulp (2^-7 |ref|) plus 1e-4 (the fp32 sums' order at
-    K=768, for outputs near zero), mean error under 1e-3."""
+    """T3 over a poisoned output within one bf16 ulp (2^-7 |ref|) plus 1e-4
+    (the fp32 sums' order at K=768, for outputs near zero), mean error under
+    1e-3; nothing written past its end, two launches bit-equal."""
     from flyp_tpu_torch.tools import mfu_levers as tml
 
     rng = np.random.default_rng(R)
     x = torch.from_numpy(rng.standard_normal((5, R, 768), dtype=np.float32)).to(card).to(torch.bfloat16)
     w = torch.from_numpy(rng.standard_normal((768, 384), dtype=np.float32)).to(card).to(torch.bfloat16)
-    got, ref = tml.row_gemm(x, w).float(), tml.row_gemm_reference(x, w).float()
-    err = (got - ref).abs()
+    out, guard = _poisoned((5, R, 384), torch.bfloat16, card)
+    got = tml.row_gemm(x, w, out=out)
+    assert got is out
+    ref = tml.row_gemm_reference(x, w).float()
+    err = (got.float() - ref).abs()
     assert bool((err <= 2.0 ** -7 * ref.abs() + 1e-4).all()) and err.mean().item() < 1e-3
+    assert bool(torch.isnan(guard).all())
+    assert torch.equal(got, tml.row_gemm(x, w))
+
+
+def test_probes_refuse_on_card(card):
+    """T3 tiles N in 128 columns and reads rows of 16 bytes by TMA (D a
+    multiple of 8, so D = 40 is taken); T2 takes hd in 64/128/256 dividing D;
+    each refusal a ValueError naming the dimension."""
+    from flyp_tpu_torch.tools import mfu_levers as tml
+
+    def bf16(*shape):
+        return torch.randn(*shape, device=card).to(torch.bfloat16)
+
+    with pytest.raises(ValueError, match="N=200"):
+        tml.row_gemm(bf16(2, 5, 64), bf16(64, 200))
+    with pytest.raises(ValueError, match="D=44"):
+        tml.row_gemm(bf16(2, 5, 44), bf16(44, 128))
+    x, w = bf16(2, 5, 40), bf16(40, 128)
+    ref = tml.row_gemm_reference(x, w).float()
+    assert bool(((tml.row_gemm(x, w).float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-4).all())
+    q = bf16(2, 8, 192)
+    with pytest.raises(ValueError, match="hd=128"):
+        tml.score_depth(q, q, 128)
+    with pytest.raises(ValueError, match="hd=32"):
+        tml.score_depth(q, q, 32)
 
 
 @pytest.mark.parametrize("n", [4096 * 1024, 1000003])

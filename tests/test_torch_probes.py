@@ -169,9 +169,12 @@ def _params():
     return pltpu.CompilerParams(vmem_limit_bytes=64 * 1024 * 1024)
 
 
-@pytest.mark.parametrize("hd", [64, 128, 256])
-def test_score_depth_matches_tool_kernel(hd):
-    B, Lp, D = 4, 24, 256
+@pytest.mark.parametrize("hd,Lp", [
+    *(pytest.param(hd, 24, id=str(hd)) for hd in (64, 128, 256)),
+    *(pytest.param(hd, 13, id=f"{hd}-L13") for hd in (64, 128, 256)),  # odd: the kernel masks columns past L
+])
+def test_score_depth_matches_tool_kernel(hd, Lp):
+    B, D = 4, 256
     rng = np.random.default_rng(hd)
     q = rng.standard_normal((B, Lp, D)).astype(np.float32)
     k = rng.standard_normal((B, Lp, D)).astype(np.float32)
@@ -208,9 +211,12 @@ def _bf16_close(got, ref):
     assert np.abs(got - ref).mean() < 1e-3
 
 
-@pytest.mark.parametrize("R", [13, 16])
-def test_row_gemm_matches_tool_kernel(R):
-    B, D, N = 3, 256, 256
+@pytest.mark.parametrize("R,D", [
+    pytest.param(13, 256, id="13"), pytest.param(16, 256, id="16"),
+    pytest.param(13, 40, id="13-D40"),  # D a multiple of 8 but not of 32: TMA's rows, not a k-tile
+])
+def test_row_gemm_matches_tool_kernel(R, D):
+    B, N = 3, 256
     rng = np.random.default_rng(R)
     w = rng.standard_normal((D, N)).astype(np.float32)
     x = rng.standard_normal((B, R, D)).astype(np.float32)
@@ -234,8 +240,8 @@ def test_row_gemm_matches_tool_kernel(R):
 def test_row_gemm_refuses():
     with pytest.raises(ValueError, match="N=200"):
         tml.row_gemm(torch.zeros((2, 5, 64), dtype=torch.bfloat16), torch.zeros((64, 200), dtype=torch.bfloat16))
-    with pytest.raises(ValueError, match="D=48"):
-        tml.row_gemm(torch.zeros((2, 5, 48), dtype=torch.bfloat16), torch.zeros((48, 128), dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="D=44"):
+        tml.row_gemm(torch.zeros((2, 5, 44), dtype=torch.bfloat16), torch.zeros((44, 128), dtype=torch.bfloat16))
 
 
 def _adamw_inputs(rows, cols, seed):
