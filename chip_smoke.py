@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``flyp_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --digests            # only the B1-B3, B5 and B6 output digests
+    python3 chip_smoke.py --digests            # only the B1-B6 and T1 output digests
     python3 chip_smoke.py --attention-times    # only the attention kernels' device ms
     python3 chip_smoke.py --gemm               # only the five products of gemm_sm90.cuh (G1-G5)
 
@@ -40,13 +40,18 @@ Phases, each of which raises on failure:
 6. the MLP block (B4), fused-QKV attention (B5, forward and backward) and
    whole-row attention (B6, forward and backward) against their plain
    versions (B=64 in fp32 and bf16 at vision L=197 and text L=77, the
-   training main path's batch 256 in bf16 at L=197 and L=32, and B5/B6 at
-   L=577 and L=1024), timed beside the plain version, the card's bound and
-   ``F.scaled_dot_product_attention`` (B5/B6) or a composite (B4); B5/B6's
-   outputs are held to ``flyp_tpu_torch.testing.check_attention``, which
-   planted faults must fail at every shape (the backward without
-   ``delta``; in bf16 also the forward that casts ``p`` before normalising
-   it and the backward whose ``delta`` is ``rowsum(do T(o))``);
+   training main path's batch 256 in bf16 at L=197 and L=32, B5/B6 at
+   L=577 and L=1024, B4 at ViT-L/14's D=1024, L=257), timed beside the
+   plain version, the card's bound and ``F.scaled_dot_product_attention``
+   (B5/B6) or a composite (B4); B5/B6's outputs are held to
+   ``flyp_tpu_torch.testing.check_attention``, which planted faults must
+   fail at every shape (the backward without ``delta``; in bf16 also the
+   forward that casts ``p`` before normalising it and the backward whose
+   ``delta`` is ``rowsum(do T(o))``); B4's over NaN-poisoned outputs with a
+   guard past each end, a second launch bit-equal, and in bf16 its
+   hidden activations held to ``check_mlp_hidden``, which the planted fault
+   (``h`` of the unrounded sum) must fail; B4's four bf16 launches timed one
+   by one at the vision shape beside ``torch.mm``;
 7. the other ``FLYP_ATTENTION_IMPL`` routes (``pallas_qkv``, ``pallas``,
    ``pallas_block_mlp``, ``xla``; the default ``pallas_block`` is phases 4
    and 5): one fp32 step against the CPU plain step under the same route
@@ -60,10 +65,10 @@ Phases, each of which raises on failure:
    into int32), T2 (the per-head score sum, hd 64/128/256, at L = 208 and
    the odd 197, 257 and 577), T3 (the row-count GEMM, R 197/200/208/256) and T4 (the
    fused AdamW update, fp32 and bf16 moments) against their plain versions
-   at the tools' shapes (T1 also at ``tests/test_tools.py``'s shapes and a
-   ragged one; T1-T3's outputs poisoned before each launch, T2's and T3's
-   with a guard region past the end that must stay untouched, and a second
-   launch bit-equal to the first; shapes T1 cannot tile must raise), timed
+   at the tools' shapes (T1 also at ``tests/test_tools.py``'s shapes and
+   three ragged M; T1-T3's outputs poisoned before each launch, with a
+   guard region past the end that must stay untouched, and a second launch
+   bit-equal to the first; shapes T1 cannot tile must raise), timed
    beside the plain version, a library call and the card's bound; then the
    ported tools end to end (``int8_matmul_probe`` ``main``/``main_pallas``
    at batch 256, every ``mfu_levers`` probe, the head rebuild at 100
@@ -955,26 +960,91 @@ def phase_impl_kernels(peaks) -> dict:
                 out["B6_bwd"][-1].setdefault("planted_fault_errs", {})[fault] = caught
                 log(f"planted fault ({fault}) caught", json.dumps({"where": list(map(str, where)), **caught}))
             del qkv, q, k, v, g, g4, ops, faults, ref, ref_o
-            if (B, L, D, H, causal, dtypes) in LONG_SHAPES:
-                continue
+    out["B4"] = mlp_cases(peaks)
+    return out
+
+
+# B4 at the vision and text widths of IMPL_SHAPES and at ViT-L/14's D = 1024
+# (L = 257); its launches at the vision shape in bf16 are timed one by one.
+MLP_SHAPES = [(B, L, D, dtypes) for B, L, D, _, _, dtypes in IMPL_SHAPES] + [(16, 257, 1024, BOTH)]
+MLP_TIMED = (256, 197, 768)
+MLP_LAUNCHES = {"ln": (r"ln_forward_kernel", None),
+                "fc": (r"gemm_sm90_kernel<256, false, true, 2, ", lambda y, w1, h, w2, x: torch.mm(y, w1)),
+                "gelu": (r"gelu_kernel", None),
+                "proj": (r"gemm_sm90_kernel<256, false, true, 22, ", lambda y, w1, h, w2, x: torch.mm(h, w2))}
+
+
+def mlp_launch_bound_ms(name, M, D, peaks):
+    """(ms, "operations" | "bytes") for one of bf16 B4's launches: LN (x
+    read, y written), fc (2MDHd; y, W1 read, h_pre written), the GELU (h_pre
+    read, h written), proj (2MDHd; h, W2, x read, out written)."""
+    Hd = 4 * D
+    flops = 2 * M * D * Hd if name in ("fc", "proj") else 0
+    nbytes = 2 * {"ln": 2 * M * D, "fc": M * D + D * Hd + M * Hd, "gelu": 2 * M * Hd,
+                  "proj": M * Hd + Hd * D + 2 * M * D}[name]
+    t_ops, t_bytes = flops / peaks[torch.bfloat16], nbytes / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def mlp_cases(peaks) -> list:
+    """B4 at MLP_SHAPES over NaN-poisoned outputs with a guard past each end:
+    out and h_pre against the plain version (TOL); in bf16 also h, the
+    transient between its products, held to the GELU of its own h_pre
+    (``check_mlp_hidden``), which the planted fault (h of the unrounded sum)
+    must fail; a second launch bit-equal; timed beside the plain version, a
+    composite of one library call a stage and the card's bound."""
+    from flyp_tpu_torch.testing import check_mlp_hidden, mlp_hidden_from_unrounded
+
+    out = []
+    for B, L, D, dtypes in MLP_SHAPES:
+        for dtype in dtypes:
+            where = ("B4", B, L, D, str(dtype))
             args = mlp_inputs(B, L, D, dtype, seed=L + 3)
             x, ln_s, ln_b, w1, b1, w2, b2 = args
+            bf16 = dtype == torch.bfloat16
+            bufs = {"out": poisoned((B, L, D), dtype), "h_pre": poisoned((B, L, 4 * D), dtype)}
+            if bf16:
+                bufs["hidden"] = poisoned((B, L, 4 * D), dtype)
             with torch.no_grad():
-                got, h_pre = mb._kernel_forward(*args)
+                got, h_pre = mb._kernel_forward(*args, **{n: b[0] for n, b in bufs.items()})
                 torch.cuda.synchronize()
+                for n, (_, guard) in bufs.items():
+                    check_guard(f"B4 {n}", guard, where)
                 ref, ref_h = mb.mlp_block_reference(*args)
-                check_close("B4 h_pre", h_pre, ref_h, TOL[dtype], where)
-                err = check_close("B4 out", got, ref, TOL[dtype], where)
+                errs = {"h_pre": check_close("B4 h_pre", h_pre, ref_h, TOL[dtype], where),
+                        "out": check_close("B4 out", got, ref, TOL[dtype], where)}
+                case = dict(B=B, L=L, D=D, H=D // _HEAD_DIM, causal=False, dtype=str(dtype).split(".")[-1])
+                if bf16:
+                    case["hidden"] = check_mlp_hidden(bufs["hidden"][0], h_pre, where)
+                    try:
+                        check_mlp_hidden(mlp_hidden_from_unrounded(*args[:5]), h_pre, where)
+                    except AssertionError as e:
+                        log(f"planted fault (h of the unrounded sum) caught at {where}: {e}")
+                    else:
+                        raise AssertionError(f"check_mlp_hidden let h of the unrounded sum pass at {where}")
+                again = mb._kernel_forward(*args, hidden=torch.empty_like(h_pre)) if bf16 else mb._kernel_forward(*args)
+                if not (torch.equal(again[0], got) and torch.equal(again[1], h_pre)):
+                    raise AssertionError(f"B4 differs between two launches at {where}")
                 ms = cuda_ms(lambda: mb._kernel_forward(*args))
                 plain_ms = cuda_ms(lambda: mb.mlp_block_reference(*args))
                 yard = (x, ln_s.to(dtype), ln_b.to(dtype), w1.T.contiguous().to(dtype), b1.to(dtype),
                         w2.T.contiguous().to(dtype), b2.to(dtype))
                 composite_ms = cuda_ms(lambda: mlp_yardstick(*yard))
+                if bf16 and (B, L, D) == MLP_TIMED:
+                    mm_ops = (mb._layer_norm(x.float(), ln_s, ln_b)[2].to(dtype).reshape(-1, D), w1.to(dtype),
+                              mb.mlp_hidden(h_pre).reshape(-1, 4 * D), w2.to(dtype), x)
+                    case["launches_ms"] = {
+                        n: dict(ms=kernel_ms(lambda: mb._kernel_forward(*args), pattern),
+                                bound_ms=mlp_launch_bound_ms(n, B * L, D, peaks)[0],
+                                mm_ms=cuda_ms(lambda: mm(*mm_ops)) if mm else None)
+                        for n, (pattern, mm) in MLP_LAUNCHES.items()}
+                    del mm_ops
             bound, by = mlp_bound_ms(B, L, D, dtype, peaks)
-            out["B4"].append(dict(common, max_abs_err=err, ms=ms, plain_ms=plain_ms, composite_ms=composite_ms,
-                                  bound_ms=bound, bound_by=by))
-            log("B4", json.dumps(out["B4"][-1]))
-            del args, yard
+            out.append(dict(case, max_abs_err=max(errs.values()), errs=errs, ms=ms, plain_ms=plain_ms,
+                            composite_ms=composite_ms, bound_ms=bound, bound_by=by))
+            log("B4", json.dumps(out[-1]))
+            del args, yard, bufs, got, h_pre, again, ref, ref_h
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1066,7 +1136,7 @@ def phase_impls(card: str) -> dict:
 # raise ValueError naming the dimension.
 PROBE_GEMM_SHAPES = [("qkv", 53248, 768, 2304), ("out", 53248, 768, 768), ("big", 16384, 4096, 4096),
                      ("tools", 1024, 768, 512), ("tools", 512, 768, 2304), ("tools", 512, 768, 768),
-                     ("ragged M", 1000, 768, 640)]
+                     ("ragged M", 1000, 768, 640), ("ragged M", 200, 768, 512), ("ragged M", 8, 768, 128)]
 PROBE_REFUSED = [((512, 768, 200), torch.int8, "N=200"), ((512, 96, 512), torch.int8, "K=96"),
                  ((512, 100, 512), torch.bfloat16, "K=100")]
 # T2's q, k [B, L, D]: ViT-B/16 at batch 256, at the TPU tool's padded
@@ -1111,10 +1181,11 @@ def adamw_bound_ms(n, mdtype, peaks):
 
 def probe_gemm_cases(peaks) -> dict:
     """T1 in both types at every shape: the output poisoned with a sentinel
-    before the launch (an uncomputed element fails the check); int8 exactly
-    equal to the plain version; bf16 held to the exact product within the
-    block-FMA bound of fp32 tensor-core accumulation (``check_gemm``), its
-    max abs error against the fp32 plain version reported."""
+    before the launch (an uncomputed element fails the check) and a guard
+    past its end that must stay untouched; int8 exactly equal to the plain
+    version; bf16 held to the exact product within the block-FMA bound of
+    fp32 tensor-core accumulation (``check_gemm``), its max abs error against
+    the fp32 plain version reported; a second launch bit-equal."""
     out = {"bf16": [], "int8": []}
     gen = torch.Generator(device="cuda").manual_seed(8)
     for label, M, K, N in PROBE_GEMM_SHAPES:
@@ -1123,13 +1194,15 @@ def probe_gemm_cases(peaks) -> dict:
             if kind == "bf16":
                 a = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
                 b = torch.randn(K, N, generator=gen, device="cuda").to(torch.bfloat16)
-                poisoned = torch.full((M, N), float("nan"), device="cuda")
             else:
                 a = torch.randint(-127, 127, (M, K), generator=gen, device="cuda", dtype=torch.int8)
                 b = torch.randint(-127, 127, (K, N), generator=gen, device="cuda", dtype=torch.int8)
-                poisoned = torch.full((M, N), torch.iinfo(torch.int32).min, dtype=torch.int32, device="cuda")
-            got = tip.probe_mm(a, b, out_dtype, out=poisoned)
+            c, guard = poisoned((M, N), out_dtype)
+            got = tip.probe_mm(a, b, out_dtype, out=c)
             torch.cuda.synchronize()
+            check_guard(f"T1 {kind}", guard, where)
+            if not torch.equal(got, tip.probe_mm(a, b, out_dtype)):
+                raise AssertionError(f"T1 {kind} differs between two launches at {where}")
             ref = tip.probe_mm_reference(a, b, out_dtype)
             if kind == "int8":
                 if not torch.equal(got, ref):
@@ -1141,14 +1214,15 @@ def probe_gemm_cases(peaks) -> dict:
                 err = (got - ref).abs().max().item()
             ms = cuda_ms(lambda: tip.probe_mm(a, b, out_dtype))
             plain_ms = cuda_ms(lambda: tip.probe_mm_reference(a, b, out_dtype))
-            library_ms = cuda_ms(lambda: tip.library_mm(a, b, out_dtype))
+            # torch._int_mm takes M > 16 only: no library call below that.
+            library_ms = cuda_ms(lambda: tip.library_mm(a, b, out_dtype)) if kind == "bf16" or M > 16 else None
             bound, by = probe_gemm_bound_ms(M, K, N, kind, peaks)
             extra = {} if kind == "int8" else {"vs_exact": vs_exact}
             out[kind].append(dict(shape=f"{label} [{M},{K}]x[{K},{N}] {kind}", M=M, K=K, N=N, max_abs_err=err,
                                   **extra, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound,
                                   bound_by=by, tops=2 * M * K * N / ms / 1e9))
             log(f"T1_{kind}", json.dumps(out[kind][-1]))
-            del a, b, poisoned, got, ref
+            del a, b, c, guard, got, ref
     for (M, K, N), dtype, dim in PROBE_REFUSED:
         out_dtype = torch.int32 if dtype == torch.int8 else torch.float32
         a, b = torch.zeros(M, K, dtype=dtype, device="cuda"), torch.zeros(K, N, dtype=dtype, device="cuda")
@@ -1164,17 +1238,19 @@ def probe_gemm_cases(peaks) -> dict:
 
 
 def poisoned(shape, dtype):
-    """A NaN-filled output and the NaN guard region of PROBE_GUARD elements
-    just past its end, in one buffer."""
+    """An output filled with a sentinel (NaN; int32's least value) and a
+    guard region of PROBE_GUARD elements just past its end, in one buffer."""
     n = math.prod(shape)
-    buf = torch.full((n + PROBE_GUARD,), float("nan"), dtype=dtype, device="cuda")
+    fill = torch.iinfo(dtype).min if dtype == torch.int32 else float("nan")
+    buf = torch.full((n + PROBE_GUARD,), fill, dtype=dtype, device="cuda")
     return buf[:n].view(shape), buf[n:]
 
 
 def check_guard(name, guard, where):
-    if not bool(torch.isnan(guard).all()):
+    intact = guard == torch.iinfo(guard.dtype).min if guard.dtype == torch.int32 else torch.isnan(guard)
+    if not bool(intact.all()):
         raise AssertionError(f"{name} wrote past the end of its output at {where}: "
-                             f"{int((~torch.isnan(guard)).sum())} guard elements")
+                             f"{int((~intact).sum())} guard elements")
 
 
 def score_depth_cases(peaks) -> list:
@@ -1386,14 +1462,22 @@ def zeroshot_head_cosine(head) -> float:
     return cos
 
 
-def digests() -> dict:
-    """A SHA-256 prefix of each attention kernel's outputs (B3, B1, B2, and
-    B5 and B6 forward and backward) on seeded inputs at the main paths'
-    shapes.  ``python3 chip_smoke.py --digests`` run twice from one tree
-    says whether the kernels repeat bit for bit; run from two trees (this
-    script copied into the other), whether a change kept their bits."""
+def digest(tensors) -> str:
     import hashlib
 
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def digests() -> dict:
+    """A SHA-256 prefix of each attention kernel's outputs (B3, B1, B2, and
+    B5 and B6 forward and backward), of B4's (out, h_pre) and of T1's (bf16
+    and int8) on seeded inputs at the main paths' shapes.  ``python3
+    chip_smoke.py --digests`` run twice from one tree says whether the
+    kernels repeat bit for bit; run from two trees (this script copied into
+    the other), whether a change kept their bits."""
     out = {}
     for B, L, D, H, causal in ((256, 197, 768, 12, False), (256, 32, 512, 8, True), (64, 197, 768, 12, False)):
         for dtype in BOTH:
@@ -1410,11 +1494,17 @@ def digests() -> dict:
                 b2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
                 b5 = (fq.fused_qkv_attention(qkv, H, causal), fq.fused_qkv_attention_backward(qkv, g, H, causal))
                 b6 = (fa.flash_attention(*heads, causal), *fa.flash_attention_backward(*heads, g4, causal))
-            for name, tensors in (("B3", (b3,)), ("B1", b1), ("B2", b2), ("B5", b5), ("B6", b6)):
-                h = hashlib.sha256()
-                for t in tensors:
-                    h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
-                out[f"{name} B={B} L={L} {str(dtype).split('.')[-1]}"] = h.hexdigest()[:16]
+                b4 = mb._kernel_forward(*mlp_inputs(B, L, D, dtype, seed=L + 3))
+            for name, tensors in (("B3", (b3,)), ("B1", b1), ("B2", b2), ("B5", b5), ("B6", b6), ("B4", b4)):
+                out[f"{name} B={B} L={L} {str(dtype).split('.')[-1]}"] = digest(tensors)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    for M, K, N in ((1024, 768, 512), (1000, 768, 640)):
+        a = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn(K, N, generator=gen, device="cuda").to(torch.bfloat16)
+        a8 = torch.randint(-127, 127, (M, K), generator=gen, device="cuda", dtype=torch.int8)
+        b8 = torch.randint(-127, 127, (K, N), generator=gen, device="cuda", dtype=torch.int8)
+        out[f"T1 bf16 [{M},{K}]x[{K},{N}]"] = digest((tip.probe_mm(a, b, torch.float32),))
+        out[f"T1 int8 [{M},{K}]x[{K},{N}]"] = digest((tip.probe_mm(a8, b8, torch.int32),))
     return out
 
 

@@ -74,14 +74,14 @@ GemmArgs out_args(const float* o, const float* wout, const float* bout, const fl
 
 cudaError_t qkv_gemm(const float* y, const float* wqkv, const float* bqkv, float* qkv, int M, int D,
                      cudaStream_t st) {
-  return launch_gemm<float, false, false, kOpBias, float>(qkv_args(y, wqkv, bqkv, qkv, M, D), 3, st);
+  return launch_gemm<false, false, kOpBias>(qkv_args(y, wqkv, bqkv, qkv, M, D), 3, st);
 }
 cudaError_t qkv_gemm(const bf16* y, const bf16* wqkv, const float* bqkv, bf16* qkv, int M, int D, cudaStream_t st) {
   return sm90::qkv(y, wqkv, bqkv, qkv, M, D, st);
 }
 cudaError_t out_gemm(const float* o, const float* wout, const float* bout, const float* x, float* out, int M, int D,
                      cudaStream_t st) {
-  return launch_gemm<float, false, false, kOpBias | kOpResid, float>(out_args(o, wout, bout, x, out, M, D), 1, st);
+  return launch_gemm<false, false, kOpBias | kOpResid>(out_args(o, wout, bout, x, out, M, D), 1, st);
 }
 cudaError_t out_gemm(const bf16* o, const bf16* wout, const float* bout, const bf16* x, bf16* out, int M, int D,
                      cudaStream_t st) {

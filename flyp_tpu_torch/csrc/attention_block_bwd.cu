@@ -161,7 +161,7 @@ colsum_partial_kernel(const T* __restrict__ src, float* __restrict__ partial, in
 // (G3, G4, G5).  dWqkv's row chunks are gemm_sm90.cuh's fixed split for
 // both types.
 cudaError_t grad_out_gemm(const float* g, const float* wout, float* dout, int M, int D, cudaStream_t st) {
-  return launch_gemm<float, false, true, kOpNone, float>(gemm_args(g, wout, dout, M, D, D, D, D), 1, st);
+  return launch_gemm<false, true, kOpNone>(gemm_args(g, wout, dout, M, D, D, D, D), 1, st);
 }
 cudaError_t grad_out_gemm(const bf16* g, const bf16* wout, bf16* dout, int M, int D, cudaStream_t st) {
   return sm90::grad_out(g, wout, dout, M, D, st);
@@ -172,7 +172,7 @@ cudaError_t weight_grad_gemm(const float* y, const float* d, float* partial, flo
   g.b_z = (long long)M * D;
   g.k_chunk = sm90::weight_grad_chunk(M, D);
   g.splits = (M + g.k_chunk - 1) / g.k_chunk;
-  const cudaError_t err = launch_gemm<float, true, false, kOpNone, float>(g, 3, st);
+  const cudaError_t err = launch_gemm<true, false, kOpNone>(g, 3, st);
   if (err != cudaSuccess) return err;
   return reduce_partials(partial, g.splits, 3LL * D * D, dw, st);
 }
@@ -183,7 +183,7 @@ cudaError_t weight_grad_gemm(const bf16* y, const bf16* d, float* partial, float
 cudaError_t input_grad_gemm(const float* d, const float* wqkv, float* dY, int M, int D, cudaStream_t st) {
   GemmArgs g = gemm_args(d, wqkv, dY, M, D, D, D, D);
   g.nseg = 3; g.a_seg = (long long)M * D; g.b_seg = (long long)D * D;
-  return launch_gemm<float, false, true, kOpNone, float>(g, 1, st);
+  return launch_gemm<false, true, kOpNone>(g, 1, st);
 }
 cudaError_t input_grad_gemm(const bf16* d, const bf16* wqkv, float* dY, int M, int D, cudaStream_t st) {
   return sm90::input_grad(d, wqkv, dY, M, D, st);

@@ -1,6 +1,6 @@
-// Device helpers, the tiled GEMM and the 64-wide attention tiles shared by the
+// Device helpers, the fp32 GEMM and the 64-wide attention tiles shared by the
 // package's kernels (attention block forward and backward, MLP block,
-// attention).
+// attention).  The bf16 and int8 products run on gemm_sm90.cuh.
 
 #pragma once
 
@@ -221,28 +221,24 @@ __device__ __forceinline__ float2 load_pair(const float* p) { return __ldg(reint
 __device__ __forceinline__ float2 load_pair(const bf16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const bf162*>(p)));
 }
-__device__ __forceinline__ uint4 load16(const bf16* p) { return __ldg(reinterpret_cast<const uint4*>(p)); }
 
 // ---------------------------------------------------------------------------
-// Tiled GEMM: C[z] = sum over segments of op(A) op(B) (+ resid) (+ bias),
+// The fp32 GEMM: C[z] = sum over segments of op(A) op(B) (+ resid) (+ bias),
 // where A is held [M, K] (or [K, M] with kAT) and B [K, N] (or [N, K] with
 // kBT), row major with leading dimensions lda/ldb.  blockIdx.z = zt * splits
 // + s: zt picks a tower (A += zt*a_z, B += zt*b_z, bias += zt*N) and s a
 // chunk of the contraction, whose partial goes to C[s][zt] ([M, N] each).
-// Rows past M and the contraction past K read as zeros; N % 128 == 0.
+// Rows past M and the contraction past K read as zeros; N % 128 == 0.  It
+// runs FMA tiles on the CUDA cores, since the tensor cores would round fp32
+// operands to TF32.
 //
 // kOps says what else it does, at compile time.  Operand prologues (A held
-// [M, K]), each rounded to the operand type as the tile is stored: kOpLN (one
-// segment, one split): A' = LN(A) over A's K columns with ln_scale/ln_bias;
-// kOpGelu: A' = quick_gelu(A) in fp32.  The epilogue, in fp32 with each step
-// rounded: kOpResid adds resid (an [M, N] tensor of the output type), then
-// kOpBias adds bias (with kOpResidLast the bias first, then resid: resid +
-// (acc + bias)); then C rounds to its type.
-//
-// bf16 runs on the tensor cores (mma.sync m16n8k16, fp32 accumulate), and
-// int8 on the same tiles (m16n8k32, int32 accumulate and output, A [M, K]
-// and B [K, N] only, no prologue or epilogue); fp32 runs FMA tiles on the
-// CUDA cores, since the tensor cores would round fp32 operands to TF32.
+// [M, K]): kOpLN (one segment, one split): A' = LN(A) over A's K columns
+// with ln_scale/ln_bias; kOpGelu: A' = quick_gelu(A).  The epilogue, in fp32
+// with each step rounded (shared with gemm_sm90.cuh): kOpResid adds resid
+// (an [M, N] tensor of the output type), then kOpBias adds bias (with
+// kOpResidLast the bias first, then resid: resid + (acc + bias)); then C
+// rounds to its type.
 
 // Blocks of 256 threads, launch-bounded to two per SM (at most 128 registers
 // a thread).
@@ -437,283 +433,11 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_fma_kernel(const GemmArg
   }
 }
 
-// The tensor-core operand types.  A k-tile is 64 bytes of depth in both, so
-// the shared-memory tiles, their padding and the ldmatrix addressing (in
-// bytes) are one design: an int8 fragment of m16n8k32 holds 4 consecutive
-// bytes of a row where a bf16 one of m16n8k16 holds 2 bf16.
-template <typename T>
-struct MmaOperand;
-template <>
-struct MmaOperand<bf16> {
-  using Acc = float;
-  static constexpr int kBK = 32;    // depth of a k-tile
-  static constexpr int kStep = 16;  // depth of one mma
-  static constexpr int kRow = 40;   // elements per row of a [128][kBK] tile: 80 B, conflict-free ldmatrix
-  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    mma_bf16(d, a, b0, b1);
-  }
-};
-template <>
-struct MmaOperand<int8_t> {
-  using Acc = int;
-  static constexpr int kBK = 64;
-  static constexpr int kStep = 32;
-  static constexpr int kRow = 80;
-  // d += a (16x32, row) * b (32x8, col), int32 accumulate.
-  static __device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-
-__device__ __forceinline__ uint4 load16(const int8_t* p) { return __ldg(reinterpret_cast<const uint4*>(p)); }
-
-__device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
-  return i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
-}
-
-// int8 B, held [K, N], staged [n][k]: ldmatrix .trans moves 16-bit elements
-// only.  Lane = 4 ng + kg holds the 4 x 4 byte block at k rows 4 kg.., n
-// columns 4 ng.. (one row a word of w); a quad's lanes cover 16 k.  The block
-// is transposed with byte permutes, and the quad swaps words so that lane
-// 4 ng + kg returns the 16 k of column 4 ng + kg.
-__device__ __forceinline__ uint4 s8_transpose_quad(uint4 w4, int lane) {
-  const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
-  const int kg = lane % 4;
-  const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140), lo23 = __byte_perm(w[2], w[3], 0x5140);
-  const uint32_t hi01 = __byte_perm(w[0], w[1], 0x7362), hi23 = __byte_perm(w[2], w[3], 0x7362);
-  // t[j]: the 4 k of column 4 ng + j.
-  const uint32_t t[4] = {__byte_perm(lo01, lo23, 0x5410), __byte_perm(lo01, lo23, 0x7632),
-                         __byte_perm(hi01, hi23, 0x5410), __byte_perm(hi01, hi23, 0x7632)};
-  // Lane kg of the quad gathers column kg: from quad lane s its k group s.
-  // got[d] comes from lane (kg + d) & 3.
-  uint32_t got[4];
-  got[0] = pick4(t, kg);
-#pragma unroll
-  for (int d = 1; d < 4; ++d) got[d] = __shfl_sync(0xffffffffu, pick4(t, (kg - d) & 3), (lane & ~3) | ((kg + d) & 3));
-  return make_uint4(pick4(got, (0 - kg) & 3), pick4(got, (1 - kg) & 3), pick4(got, (2 - kg) & 3),
-                    pick4(got, (3 - kg) & 3));
-}
-
-// Tensor cores: 128 x 128 tiles, 8 warps in a 2 x 4 grid of 64 x 32 pieces;
-// the next k-tile is read into registers while the tensor cores work on the
-// current one.  Each bf16 operand tile sits in shared memory the way it is
-// held in device memory, and ldmatrix (plain or .trans) turns it into
-// fragments.  With kAT (A and B held [K, ...]) the contraction is masked by
-// rows, so any K and split; otherwise K % kBK == 0 and the tile loop carries
-// no contraction masks (launch_gemm checks).  T = int8_t (A [M, K], B [K, N],
-// no prologue or epilogue, int32 out) stages B as [n][k] through
-// s8_transpose_quad, so its fragments come from plain ldmatrix, as bf16's do
-// from a B held [N, K].
-constexpr int kMmaBK = MmaOperand<bf16>::kBK;
-constexpr int kNarrow = MmaOperand<bf16>::kRow;
-constexpr int kWide = kBM + 8;  // bf16 per row of a [32][128] tile: 272 B
-
-template <bool kAT, bool kBT, int kOps, typename TOut, typename T = bf16>
-__global__ void __launch_bounds__(kGemmThreads, 2) gemm_mma_kernel(const GemmArgs a) {
-  using Op = MmaOperand<T>;
-  constexpr bool kS8 = sizeof(T) == 1;
-  constexpr int kBK = Op::kBK, kRow = Op::kRow;
-  constexpr int kVec = 16 / (int)sizeof(T);       // elements in 16 bytes
-  constexpr int kColScale = 2 / (int)sizeof(T);   // ldmatrix columns are bf16-wide
-  constexpr bool kLN = kOps & kOpLN;
-  constexpr bool kGelu = kOps & kOpGelu;
-  static_assert(!((kLN || kGelu) && kAT), "the operand prologues read A held [M, K]");
-  static_assert(!(kLN && kGelu), "one operand prologue");
-  static_assert(!(kAT && kBT), "a masked contraction reads rows of A and B");
-  static_assert(!kS8 || (!kAT && !kBT && kOps == kOpNone && sizeof(TOut) == 4),
-                "the int8 GEMM: A [M, K], B [K, N], int32 out, no prologue or epilogue");
-  __shared__ __align__(16) T As[kBM * kRow];  // [128][kRow], or [32][kWide] with kAT
-  __shared__ __align__(16) T Bs[kBN * kRow];  // [32][kWide], or [128][kRow] with kBT or int8
-  __shared__ float row_mean[kLN ? kBM : 1];
-  __shared__ float row_rstd[kLN ? kBM : 1];
-  const GemmBlock gb = gemm_block(a);
-  const T* A = static_cast<const T*>(a.A) + gb.zt * a.a_z;
-  const T* B = static_cast<const T*>(a.B) + gb.zt * a.b_z;
-  TOut* C = static_cast<TOut*>(a.C) + gb.c_off;
-  const float* bias = (kOps & kOpBias) ? a.bias + (size_t)gb.zt * a.N : nullptr;
-  const TOut* resid = static_cast<const TOut*>(a.resid);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  // The loops read the arguments from registers.
-  const int M = a.M, N = a.N, lda = a.lda, ldb = a.ldb, kbeg = gb.kbeg, kend = gb.kend;
-  const long long a_seg = a.a_seg, b_seg = a.b_seg;
-  const float* ln_scale = a.ln_scale;
-  const float* ln_bias = a.ln_bias;
-  const int per_seg = kend > kbeg ? (kend - kbeg + kBK - 1) / kBK : 0;
-  const int n_tiles = a.nseg * per_seg;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-  if constexpr (kLN) {
-    gemm_ln_stats(A, M, a.K, lda, m0, row_mean, row_rstd);
-    __syncthreads();
-  }
-
-  // Each thread moves two 16-byte pieces of each operand per k-tile (int8
-  // B: two 4 x 4 byte blocks, one row a word).  The next tile to read starts
-  // at column ld_k of the segment at Ag/Bg.
-  uint4 a_reg[2], b_reg[2];
-  const T* Ag = A;
-  const T* Bg = B;
-  int ld_k = kbeg;
-  auto load_tiles = [&]() {
-    const int k0 = ld_k;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int e = tid + i * kGemmThreads;
-      if (kAT) {  // 32 k-rows x 128 m
-        const int r = e / 16, c = (e % 16) * 8;
-        a_reg[i] = k0 + r < kend && m0 + c < M
-                       ? load16(Ag + (size_t)(k0 + r) * lda + m0 + c) : zero;
-      } else {  // 128 m-rows x kBK k
-        const int r = e / 4, c = (e % 4) * kVec;
-        a_reg[i] = m0 + r < M ? load16(Ag + (size_t)(m0 + r) * lda + k0 + c) : zero;
-      }
-      if constexpr (kS8) {  // 16 pieces of 16 k x 32 n, two a warp
-        const int piece = warp + 8 * i, kb = piece / 4, nb = piece % 4;
-        const T* src = Bg + (size_t)(k0 + kb * 16 + (lane % 4) * 4) * ldb + n0 + nb * 32 + (lane / 4) * 4;
-        uint32_t w[4];
-#pragma unroll
-        for (int r4 = 0; r4 < 4; ++r4) w[r4] = __ldg(reinterpret_cast<const uint32_t*>(src + (size_t)r4 * ldb));
-        b_reg[i] = make_uint4(w[0], w[1], w[2], w[3]);
-      } else if (kBT) {  // 128 n-rows x 32 k
-        const int r = e / 4, c = (e % 4) * 8;
-        b_reg[i] = load16(Bg + (size_t)(n0 + r) * ldb + k0 + c);
-      } else {  // 32 k-rows x 128 n
-        const int r = e / 16, c = (e % 16) * 8;
-        b_reg[i] = !kAT || k0 + r < kend ? load16(Bg + (size_t)(k0 + r) * ldb + n0 + c) : zero;
-      }
-    }
-    ld_k += kBK;
-    if (ld_k >= kend) {
-      ld_k = kbeg;
-      Ag += a_seg;
-      Bg += b_seg;
-    }
-  };
-  // k0: the tile's first column (the LN prologue has one segment).
-  auto store_tiles = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int e = tid + i * kGemmThreads;
-      if (kAT) {
-        *reinterpret_cast<uint4*>(&As[(e / 16) * kWide + (e % 16) * 8]) = a_reg[i];
-      } else {
-        const int r = e / 4, c = (e % 4) * kVec;
-        uint4 v = a_reg[i];
-        if (kLN && m0 + r < M) {
-          // 8 scales and biases in 16-byte pieces (fp32 vectors are 16-byte aligned).
-          float g[8], b[8];
-          *reinterpret_cast<float4*>(g) = *reinterpret_cast<const float4*>(ln_scale + k0 + c);
-          *reinterpret_cast<float4*>(g + 4) = *reinterpret_cast<const float4*>(ln_scale + k0 + c + 4);
-          *reinterpret_cast<float4*>(b) = *reinterpret_cast<const float4*>(ln_bias + k0 + c);
-          *reinterpret_cast<float4*>(b + 4) = *reinterpret_cast<const float4*>(ln_bias + k0 + c + 4);
-          bf16* h = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            h[j] = __float2bfloat16_rn(ln_apply(__bfloat162float(h[j]), row_mean[r], row_rstd[r], g[j], b[j]));
-          }
-        }
-        if (kGelu && m0 + r < M) {
-          bf16* h = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16_rn(quick_gelu(__bfloat162float(h[j])));
-        }
-        *reinterpret_cast<uint4*>(&As[r * kRow + c]) = v;
-      }
-      if constexpr (kS8) {
-        const int piece = warp + 8 * i, kb = piece / 4, nb = piece % 4;
-        *reinterpret_cast<uint4*>(&Bs[(nb * 32 + lane) * kRow + kb * 16]) = s8_transpose_quad(b_reg[i], lane);
-      } else if (kBT) {
-        *reinterpret_cast<uint4*>(&Bs[(e / 4) * kNarrow + (e % 4) * 8]) = b_reg[i];
-      } else {
-        *reinterpret_cast<uint4*>(&Bs[(e / 16) * kWide + (e % 16) * 8]) = b_reg[i];
-      }
-    }
-  };
-
-  typename Op::Acc acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  if (n_tiles > 0) load_tiles();
-  for (int t = 0; t < n_tiles; ++t) {
-    store_tiles(kbeg + t * kBK);
-    __syncthreads();
-    if (t + 1 < n_tiles) load_tiles();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += Op::kStep) {
-      uint32_t af[4][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int mr = wm + mt * 16;
-        if (kAT) {
-          ldmatrix_x4_trans(af[mt], &As[(kk + ldm_row(lane, true)) * kWide + mr + ldm_col(lane, true)]);
-        } else {
-          ldmatrix_x4(af[mt], &As[(mr + ldm_row(lane, false)) * kRow + kk + kColScale * ldm_col(lane, false)]);
-        }
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int nc = wn + np * 16;
-        uint32_t r[4];
-        if (kBT || kS8) {
-          ldmatrix_x4(r, &Bs[(nc + ldm_row(lane, true)) * kRow + kk + kColScale * ldm_col(lane, true)]);
-        } else {
-          ldmatrix_x4_trans(r, &Bs[(kk + ldm_row(lane, false)) * kWide + nc + ldm_col(lane, false)]);
-        }
-        bfr[2 * np][0] = r[0];
-        bfr[2 * np][1] = r[1];
-        bfr[2 * np + 1][0] = r[2];
-        bfr[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) Op::mma(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + mt * 16 + lane / 4 + half * 8;
-      if (m >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = n0 + wn + nt * 8 + (lane % 4) * 2;
-        if constexpr (kS8) {  // int32 stored as it is
-          *reinterpret_cast<int2*>(C + (size_t)m * N + n) = make_int2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-        } else {
-          gemm_store<kOps, TOut>(C, resid, bias, N, m, n, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-        }
-      }
-    }
-  }
-}
-
-// Launch the GEMM over `towers` towers on the caller's stream.  T is the
-// operand type; an fp32 GEMM writes fp32, an int8 one int32.
-template <typename T, bool kAT, bool kBT, int kOps, typename TOut>
+// Launch the fp32 GEMM over `towers` towers on the caller's stream.
+template <bool kAT, bool kBT, int kOps>
 cudaError_t launch_gemm(const GemmArgs& g, int towers, cudaStream_t st) {
   const dim3 grid(g.N / kBN, (g.M + kBM - 1) / kBM, towers * g.splits);
-  if constexpr (sizeof(T) == 4) {
-    static_assert(sizeof(TOut) == 4, "an fp32 GEMM writes fp32");
-    gemm_fma_kernel<kAT, kBT, kOps><<<grid, kGemmThreads, 0, st>>>(g);
-  } else {
-    constexpr int kBK = MmaOperand<T>::kBK;
-    if (!kAT && (g.K % kBK != 0 || g.k_chunk % kBK != 0)) return cudaErrorInvalidValue;
-    gemm_mma_kernel<kAT, kBT, kOps, TOut, T><<<grid, kGemmThreads, 0, st>>>(g);
-  }
+  gemm_fma_kernel<kAT, kBT, kOps><<<grid, kGemmThreads, 0, st>>>(g);
   return cudaGetLastError();
 }
 

@@ -1,10 +1,7 @@
-// The bf16 GEMM of the attention block's kernels (B1, B3 and B2) and of the
-// probes T2 and T3, written for Hopper (sm_90a): TMA loads into a ring of
-// shared-memory stages, wgmma products on the tensor cores, fp32 accumulate.
-//
-// It replaces, for bf16, common.cuh's gemm_mma_kernel (mma.sync m16n8k16 on
-// 128 x 128 x 32 tiles, one k-tile staged through registers) in the five
-// products of flyp_tpu/ops/attention_block.py's kernels:
+// The package's tensor-core GEMM, written for Hopper (sm_90a): TMA loads
+// into a ring of shared-memory stages, wgmma products on the tensor cores.
+// bf16 operands accumulate in fp32; int8 operands (T1) in int32.  It runs
+// every bf16 product of the package's kernels:
 //
 //   G1 qkv[t] = T(y @ Wqkv[t] + bqkv[t])   y [M, D], Wqkv held [K, N], 3 towers
 //   G2 out    = T(x + o @ Wout + bout)     Wout held [K, N]
@@ -13,51 +10,67 @@
 //                                          summed in a fixed order
 //   G5 dY     = sum_t d_t Wqkv[t]^T        fp32, 3 segments
 //
-// and the probes' two (score_depth.cu, probe_gemm.cu):
+// in the attention block's kernels (B1, B3, B2); the MLP block's two
+// (mlp_block.cu, B4):
 //
+//   fc   h_pre = T(y @ W1 + b1)            y [M, D], W1 held [K, N] = [D, Hd]
+//   proj out   = T(x + (h @ W2 + b2))      h = T(quick_gelu(h_pre)), W2 held
+//                                          [K, N] = [Hd, D]; the bias first
+//
+// and the probes' (score_depth.cu, probe_gemm.cu):
+//
+//   T1 c      = a @ b                      bf16: fp32 out, b held [K, N];
+//                                          int8: int32 out, b transposed to
+//                                          [N, K]
 //   T2 o[b]   = q[b] k[b]^T                fp32 [L, L] a tower, both K-major
 //   T3 out    = T(x @ w)                   x [B R, D] flat, w held [K, N]
 //
 // What bounds them on the H100: at the vision shape (M = 256 x 197 rows, D =
 // 768) G1 is 178 GFLOP against ~0.3 GB moved, 0.18 ms of tensor-core time and
 // 0.09 ms of bytes, so the tensor cores bound the ideal kernel; G2, G3 and G5
-// are a third of G1 each, G4 is G1 with the contraction over the rows.
+// are a third of G1 each, G4 is G1 with the contraction over the rows, B4's
+// two products 4/3 of G1 each.  T1's 4-byte output makes its int8 form bound
+// by bytes.
 //
 // The design, the usual shape of a fast Hopper kernel:
 //
 // * Persistent: one block an SM walks output tiles of 128 x 256 (128 x 128
 //   where N is not a multiple of 256) with 12 warps: two consumer
 //   warpgroups (64 rows each) and one producer warpgroup, of which one
-//   thread walks the contraction 64 deep at a time and issues the TMA copies
-//   (cp.async.bulk.tensor, 128-byte swizzle) of each k-tile's A and B into a
-//   ring of 3-4 stages, each guarded by an mbarrier pair: `full` completes
-//   when the stage's bytes have landed, `empty` when both consumers have
-//   finished reading it.  The producer runs on into the next tile while the
-//   consumers store the last one.  setmaxnreg moves the producer's registers
-//   to the consumers (128 accumulators a thread at 256 wide).
-// * The consumers run wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulate) on
-//   each stage that has landed, keep one k-tile's products in flight
-//   (wgmma.wait_group 1) and then free the stage before.
+//   thread walks the contraction one k-tile (128 bytes: 64 bf16 or 128 int8)
+//   at a time and issues the TMA copies (cp.async.bulk.tensor, 128-byte
+//   swizzle) of each k-tile's A and B into a ring of 3-4 stages, each
+//   guarded by an mbarrier pair: `full` completes when the stage's bytes
+//   have landed, `empty` when both consumers have finished reading it.  The
+//   producer runs on into the next tile while the consumers store the last
+//   one.  setmaxnreg moves the producer's registers to the consumers (128
+//   accumulators a thread at 256 wide).
+// * The consumers run wgmma.mma_async (m64nNk16 bf16 into fp32, m64nNk32 s8
+//   into s32: both 32 bytes of the contraction a step) on each stage that
+//   has landed, keep one k-tile's products in flight (wgmma.wait_group 1)
+//   and then free the stage before.
 // * Operands are K-major (the contraction contiguous) or MN-major (rows or
-//   columns contiguous, wgmma's transpose for bf16), as each product holds
-//   them; both sit in shared memory the way TMA's 128-byte swizzle lays them
-//   out, and the wgmma descriptors say so.
+//   columns contiguous, wgmma's transpose, bf16 only: for 8-bit types wgmma
+//   takes both operands K-major and has no transpose); both sit in shared
+//   memory the way TMA's 128-byte swizzle lays them out, and the wgmma
+//   descriptors say so.
 // * The epilogue is common.cuh's: the fp32 sum, then each __fadd_rn of the
 //   bias / residual in gemm_store's order, then one rounding.  A bf16 output
 //   is written into a swizzled shared-memory tile (the residual's tile read
 //   into it first by TMA) and stored by TMA, which drains while the block
-//   goes on; an fp32 one (G4, G5) is stored from the accumulators.  Rows
-//   past M, and a contraction past K, load as zeros (TMA's out-of-bounds
-//   fill); rows past M are not stored.  Nothing is summed with atomics, so a
-//   product repeats bit for bit.
+//   goes on; a 4-byte one (fp32, int32: G4, G5, T1) goes the same way in
+//   32-column chunks, except in a launch with ragged columns (T2, below),
+//   which stores it from the accumulators.  Rows past M, and a contraction
+//   past K, load as zeros (TMA's out-of-bounds fill); rows past M are not
+//   stored.
+//   Nothing is summed with atomics, so a product repeats bit for bit.
 // * N is a multiple of 128, except in a launch that asks for ragged columns
 //   (kRagged, an fp32 output with no bias or residual: T2's N = L = 197 or
 //   208; the other products compile without it).  There the last column
 //   tile is ragged, B's rows past N load as zeros and columns past N are
-//   not stored.  An even N stores pairs from the accumulators as a whole
-//   tile does; an odd N (rows 4-byte aligned only) stores each value alone,
-//   in every tile.  A ragged N up to 256 takes one 256-wide tile, so A's
-//   rows are read once.
+//   not stored.  An even N stores pairs from the accumulators; an odd N
+//   (rows 4-byte aligned only) stores each value alone, in every tile.  A
+//   ragged N up to 256 takes one 256-wide tile, so A's rows are read once.
 //
 // Clusters with multicast loads and a ping-pong schedule of the two
 // consumers (one's epilogue under the other's products) are later work.
@@ -67,33 +80,45 @@
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is reached through the runtime)
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace flyp {
 namespace sm90 {
 
-constexpr int kBM = 128, kBK = 64;  // output rows of a tile, k-tile (64 bf16 = one 128-byte swizzle row)
+constexpr int kSwizzleRow = 128, kSwizzleAtom = 8 * kSwizzleRow;
+constexpr int kBM = 128;  // output rows of a tile
+// The k-tile of an operand type: one swizzle row, 64 bf16 or 128 int8.
+template <typename TIn>
+constexpr int kTileK = kSwizzleRow / (int)sizeof(TIn);
 constexpr int kConsumers = 2;                     // warpgroups of 64 rows
 constexpr int kThreads = (kConsumers + 1) * 128;  // + the producer warpgroup
 // Registers a thread after setmaxnreg: the producer gives up what the
 // consumers' 128 accumulators need (128 x 40 + 256 x 232 <= 65,536).
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kATile = kBM * kBK * 2;            // A's k-tile: 16 KB
+constexpr int kATile = kBM * kSwizzleRow;        // A's k-tile: 16 KB
 constexpr int kChunk = kATile / 2;               // 64 rows (K-major) or a 64-wide chunk (MN-major)
-constexpr int kSwizzleRow = 128, kSwizzleAtom = 8 * kSwizzleRow;
 
 // Output tiles 128 x kBN, one block an SM.  A bf16 output is written through
 // shared memory by TMA stores (kStaged), which drain while the block goes on
-// to its next tile; an fp32 one (G4, G5, whose long contraction makes the
-// epilogue a small share) straight from the accumulators.
-template <int kBN_, typename TOut>
+// to its next tile.  A 4-byte one goes the same way, two 32-column chunks
+// of a warpgroup's 64 rows at a time (kStaged4), unless its columns are
+// ragged (kRagged, T2): a tensor map needs rows of a multiple of 16 bytes,
+// which an odd N's are not, so those tiles store from the accumulators.
+constexpr int kChunks4 = 2;                        // 4-byte chunks staged at once by a warpgroup
+constexpr int kChunk4 = 64 * kSwizzleRow;          // one: [64 rows][32 columns], 8 KB
+template <int kBN_, typename TOut, bool kRagged>
 struct Tile {
   static constexpr int kBN = kBN_;
   static constexpr bool kStaged = sizeof(TOut) == 2;
+  static constexpr bool kStaged4 = sizeof(TOut) == 4 && !kRagged;
+  // A 256-wide bf16 tile's 64 KB of output leaves room for 3 stages; a
+  // 4-byte one stages 32 KB at a time, which leaves room for 4.
   static constexpr int kStages = kStaged && kBN == 256 ? 3 : 4;
-  static constexpr int kStageBytes = kATile + kBN * kBK * 2;
-  static constexpr int kOutBytes = kStaged ? kBM * kBN * 2 : 0;          // 128-byte swizzled 64-column chunks
+  static constexpr int kStageBytes = kATile + kBN * kSwizzleRow;
+  static constexpr int kOutBytes = kStaged ? kBM * kBN * 2                // 128-byte swizzled 64-column chunks
+                                   : kStaged4 ? kConsumers * kChunks4 * kChunk4 : 0;
   static constexpr int kSmemBytes = kStages * kStageBytes + kOutBytes + 1024;  // + alignment to 1024 bytes
 };
 
@@ -189,6 +214,11 @@ __device__ __forceinline__ void fence_acc(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int kN>
+__device__ __forceinline__ void fence_acc(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // d += A (64 x 16) B (16 x kN); kTA / kTB: A / B held MN-major.
 template <int kN>
@@ -252,19 +282,89 @@ struct Wgmma<256> {
   }
 };
 
+// d += A (64 x 32) B (32 x kN) in int8, int32 accumulate ("+r": the same
+// count of registers as fp32's).  Both operands K-major: for 8-bit types
+// wgmma has no transpose and no imm-scale operands, so the bf16 form's
+// trailing `1, 1, kTA, kTB` is dropped.
+template <int kN>
+struct WgmmaS8;
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void run(int (&d)[64], uint64_t da, uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]),
+        "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]),
+        "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),
+        "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
+        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <>
+struct WgmmaS8<256> {
+  static __device__ __forceinline__ void run(int (&d)[128], uint64_t da, uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, "
+      "%85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "
+      "%122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]),
+        "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),
+        "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]),
+        "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]),
+        "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),
+        "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]),
+        "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]),
+        "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]),
+        "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]),
+        "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]),
+        "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]),
+        "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]),
+        "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]),
+        "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+  }
+};
+
+
 // C (tower t, split s) = sum over segments and the split's contraction of
 // op(A) op(B).  A is held [z][M][K] (K-major) or [z][K][M] (kAMN), B [z][N][K]
 // or [z][K][N] (kBMN); z = t * splits + s; C[s][t] is [M, N].  Persistent:
 // block b takes output tiles b, b + gridDim.x, ..., numbered with N's tile
 // fastest, then M's, then z.  The producer runs on into the next tile's
-// k-tiles while the consumers store the last one.
-template <int kBN, bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged>
+// k-tiles while the consumers store the last one.  TIn is the operand type:
+// bf16 (fp32 accumulators), or int8 (int32 accumulators and output, both
+// operands K-major, no epilogue).  A 4-byte output takes no epilogue.
+template <int kBN, bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged, typename TIn>
 __global__ void __launch_bounds__(kThreads, 1)
     gemm_sm90_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
                      const __grid_constant__ CUtensorMap map_c, const __grid_constant__ CUtensorMap map_r,
                      const Args a) {
-  using Cfg = Tile<kBN, TOut>;
-  constexpr int kStages = Cfg::kStages, kStageBytes = Cfg::kStageBytes;
+  using Cfg = Tile<kBN, TOut, kRagged>;
+  constexpr bool kS8 = std::is_same<TIn, int8_t>::value;
+  static_assert(!kS8 || (!kAMN && !kBMN && std::is_same<TOut, int>::value && !kRagged),
+                "int8: both operands K-major, an int32 output of whole tiles (staged)");
+  static_assert(sizeof(TOut) == 2 || kOps == kOpNone, "a 4-byte output takes no epilogue");
+  using Acc = typename std::conditional<kS8, int, float>::type;
+  constexpr int kStages = Cfg::kStages, kStageBytes = Cfg::kStageBytes, kBKe = kTileK<TIn>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages + kConsumers];  // full[s], empty[s], then resid[wg]
   const uint32_t ring = (smem_addr(smem_raw) + 1023u) & ~1023u;
@@ -290,7 +390,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     w.tower = z / a.splits;
     w.kbeg = w.split * a.k_chunk;
     const int kend = min(a.K, w.kbeg + a.k_chunk);
-    w.kt = kend > w.kbeg ? (kend - w.kbeg + kBK - 1) / kBK : 0;
+    w.kt = kend > w.kbeg ? (kend - w.kbeg + kBKe - 1) / kBKe : 0;
     return w;
   };
 
@@ -313,7 +413,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int i = 0; i < a.nseg * w.kt; ++i, ++g) {
           const int s = g % kStages;
           if (g >= kStages) mbar_wait(empty(s), (g / kStages - 1) & 1);
-          const int seg = i / w.kt, k = w.kbeg + (i % w.kt) * kBK;
+          const int seg = i / w.kt, k = w.kbeg + (i % w.kt) * kBKe;
           const int za = seg * a.a_seg + w.tower * a.a_tower, zb = seg * a.b_seg + w.tower * a.b_tower;
           const uint32_t sa = ring + s * kStageBytes, sb = sa + kATile;
           mbar_expect_tx(full(s), kStageBytes);
@@ -338,16 +438,15 @@ __global__ void __launch_bounds__(kThreads, 1)
   // A consumer warpgroup: rows m0 + 64 wg of each tile.
   reg_alloc<kConsumerRegs>();
   const int wg = warp / 4, lane = tid % 32;
-  const TOut* resid = static_cast<const TOut*>(a.resid);
   (void)map_c;
   (void)map_r;
   int g = 0, e = 0;  // k-tiles consumed and tiles stored by this block so far
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const Work w = work(t);
     const int n_iters = a.nseg * w.kt;
-    float d[kBN / 2];
+    Acc d[kBN / 2];
 #pragma unroll
-    for (int i = 0; i < kBN / 2; ++i) d[i] = 0.f;
+    for (int i = 0; i < kBN / 2; ++i) d[i] = 0;
     for (int i = 0; i < n_iters; ++i, ++g) {
       const int s = g % kStages;
       mbar_wait(full(s), (g / kStages) & 1);
@@ -355,14 +454,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_acc(d);
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < kBK / 16; ++j) {
-        // 16 of the contraction: 32 bytes along a K-major row, 16 rows of
-        // 128 bytes of an MN-major chunk.
+      for (int j = 0; j < kSwizzleRow / 32; ++j) {
+        // 32 bytes of the contraction (16 bf16 or 32 int8): 32 bytes along a
+        // K-major row, 16 rows of 128 bytes of an MN-major (bf16) chunk.
         const uint64_t da = kAMN ? smem_desc(sa + j * 16 * kSwizzleRow, kChunk, kSwizzleAtom)
                                  : smem_desc(sa + j * 32, 16, kSwizzleAtom);
         const uint64_t db = kBMN ? smem_desc(sb + j * 16 * kSwizzleRow, kChunk, kSwizzleAtom)
                                  : smem_desc(sb + j * 32, 16, kSwizzleAtom);
-        Wgmma<kBN>::template run<kAMN ? 1 : 0, kBMN ? 1 : 0>(d, da, db);
+        if constexpr (kS8) WgmmaS8<kBN>::run(d, da, db);
+        else Wgmma<kBN>::template run<kAMN ? 1 : 0, kBMN ? 1 : 0>(d, da, db);
       }
       wgmma_commit();
       wgmma_wait<1>();  // the k-tile before this one is done: free its stage
@@ -376,7 +476,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Accumulator 4j + 2h + e of lane l in warp w of the warpgroup: row 16w
     // + l/4 + 8h, column 8j + 2(l%4) + e.
     const float* bias = (kOps & kOpBias) ? a.bias + (size_t)w.tower * a.N : nullptr;
-    const int r = (warp % 4) * 16 + lane / 4, row = w.m0 + wg * 64 + r;
+    const int r = (warp % 4) * 16 + lane / 4;
     if constexpr (Cfg::kStaged) {
       // Into the output buffer, 64-column chunks of [128 rows][128 bytes]
       // in TMA's 128-byte swizzle, once the last tile's stores have read it
@@ -425,43 +525,66 @@ __global__ void __launch_bounds__(kThreads, 1)
         bulk_commit();
       }
       ++e;
-    } else {
-      TOut* C = static_cast<TOut*>(a.C) + ((size_t)w.split * a.towers + w.tower) * (size_t)a.M * a.N;
-      if (!kRagged || (a.N % 2 == 0 && w.n0 + kBN <= a.N)) {
+    } else if constexpr (Cfg::kStaged4) {
+      // A 4-byte output (fp32 or int32, stored as it is): per warpgroup,
+      // groups of kChunks4 32-column chunks of [64 rows][128 bytes] in TMA's
+      // 128-byte swizzle (a warp's pairs land two wavefronts, conflict
+      // free), each group once the group before has been read, then out by
+      // TMA.  8-byte pair e of lane l's 8-column block j sits at byte 32 (j %
+      // 4) + 8 (l % 4) of its row in chunk j / 4.
+      const uint32_t out = ring + kStages * kStageBytes + wg * (kChunks4 * kChunk4);
+      unsigned char* out_ptr = smem_raw + (out - smem_addr(smem_raw));
+      const bool leader = tid % 128 == 0;
+      const int z = w.split * a.towers + w.tower;
+#pragma unroll
+      for (int q = 0; q < kBN / (32 * kChunks4); ++q) {
+        if (leader) bulk_wait<true>();
+        named_barrier(1 + wg, 128);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int m = row + 8 * h;
-          if (m >= a.M) continue;
+          const int rr = r + 8 * h;
 #pragma unroll
-          for (int j = 0; j < kBN / 8; ++j) {
-            gemm_store<kOps, TOut>(C, resid, bias, a.N, m, w.n0 + 8 * j + 2 * (lane % 4), d[4 * j + 2 * h],
-                                   d[4 * j + 2 * h + 1]);
+          for (int jj = 0; jj < 4 * kChunks4; ++jj) {
+            const int j = q * 4 * kChunks4 + jj, u = 2 * (jj % 4) + (lane % 4) / 2;
+            unsigned char* p = out_ptr + (jj / 4) * kChunk4 + rr * kSwizzleRow + ((u ^ (rr % 8)) * 16) + 8 * (lane % 2);
+            if constexpr (kS8) *reinterpret_cast<int2*>(p) = make_int2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+            else *reinterpret_cast<float2*>(p) = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
           }
         }
-      } else {
-        // A ragged column tile or an odd N (kRagged: fp32, kOpNone): columns
-        // past N are not stored, and an odd N's rows are only 4-byte
-        // aligned, so it stores each value alone rather than in pairs.
+        fence_proxy_async();
+        named_barrier(1 + wg, 128);
+        if (leader) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = row + 8 * h;
-          if (m >= a.M) continue;
+          for (int c = 0; c < kChunks4; ++c) {
+            tma_store(&map_c, out + c * kChunk4, w.n0 + 32 * (q * kChunks4 + c), w.m0 + wg * 64, z);
+          }
+          bulk_commit();
+        }
+      }
+    } else {
+      // Ragged columns (kRagged: fp32, no epilogue), from the accumulators:
+      // columns past N are not stored, and an odd N's rows are only 4-byte
+      // aligned, so it stores each value alone rather than in pairs.
+      TOut* C = static_cast<TOut*>(a.C) + ((size_t)w.split * a.towers + w.tower) * (size_t)a.M * a.N;
 #pragma unroll
-          for (int j = 0; j < kBN / 8; ++j) {
-            const int n = w.n0 + 8 * j + 2 * (lane % 4);
-            TOut* dst = C + (size_t)m * a.N + n;
-            if (a.N % 2 == 0) {
-              if (n < a.N) store_pair<TOut>(dst, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
-            } else {
-              if (n < a.N) dst[0] = d[4 * j + 2 * h];
-              if (n + 1 < a.N) dst[1] = d[4 * j + 2 * h + 1];
-            }
+      for (int h = 0; h < 2; ++h) {
+        const int m = w.m0 + wg * 64 + r + 8 * h;
+        if (m >= a.M) continue;
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j) {
+          const int n = w.n0 + 8 * j + 2 * (lane % 4);
+          TOut* dst = C + (size_t)m * a.N + n;
+          if (a.N % 2 == 0) {
+            if (n < a.N) store_pair<TOut>(dst, d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+          } else {
+            if (n < a.N) dst[0] = d[4 * j + 2 * h];
+            if (n + 1 < a.N) dst[1] = d[4 * j + 2 * h + 1];
           }
         }
       }
     }
   }
-  if (Cfg::kStaged && tid % 128 == 0) bulk_wait<false>();
+  if ((Cfg::kStaged || Cfg::kStaged4) && tid % 128 == 0) bulk_wait<false>();
 }
 
 // ---------------------------------------------------------------------------
@@ -489,18 +612,30 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A bf16 tensor [z][rows][inner] (inner contiguous) cut in boxes of
-// box_rows x 64, 128-byte swizzle, zeros out of bounds.
+// The tensor-map type of an element.  TMA has no signed 8-bit type; it
+// moves bytes, so int8 travels as UINT8.
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return std::is_same<T, bf16>::value    ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+         : std::is_same<T, float>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<T, int>::value   ? CU_TENSOR_MAP_DATA_TYPE_INT32
+                                         : CU_TENSOR_MAP_DATA_TYPE_UINT8;
+}
+
+// A tensor [z][rows][inner] of T (bf16, int8, or a staged fp32 / int32
+// output; inner contiguous) cut in boxes of box_rows x one 128-byte swizzle
+// row, zeros out of bounds.
+template <typename T>
 inline cudaError_t tensor_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t rows, uint64_t z,
                               uint32_t box_rows) {
   const TensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {inner, rows, z};
-  const cuuint64_t strides[2] = {inner * sizeof(bf16), inner * rows * sizeof(bf16)};
-  const cuuint32_t box[3] = {(cuuint32_t)kBK, box_rows, 1};
+  const cuuint64_t strides[2] = {inner * sizeof(T), inner * rows * sizeof(T)};
+  const cuuint32_t box[3] = {(cuuint32_t)kTileK<T>, box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = encode(map, tma_type<T>(), 3, const_cast<void*>(base), dims, strides, box, elem_strides,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -532,36 +667,43 @@ inline Product product(const void* A, const void* B, void* C, int M, int N, int 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // Whether the kernel tiles the product: N a multiple of 128 (any N >= 1
-// with kRagged), every contiguous extent a multiple of 8 (16-byte rows for
-// TMA), the chunks of a split contraction multiples of the k-tile, the tile
-// count within an int.
-template <bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged>
+// with kRagged), every contiguous extent 16-byte rows for TMA (a multiple
+// of 8 bf16 or 16 int8), the chunks of a split contraction multiples of the
+// k-tile, the tile count within an int.
+template <bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged, typename TIn>
 bool tiles(const Product& p) {
-  return p.M >= 1 && p.K >= 1 && p.N >= 1 && (p.N % 128 == 0 || kRagged) && (kAMN ? p.M : p.K) % 8 == 0 &&
-         (kBMN ? p.N : p.K) % 8 == 0 && p.k_chunk >= 1 && (p.splits == 1 || p.k_chunk % kBK == 0) &&
+  constexpr int kRow = 16 / (int)sizeof(TIn);
+  return p.M >= 1 && p.K >= 1 && p.N >= 1 && (p.N % 128 == 0 || kRagged) && (kAMN ? p.M : p.K) % kRow == 0 &&
+         (kBMN ? p.N : p.K) % kRow == 0 && p.k_chunk >= 1 && (p.splits == 1 || p.k_chunk % kTileK<TIn> == 0) &&
          (long long)((p.N + 127) / 128) * ((p.M + kBM - 1) / kBM) * p.towers * p.splits < (1LL << 31) &&
-         aligned16(p.A) && aligned16(p.B);
+         aligned16(p.A) && aligned16(p.B) && (!Tile<128, TOut, kRagged>::kStaged4 || aligned16(p.C));
 }
 
-template <int kBN, bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged>
+template <int kBN, bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged, typename TIn>
 cudaError_t launch_tile(const Product& p, cudaStream_t st) {
-  using Cfg = Tile<kBN, TOut>;
+  using Cfg = Tile<kBN, TOut, kRagged>;
+  constexpr int kBKe = kTileK<TIn>;
   CUtensorMap map_a, map_b, map_c{}, map_r{};
-  cudaError_t err = kAMN ? tensor_map(&map_a, p.A, p.M, p.K, p.a_z, kBK) : tensor_map(&map_a, p.A, p.K, p.M, p.a_z, kBM);
+  cudaError_t err = kAMN ? tensor_map<TIn>(&map_a, p.A, p.M, p.K, p.a_z, kBKe)
+                         : tensor_map<TIn>(&map_a, p.A, p.K, p.M, p.a_z, kBM);
   if (err != cudaSuccess) return err;
-  err = kBMN ? tensor_map(&map_b, p.B, p.N, p.K, p.b_z, kBK) : tensor_map(&map_b, p.B, p.K, p.N, p.b_z, kBN);
+  err = kBMN ? tensor_map<TIn>(&map_b, p.B, p.N, p.K, p.b_z, kBKe) : tensor_map<TIn>(&map_b, p.B, p.K, p.N, p.b_z, kBN);
   if (err != cudaSuccess) return err;
   if (Cfg::kStaged) {  // C [towers * splits][M][N], stored in 64 x 64 boxes
-    err = tensor_map(&map_c, p.C, p.N, p.M, (uint64_t)p.towers * p.splits, 64);
+    err = tensor_map<bf16>(&map_c, p.C, p.N, p.M, (uint64_t)p.towers * p.splits, 64);
     if (err != cudaSuccess) return err;
     if (kOps & kOpResid) {  // the residual [M][N], read in the same boxes
-      err = tensor_map(&map_r, p.resid, p.N, p.M, 1, 64);
+      err = tensor_map<bf16>(&map_r, p.resid, p.N, p.M, 1, 64);
       if (err != cudaSuccess) return err;
     }
   }
+  if (Cfg::kStaged4) {  // C [towers * splits][M][N], stored in 64-row x 32-column boxes
+    err = tensor_map<TOut>(&map_c, p.C, p.N, p.M, (uint64_t)p.towers * p.splits, 64);
+    if (err != cudaSuccess) return err;
+  }
   const Args a{p.M, p.N, p.K, p.towers, p.nseg, p.splits, p.k_chunk, p.a_seg, p.a_tower, p.b_seg, p.b_tower,
                p.C, p.bias, p.resid};
-  auto kernel = gemm_sm90_kernel<kBN, kAMN, kBMN, kOps, TOut, kRagged>;
+  auto kernel = gemm_sm90_kernel<kBN, kAMN, kBMN, kOps, TOut, kRagged, TIn>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::kSmemBytes);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
@@ -583,12 +725,12 @@ inline int tile_n(int N) {
   return N % 256 == 0 ? 256 : 128;
 }
 
-template <bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged = false>
+template <bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged = false, typename TIn = bf16>
 cudaError_t launch(const Product& p, cudaStream_t st) {
   static_assert(!kRagged || (sizeof(TOut) == 4 && kOps == kOpNone), "a ragged N takes an fp32 output alone");
-  if (!tiles<kAMN, kBMN, kOps, TOut, kRagged>(p)) return cudaErrorInvalidValue;
-  return tile_n(p.N) == 256 ? launch_tile<256, kAMN, kBMN, kOps, TOut, kRagged>(p, st)
-                            : launch_tile<128, kAMN, kBMN, kOps, TOut, kRagged>(p, st);
+  if (!tiles<kAMN, kBMN, kOps, TOut, kRagged, TIn>(p)) return cudaErrorInvalidValue;
+  return tile_n(p.N) == 256 ? launch_tile<256, kAMN, kBMN, kOps, TOut, kRagged, TIn>(p, st)
+                            : launch_tile<128, kAMN, kBMN, kOps, TOut, kRagged, TIn>(p, st);
 }
 
 // G1: qkv[t] = T(y @ Wqkv[t] + bqkv[t]); y [M, D], Wqkv [3, D, D] held
@@ -635,6 +777,7 @@ inline int weight_grad_chunk(int M, int D) {
     }
   }
   const int chunk = (M + best - 1) / best;
+  constexpr int kBK = kTileK<bf16>;
   return std::max(256, (chunk + kBK - 1) / kBK * kBK);
 }
 inline int weight_grad_splits(int M, int D) {
@@ -662,6 +805,26 @@ inline cudaError_t input_grad(const bf16* d, const bf16* wqkv, float* dY, int M,
   Product p = product(d, wqkv, dY, M, D, D);
   p.nseg = 3; p.a_z = 3; p.a_seg = 1; p.b_z = 3; p.b_seg = 1;
   return launch<false, false, kOpNone, float>(p, st);
+}
+
+// B4's fc: h_pre = T(y @ W1 + b1); y [M, D], W1 [D, Hd] held [K, N].  G1's
+// instantiation over one tower.
+inline cudaError_t mlp_fc(const bf16* y, const bf16* w1, const float* b1, bf16* h_pre, int M, int D, int Hd,
+                          cudaStream_t st) {
+  Product p = product(y, w1, h_pre, M, Hd, D);
+  p.bias = b1;
+  return launch<false, true, kOpBias, bf16>(p, st);
+}
+
+// B4's proj: out = T(x + (h @ W2 + b2)); h [M, Hd], W2 [Hd, D] held [K, N].
+// The bias first, then the residual (kOpResidLast): the MLP's order, not
+// G2's (x + acc) + b.
+inline cudaError_t mlp_proj(const bf16* h, const bf16* w2, const float* b2, const bf16* x, bf16* out, int M, int D,
+                            int Hd, cudaStream_t st) {
+  Product p = product(h, w2, out, M, D, Hd);
+  p.bias = b2;
+  p.resid = x;
+  return launch<false, true, kOpBias | kOpResid | kOpResidLast, bf16>(p, st);
 }
 
 }  // namespace sm90

@@ -81,6 +81,14 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def check_out(what: str, out, shape, dtype, device) -> None:
+    """Raise ``ValueError`` unless ``out`` is None or a contiguous ``dtype``
+    tensor of ``shape`` on ``device``: a kernel writes into it."""
+    if out is not None and (tuple(out.shape) != tuple(shape) or out.dtype != dtype or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(f"{what} must be a contiguous {dtype} {list(shape)} on {device}")
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise with CUDA's message when a C entry point returned an error."""
     if code != 0:

@@ -1,10 +1,11 @@
 """The attention block's five bf16 products (G1-G5), each on its own.
 
-``csrc/gemm_sm90.cuh`` is the GEMM the attention-block kernels run in bf16:
-TMA loads into a ring of shared-memory stages, ``wgmma`` products, fp32
-accumulate, the epilogue of ``common.cuh``'s ``gemm_store``.  B1 and B3
-(``csrc/attention_block.cu``) launch G1 and G2, B2
-(``csrc/attention_block_bwd.cu``) G3, G4 and G5.  This module exposes the
+``csrc/gemm_sm90.cuh`` is the GEMM the package's kernels run in bf16 (and
+the probe T1 in int8): TMA loads into a ring of shared-memory stages,
+``wgmma`` products, fp32 accumulate, the epilogue of ``common.cuh``'s
+``gemm_store``.  B1 and B3 (``csrc/attention_block.cu``) launch G1 and G2,
+B2 (``csrc/attention_block_bwd.cu``) G3, G4 and G5; B4
+(``csrc/mlp_block.cu``) its own two.  This module exposes the
 products alone (``csrc/gemm_sm90.cu``), so that each can be held against its
 plain version and timed; the main path reaches them only through the
 attention-block ops.

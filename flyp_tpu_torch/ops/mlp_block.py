@@ -1,15 +1,18 @@
 """Fused pre-LN MLP block: ``x + c_proj(quick_gelu(c_fc(LN(x))))`` (B4).
 
 Counterpart of ``flyp_tpu/ops/mlp_block.py``.  The forward is the CUDA
-kernel of ``csrc/mlp_block.cu`` on the card (two launches of the GEMM in
-``csrc/common.cuh``: the LN-fused ``c_fc`` writing the pre-activation
-``h_pre``, then ``c_proj`` reading ``quick_gelu(h_pre)`` through its operand
-prologue with a ``+b2 +x`` epilogue), the plain version on the CPU.  It
-rounds where the TPU kernel rounds:
+kernel of ``csrc/mlp_block.cu`` on the card, the plain version on the CPU.
+In bf16 it is four launches: LN once per row into scratch ``y``; ``c_fc``
+on ``csrc/gemm_sm90.cuh`` (TMA + ``wgmma``) with a ``+b1`` epilogue,
+writing the pre-activation ``h_pre``; ``h = quick_gelu(h_pre)`` of the
+rounded ``h_pre`` into scratch; ``c_proj`` on the same GEMM over ``h`` with
+a ``+b2 +x`` epilogue.  fp32 runs ``common.cuh``'s FMA GEMM twice, LN and
+the GELU in its operand prologues.  It rounds where the TPU kernel
+rounds:
 
     y     = T(LN(x))                     fp32 LN
     h_pre = T(y @ W1 + b1)               fp32 accumulate, fp32 bias
-    h     = T(h_pre * sigmoid(1.702 h_pre))   in fp32
+    h     = T(h_pre * sigmoid(1.702 h_pre))   in fp32, of the rounded h_pre
     out   = T(x + (h @ W2 + b2))          fp32
 
 The forward keeps ``h_pre`` (in the compute type) for the backward, which is
@@ -32,13 +35,19 @@ def _quick_gelu32(h32):
     return h32 * torch.sigmoid(1.702 * h32)
 
 
+def mlp_hidden(h_pre):
+    """``h = T(quick_gelu(fp32(h_pre)))``: the hidden activations the
+    forward computes from its rounded pre-activation."""
+    return _quick_gelu32(h_pre.float()).to(h_pre.dtype)
+
+
 def mlp_block_reference(x, ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias):
     """Plain version of the forward kernel -> ``(out, h_pre)``."""
     dtype = x.dtype
     _, _, y32 = _layer_norm(x.float(), ln_scale, ln_bias)
     y = y32.to(dtype).float()
     h_pre = (torch.matmul(y, fc_kernel.to(dtype).float()) + fc_bias.float()).to(dtype)
-    h = _quick_gelu32(h_pre.float()).to(dtype)
+    h = mlp_hidden(h_pre)
     proj = torch.matmul(h.float(), proj_kernel.to(dtype).float()) + proj_bias.float()
     return (x.float() + proj).to(dtype), h_pre
 
@@ -86,12 +95,17 @@ def mlp_block_backward(g, x, ln_scale, ln_bias, fc_kernel, proj_kernel, h_pre):
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _kernels.load("mlp_block")
-    lib.flyp_mlp_block_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.flyp_mlp_block_fwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.flyp_mlp_block_fwd.restype = ctypes.c_int
     return lib
 
 
-def _kernel_forward(x, ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias):
+def _kernel_forward(x, ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_bias, *, out=None, h_pre=None,
+                    hidden=None):
+    """The kernel -> ``(out, h_pre)``.  ``out``, ``h_pre`` and, in bf16,
+    ``hidden`` (which then receives ``h``, the transient the kernel keeps in
+    device memory for its second product) are optional contiguous
+    outputs."""
     if x.dim() != 3 or x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the MLP-block kernel takes float32 or bfloat16 [B, L, D], got {x.dtype} {tuple(x.shape)}")
     B, L, D = x.shape
@@ -107,17 +121,27 @@ def _kernel_forward(x, ln_scale, ln_bias, fc_kernel, fc_bias, proj_kernel, proj_
         raise ValueError(f"the MLP-block kernel needs D and the hidden width multiples of 128; got D={D}, "
                          f"hidden={Hd}, B*L={B * L}")
     dtype = x.dtype
+    if hidden is not None and dtype != torch.bfloat16:
+        raise ValueError("the MLP-block kernel keeps h in device memory in bfloat16 only")
+    for name, t, shape in (("out", out, (B, L, D)), ("h_pre", h_pre, (B, L, Hd)), ("hidden", hidden, (B, L, Hd))):
+        _kernels.check_out(f"the MLP-block kernel's {name}", t, shape, dtype, x.device)
     x = x.contiguous()
     f32 = [t.detach().to(torch.float32).contiguous() for t in (ln_scale, ln_bias, fc_bias, proj_bias)]
     w1 = fc_kernel.detach().to(dtype).contiguous()
     w2 = proj_kernel.detach().to(dtype).contiguous()
-    out = torch.empty_like(x)
-    h_pre = torch.empty((B, L, Hd), dtype=dtype, device=x.device)
+    out = torch.empty_like(x) if out is None else out
+    h_pre = torch.empty((B, L, Hd), dtype=dtype, device=x.device) if h_pre is None else h_pre
+    y = h = None
+    if dtype == torch.bfloat16:  # LN(x) and h, scratch between the three launches
+        y = torch.empty((B, L, D), dtype=dtype, device=x.device)
+        h = torch.empty((B, L, Hd), dtype=dtype, device=x.device) if hidden is None else hidden
+    ptr = (lambda t: None if t is None else t.data_ptr())
     lib = _lib()
     with torch.cuda.device(x.device):
         code = lib.flyp_mlp_block_fwd(x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), w1.data_ptr(),
                                       f32[2].data_ptr(), w2.data_ptr(), f32[3].data_ptr(), out.data_ptr(),
-                                      h_pre.data_ptr(), B * L, D, Hd, _DTYPE_CODES[dtype], _stream(x.device))
+                                      h_pre.data_ptr(), ptr(y), ptr(h), B * L, D, Hd, _DTYPE_CODES[dtype],
+                                      _stream(x.device))
     _kernels.check(lib, code, "MLP-block kernel launch")
     mlp_block.fwd_launches += 1
     return out, h_pre

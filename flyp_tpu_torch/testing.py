@@ -1,7 +1,8 @@
 """Tolerances that hold the attention kernels (B5, B6) to their plain
 versions, the bf16 probe GEMM (T1) and the fp32 products of the attention
-block's GEMM (G4, G5) to the exact product, and its bf16 products (G1-G3)
-to their plain versions' rounding.
+block's GEMM (G4, G5) to the exact product, its bf16 products (G1-G3) to
+their plain versions' rounding, and the MLP block's hidden activations
+(B4's ``h``) to the GELU of its own ``h_pre`` (:func:`check_mlp_hidden`).
 
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` use :func:`check_attention`
 on the forward's ``o`` and on each of ``dq``, ``dk``, ``dv``.  Kernel and
@@ -184,3 +185,40 @@ def backward_delta_from_o(q, k, v, do, causal: bool = False):
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(dtype)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(dtype)
     return dq, dk, dv
+
+
+def check_mlp_hidden(h, h_pre, where=None) -> dict:
+    """Hold ``h``, the hidden activations the bf16 B4 kernel keeps in device
+    memory for its second product, to ``T(quick_gelu(fp32(h_pre)))``
+    computed from the kernel's own ``h_pre``: equal in at least 99.9% of elements (an fp32 GELU whose last
+    bit differs from PyTorch's may flip a rounding, rarely), and within one
+    ulp of the type everywhere.  A GELU taken of the fp32 sum before it is
+    rounded to ``h_pre`` (:func:`mlp_hidden_from_unrounded`) moves a large
+    share of the elements by an ulp and fails the first bound; a wrong
+    element, or one left unwritten (non-finite), fails the second.  Returns
+    the share of elements unequal and the largest error in ulps."""
+    from flyp_tpu_torch.ops.mlp_block import mlp_hidden
+
+    ref = mlp_hidden(h_pre).float()
+    got = h.float()
+    mag = torch.maximum(got.abs(), ref.abs())
+    _, exp = torch.frexp(mag)
+    ulp = torch.ldexp(torch.full_like(mag, torch.finfo(h.dtype).eps), exp - 1)  # of |v| = m 2^exp, m in [0.5, 1)
+    errs = {"unequal_share": float((got != ref).float().mean()),
+            "max_ulps": float(((got - ref).abs() / ulp).max()) if got.numel() else 0.0}
+    if not bool(torch.isfinite(got).all()) or errs["unequal_share"] > 1e-3 or errs["max_ulps"] > 1.0:
+        raise AssertionError(f"B4's h is not the GELU of its own h_pre at {where}: {errs}")
+    return errs
+
+
+def mlp_hidden_from_unrounded(x, ln_scale, ln_bias, fc_kernel, fc_bias):
+    """A planted fault: B4's ``h = T(quick_gelu(y W1 + b1))`` taken of the
+    fp32 sum, where the op (and the TPU kernel) rounds it to ``h_pre``
+    first."""
+    from flyp_tpu_torch.ops.attention_block import _layer_norm
+    from flyp_tpu_torch.ops.mlp_block import _quick_gelu32
+
+    dtype = x.dtype
+    _, _, y32 = _layer_norm(x.float(), ln_scale, ln_bias)
+    hpre32 = torch.matmul(y32.to(dtype).float(), fc_kernel.to(dtype).float()) + fc_bias.float()
+    return _quick_gelu32(hpre32).to(dtype)

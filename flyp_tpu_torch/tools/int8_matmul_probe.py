@@ -11,9 +11,9 @@ cheapest scheme) eats:
   ``torch._int_mm`` for int8, and the dynamic-quant recipe around it), the
   counterparts of the JAX tool's XLA ``dot``s;
 * ``main_pallas``: the package's own probe GEMM (T1, ``csrc/probe_gemm.cu``:
-  one tile design on ``mma.sync`` for both types, bf16 into fp32 and int8 into
-  int32), at the best (qkv) and worst (out-proj) serving shapes and one
-  large square, the ceiling.
+  one design on ``csrc/gemm_sm90.cuh``'s TMA + ``wgmma`` pipeline for both
+  types, bf16 into fp32 and int8 into int32), at the best (qkv) and worst
+  (out-proj) serving shapes and one large square, the ceiling.
 
 Rates are effective TOP/s = 2*M*N*K / time, so bf16 and int8 columns are
 directly comparable.  ``--device cpu`` runs the plain versions: a functional
@@ -39,7 +39,9 @@ from flyp_tpu_torch.tools._timing import integers, normal, time_call
 
 ITERS = 50
 SEQ = 208  # ViT-B/16's 197 tokens padded to 16
-# (operand type, output type) -> (kernel, contraction multiple of its k-tile)
+# (operand type, output type) -> (kernel, contraction multiple): the TPU
+# probe's block depths, kept as the op's contract (the kernel takes any
+# multiple of 8 bf16 or 16 int8).
 _KINDS = {(torch.bfloat16, torch.float32): ("bf16", 32), (torch.int8, torch.int32): ("int8", 64)}
 _TILE_N = 128
 _MAX_M = 65535 * 128
@@ -66,15 +68,7 @@ def check_shape(M: int, K: int, N: int, kind: str) -> None:
     if N < _TILE_N or N % _TILE_N:
         raise ValueError(f"probe_mm: N={N} is not a multiple of {_TILE_N}, the kernel's output tile width")
     if K < depth or K % depth:
-        raise ValueError(f"probe_mm: K={K} is not a multiple of {depth}, the {kind} kernel's k-tile")
-
-
-def check_out(name, out, shape, dtype, device):
-    """Raise ``ValueError`` unless ``out`` is None or a contiguous ``dtype``
-    tensor of ``shape`` on ``device``: the probes' kernels write into it."""
-    if out is not None and (tuple(out.shape) != tuple(shape) or out.dtype != dtype or out.device != device
-                            or not out.is_contiguous()):
-        raise ValueError(f"{name}: out must be a contiguous {dtype} {list(shape)} on {device}")
+        raise ValueError(f"probe_mm: K={K} is not a multiple of {depth}, the {kind} probe's block depth")
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,8 +76,9 @@ def probe_gemm_lib() -> ctypes.CDLL:
     """``csrc/probe_gemm.cu``, built and bound once: T1's two entry points
     and T3's (``mfu_levers.row_gemm``)."""
     lib = _kernels.load("probe_gemm")
+    lib.flyp_probe_mm_bf16.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.flyp_probe_mm_int8.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     for fn in (lib.flyp_probe_mm_bf16, lib.flyp_probe_mm_int8):
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.flyp_row_gemm.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.flyp_row_gemm.restype = ctypes.c_int
@@ -95,7 +90,8 @@ def probe_mm(a, b, out_dtype, out=None):
     the full depth.  ``out`` (optional, contiguous, of the output type) takes
     the result.  A CUDA tensor launches the kernel; a CPU tensor takes the
     plain version.  Shapes the kernel cannot tile raise ``ValueError`` on
-    both devices."""
+    both devices.  int8 transposes ``b`` into a ``[N, K]`` scratch inside the
+    call (``wgmma`` takes 8-bit operands K-major only)."""
     kind = _KINDS.get((a.dtype, out_dtype), (None,))[0]
     if kind is None or b.dtype != a.dtype:
         raise TypeError(f"probe_mm takes bfloat16 -> float32 or int8 -> int32, got {a.dtype}, {b.dtype} -> {out_dtype}")
@@ -103,7 +99,7 @@ def probe_mm(a, b, out_dtype, out=None):
         raise ValueError(f"probe_mm: a [M, K] and b [K, N], got {tuple(a.shape)} and {tuple(b.shape)}")
     (M, K), N = a.shape, b.shape[1]
     check_shape(M, K, N, kind)
-    check_out("probe_mm", out, (M, N), out_dtype, a.device)
+    _kernels.check_out("probe_mm: out", out, (M, N), out_dtype, a.device)
     if b.device != a.device:
         raise ValueError(f"probe_mm: b is on {b.device}, a on {a.device}")
     if not _device_route(a, "probe_mm"):
@@ -113,9 +109,13 @@ def probe_mm(a, b, out_dtype, out=None):
     if out is None:
         out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     lib = probe_gemm_lib()
-    fn = lib.flyp_probe_mm_bf16 if kind == "bf16" else lib.flyp_probe_mm_int8
     with torch.cuda.device(a.device):
-        code = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, _stream(a.device))
+        if kind == "bf16":
+            code = lib.flyp_probe_mm_bf16(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N, K, _stream(a.device))
+        else:
+            bt = torch.empty((N, K), dtype=torch.int8, device=a.device)
+            code = lib.flyp_probe_mm_int8(a.data_ptr(), b.data_ptr(), bt.data_ptr(), out.data_ptr(), M, N, K,
+                                          _stream(a.device))
     _kernels.check(lib, code, f"probe GEMM ({kind}) launch")
     if kind == "bf16":
         probe_mm.bf16_launches += 1

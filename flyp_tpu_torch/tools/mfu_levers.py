@@ -54,7 +54,7 @@ from flyp_tpu_torch.models.factory import resolve_device
 from flyp_tpu_torch.ops import _kernels
 from flyp_tpu_torch.ops.attention_block import _DTYPE_CODES, _device_route, _stream
 from flyp_tpu_torch.tools._timing import fetch, normal, time_call
-from flyp_tpu_torch.tools.int8_matmul_probe import check_out, has_out_dtype, probe_gemm_lib
+from flyp_tpu_torch.tools.int8_matmul_probe import has_out_dtype, probe_gemm_lib
 
 ITERS = 30
 ADAMW_ITERS = 20
@@ -106,7 +106,7 @@ def score_depth(q, k, hd, out=None):
         raise ValueError(f"score_depth: B={B} and L={L} must be positive")
     if k.device != q.device:
         raise ValueError(f"score_depth: k is on {k.device}, q on {q.device}")
-    check_out("score_depth", out, (B, L, L), torch.float32, q.device)
+    _kernels.check_out("score_depth: out", out, (B, L, L), torch.float32, q.device)
     if not _device_route(q, "score_depth"):
         res = score_depth_reference(q, k, hd)
         return res if out is None else out.copy_(res)
@@ -163,7 +163,7 @@ def row_gemm(x, w, out=None):
         raise ValueError(f"row_gemm: B={B} and R={R} must be positive, B*R below 2^31")
     if w.device != x.device:
         raise ValueError(f"row_gemm: w is on {w.device}, x on {x.device}")
-    check_out("row_gemm", out, (B, R, N), torch.bfloat16, x.device)
+    _kernels.check_out("row_gemm: out", out, (B, R, N), torch.bfloat16, x.device)
     if not _device_route(x, "row_gemm"):
         res = row_gemm_reference(x, w)
         return res if out is None else out.copy_(res)

@@ -237,7 +237,7 @@ def _mlp_params(B, L, D, seed, card):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4, 197, 768), (4, 77, 512), (3, 13, 128)])
+@pytest.mark.parametrize("shape", [(4, 197, 768), (4, 77, 512), (3, 13, 128), (2, 257, 1024)])
 def test_mlp_block_kernel_matches_plain_on_card(card, shape, dtype):
     """B4: out and h_pre against the plain forward; grads through autograd
     against the plain backward on the plain forward's h_pre (relative norm:
@@ -266,6 +266,35 @@ def test_mlp_block_kernel_matches_plain_on_card(card, shape, dtype):
     norm = 1e-5 if dt == torch.float32 else 1e-2
     for name, a, b in zip(("dx", "dscale", "dbias", "dw1", "db1", "dw2", "db2"), grads, ref_g):
         assert _rel(a, b) < norm, (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("shape", [(4, 197, 768), (4, 77, 512), (2, 257, 1024), (1, 5, 128)])
+def test_mlp_block_hidden_on_card(card, shape):
+    """B4 in bf16 over NaN-poisoned outputs with a guard past each end: h
+    (the transient between its two products) is the GELU of its own h_pre
+    (``check_mlp_hidden``), which the planted fault fails; nothing written
+    past the ends; a second launch bit-equal to the first."""
+    from flyp_tpu_torch.testing import check_mlp_hidden, mlp_hidden_from_unrounded
+
+    B, L, D = shape
+    x, *params = _mlp_params(B, L, D, seed=L + 1, card=card)
+    x = x.to(torch.bfloat16)
+    bufs = {name: _poisoned(s, torch.bfloat16, card) for name, s in
+            (("out", (B, L, D)), ("h_pre", (B, L, 4 * D)), ("hidden", (B, L, 4 * D)))}
+    with torch.no_grad():
+        out, h_pre = tmb._kernel_forward(x, *params, **{n: b[0] for n, b in bufs.items()})
+        torch.cuda.synchronize()
+        ref, ref_h = tmb.mlp_block_reference(x, *params)
+        for name, (_, guard) in bufs.items():
+            assert bool(torch.isnan(guard).all()), name
+        torch.testing.assert_close(h_pre.float(), ref_h.float(), atol=2e-2, rtol=2e-2)
+        torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+        check_mlp_hidden(bufs["hidden"][0], h_pre, shape)
+        with pytest.raises(AssertionError, match="not the GELU"):
+            check_mlp_hidden(mlp_hidden_from_unrounded(x, *params[:4]), h_pre, shape)
+        h2 = torch.empty_like(h_pre)
+        out2, h_pre2 = tmb._kernel_forward(x, *params, hidden=h2)
+    assert torch.equal(out, out2) and torch.equal(h_pre, h_pre2) and torch.equal(bufs["hidden"][0], h2)
 
 
 def _attention_inputs(op, B, L, H, dt, seed, card):
@@ -448,12 +477,14 @@ def test_attention_kernels_refuse_what_they_do_not_take(card):
 # The measurement probes' kernels (T1-T4).
 
 
-@pytest.mark.parametrize("shape", [(1000, 768, 640), (512, 768, 2304), (7, 128, 128), (300, 3072, 256)])
+@pytest.mark.parametrize("shape", [(1000, 768, 640), (512, 768, 2304), (7, 128, 128), (300, 3072, 256),
+                                   (200, 768, 512), (8, 64, 384)])
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 def test_probe_gemm_matches_plain_on_card(card, kind, shape):
-    """T1, its output poisoned before the launch: int8 exactly the int32
-    product; bf16 into fp32 within the block-FMA bound of its exact product
-    (``flyp_tpu_torch.testing.check_gemm``)."""
+    """T1 over a poisoned output with a guard past its end: int8 exactly the
+    int32 product; bf16 into fp32 within the block-FMA bound of its exact
+    product (``flyp_tpu_torch.testing.check_gemm``); nothing written past
+    the end; a second launch bit-equal."""
     from flyp_tpu_torch.testing import check_gemm
     from flyp_tpu_torch.tools import int8_matmul_probe as tip
 
@@ -461,21 +492,29 @@ def test_probe_gemm_matches_plain_on_card(card, kind, shape):
     rng = np.random.default_rng(M)
     if kind == "int8":
         a, b = (torch.from_numpy(rng.integers(-127, 127, s, dtype=np.int8)).to(card) for s in ((M, K), (K, N)))
-        out = torch.full((M, N), torch.iinfo(torch.int32).min, dtype=torch.int32, device=card)
+        sentinel = torch.iinfo(torch.int32).min
+        buf = torch.full((M * N + 4096,), sentinel, dtype=torch.int32, device=card)
+        out, guard = buf[:M * N].view(M, N), buf[M * N:]
         got = tip.probe_mm(a, b, torch.int32, out=out)
         assert torch.equal(got, tip.probe_mm_reference(a, b, torch.int32))
+        assert bool((guard == sentinel).all())
+        assert torch.equal(got, tip.probe_mm(a, b, torch.int32))
     else:
         a, b = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(card).to(torch.bfloat16)
                 for s in ((M, K), (K, N)))
-        out = torch.full((M, N), float("nan"), device=card)
-        check_gemm("T1 bf16", tip.probe_mm(a, b, torch.float32, out=out), a, b, shape)
+        out, guard = _poisoned((M, N), torch.float32, card)
+        got = tip.probe_mm(a, b, torch.float32, out=out)
+        check_gemm("T1 bf16", got, a, b, shape)
+        assert bool(torch.isnan(guard).all())
+        assert torch.equal(got, tip.probe_mm(a, b, torch.float32))
 
 
 def test_probe_gemm_refuses_on_card(card):
     from flyp_tpu_torch.tools import int8_matmul_probe as tip
 
     for (M, K, N), dtype, dim in (((64, 768, 200), torch.int8, "N=200"), ((64, 96, 128), torch.int8, "K=96"),
-                                  ((64, 100, 128), torch.bfloat16, "K=100")):
+                                  ((64, 100, 128), torch.bfloat16, "K=100"), ((0, 768, 128), torch.bfloat16, "M=0"),
+                                  ((64, 48, 128), torch.bfloat16, "K=48")):
         out_dtype = torch.int32 if dtype == torch.int8 else torch.float32
         with pytest.raises(ValueError, match=dim):
             tip.probe_mm(torch.zeros(M, K, dtype=dtype, device=card), torch.zeros(K, N, dtype=dtype, device=card),

@@ -5,9 +5,10 @@ mode and through the port's ops, whose CPU route is the plain PyTorch
 version of each kernel:
 
 * T1: ``tools.int8_matmul_probe._pallas_mm(..., interpret=True)`` at
-  ``tests/test_tools.py``'s shapes (one N that does not divide 512).  int8
-  exactly equal; bf16 into fp32 within rtol 1e-5, atol 1e-4 (fp32 summation
-  order over K=768).
+  ``tests/test_tools.py``'s shapes (one N that does not divide 512) and at
+  two M that are not a multiple of the card kernel's 128-row tile (200 and
+  8).  int8 exactly equal; bf16 into fp32 within rtol 1e-5, atol 1e-4 (fp32
+  summation order over K=768).
 * T2-T4: ``tools/mfu_levers.py`` builds their ``pallas_call``s inside the
   probes at fixed TPU sizes, so these tests build the same ``pallas_call``s
   at small sizes, their kernel bodies copied from the tool;
@@ -43,7 +44,7 @@ from tools.int8_matmul_probe import _pallas_mm
 
 torch.set_num_threads(1)
 
-T1_SHAPES = [(1024, 768, 512), (512, 768, 2304), (512, 768, 768)]
+T1_SHAPES = [(1024, 768, 512), (512, 768, 2304), (512, 768, 768), (200, 768, 512), (8, 768, 128)]
 
 
 # ---------------------------------------------------------------------------
