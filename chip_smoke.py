@@ -5,6 +5,7 @@
     python3 chip_smoke.py --digests            # only the B1-B6 and T1 output digests
     python3 chip_smoke.py --attention-times    # only the attention kernels' device ms
     python3 chip_smoke.py --gemm               # only the five products of gemm_sm90.cuh (G1-G5)
+    python3 chip_smoke.py --input              # only the input pipeline (phase 5b) and a synthetic bench
 
 Phases, each of which raises on failure:
 
@@ -37,6 +38,19 @@ Phases, each of which raises on failure:
    timed over 10 steps with B1/B2/B3 launches checked exactly, a learning
    check, the epoch's end (zero-shot head rebuilt from the trained text
    tower, ``Classifier`` top-1) and a profile of one step;
+5b. the training input pipeline, on the same route: a seeded corpus on disk
+   (512 PNG and ``.npy`` sources of 256-512 px, the committed JPEG
+   fixtures, 14 batches of 256 caption rows, three tar shards) read through
+   ``parse_arguments`` -> ``training/data.py::train_loader`` (native
+   decode and transform, ``--workers 6``) -> ``device_iter`` (bf16 host
+   cast, the pinned ring, a copy stream); the loader's img/s at 6 workers
+   and at every core, native ms per image, collate/cast/H2D ms per batch;
+   every batch of an epoch through the ring bit-equal to an independent
+   host pass (twice: from the live loader and from host batches in memory,
+   the consumer running matmuls between batches), the mid-epoch
+   fast-forward's batch equal; 13 full-width steps fed from disk beside the
+   synthetic rate, B1/B2 launches exact, and one profiled fed step; 2 steps
+   fed from the tar shards with the sample accounting exact;
 6. the MLP block (B4), fused-QKV attention (B5, forward and backward) and
    whole-row attention (B6, forward and backward) against their plain
    versions (B=64 in fp32 and bf16 at vision L=197 and text L=77, the
@@ -74,7 +88,8 @@ Phases, each of which raises on failure:
    at batch 256, every ``mfu_levers`` probe, the head rebuild at 100
    classes), each kernel's launches counted exactly.
 
-The products' numbers are a JSON line of their own (``"gemm"``); the line
+The products' numbers are a JSON line of their own (``"gemm"``), the input
+pipeline's too (``"input"``); the line
 before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -90,6 +105,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -479,8 +495,6 @@ def cosine(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def phase_serving(tmp: str, card: str) -> dict:
-    from types import SimpleNamespace
-
     t0 = time.perf_counter()
     cfg = SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="float32", seed=0)
     cpu_model = build_clip_model(cfg, device="cpu")
@@ -725,8 +739,6 @@ def step_check(cfg: dict, images, tokens, where: str) -> dict:
 
 
 def phase_training(card: str) -> dict:
-    from types import SimpleNamespace
-
     cfg = {n: SimpleNamespace(model=MODEL, clip_load=None, compute_dtype=n, seed=0) for n in ("float32", "bfloat16")}
     out = {}
 
@@ -813,6 +825,319 @@ def bench_training(model, impl: str, card: str):
         f"{first_loss:.5f} -> {last_loss:.5f}, peak memory {res['peak_mem_gb']:.2f} GiB, launches {launches} "
         f"on {card}")
     return state, step, images, tokens, res
+
+
+# The input phase's corpus: 512 source images with sides of 256-512 px
+# (smooth gradients plus noise, so that they compress as photographs do),
+# most as PNG, 16 as uint8 and 16 as float .npy, plus the committed JPEG
+# fixtures; 14 batches of 256 caption rows over them, two guidance levels;
+# three tar shards of the same images and captions.
+INPUT_SOURCES, INPUT_NPY = 512, 32
+INPUT_BATCH, INPUT_BATCHES = 256, 14
+INPUT_WORKERS = 6  # --workers' default
+INPUT_SHARDS, INPUT_TAR_STEPS = 3, 2
+JPEG_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "torch_data")
+
+
+def png_bytes(arr: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG with zlib alone: filter Up on every row but the first."""
+    import struct
+    import zlib
+
+    h, w, _ = arr.shape
+    rows = arr.reshape(h, w * 3)
+    filtered = rows.copy()
+    filtered[1:] -= rows[:-1]
+    raw = np.hstack([np.full((h, 1), 2, np.uint8), filtered])
+    raw[0, 0] = 0
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def corpus_image(seed: int, i: int) -> np.ndarray:
+    rng = np.random.default_rng([seed, i])
+    h, w = (int(v) for v in rng.integers(256, 513, 2))
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    fx, fy, p = rng.uniform(0.004, 0.04), rng.uniform(0.004, 0.04), rng.uniform(0, 6, 3)
+    base = np.stack([128 + 70 * np.sin(x * fx + p[c]) * np.cos(y * fy + 2 * p[c]) + 50 * (x / w - y / h) * (c - 1)
+                     for c in range(3)], axis=-1)
+    return np.clip(base + rng.normal(0, 6, base.shape), 0, 255).astype(np.uint8)
+
+
+def write_corpus(root: str, seed: int):
+    """(TSV path, tar shard pattern, samples in the shards)."""
+    import io
+    import tarfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flyp_tpu_torch.data.classnames import openai_classnames
+
+    def write(i: int):
+        arr = corpus_image(seed, i)
+        if i < INPUT_NPY:
+            path = os.path.join(root, f"src{i:04d}.npy")
+            np.save(path, arr if i % 2 else arr.astype(np.float32) / 255.0)
+            return path, None
+        path = os.path.join(root, f"src{i:04d}.png")
+        data = png_bytes(arr)
+        with open(path, "wb") as f:
+            f.write(data)
+        return path, data
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        files = list(pool.map(write, range(INPUT_SOURCES)))
+    for name in sorted(os.listdir(JPEG_FIXTURES)):
+        path = os.path.join(JPEG_FIXTURES, name)
+        with open(path, "rb") as f:
+            files.append((path, f.read()))
+    rows = ["title\tfilepath\tlabel\tguidance\timg_id"]
+    captions = []
+    for r in range(INPUT_BATCH * INPUT_BATCHES):
+        label = (7 * r) % len(openai_classnames)
+        captions.append(f"a photo of a {openai_classnames[label]}.")
+        rows.append(f"{captions[-1]}\t{files[r % len(files)][0]}\t{label}\t{(100, 50)[r % 2]}\t{r // 2}")
+    tsv = os.path.join(root, "train.tsv")
+    with open(tsv, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    encoded = [(i, path, data) for i, (path, data) in enumerate(files) if data is not None]
+    sizes = {}
+    for s in range(INPUT_SHARDS):
+        name = f"shard-{s:05d}.tar"
+        members = encoded[s::INPUT_SHARDS]
+        with tarfile.open(os.path.join(root, name), "w") as tf:
+            for i, path, data in members:
+                for ext, body in ((path.rsplit(".", 1)[1], data), ("txt", captions[i].encode())):
+                    info = tarfile.TarInfo(f"{i:06d}.{ext}")
+                    info.size = len(body)
+                    tf.addfile(info, io.BytesIO(body))
+        sizes[name] = len(members)
+    with open(os.path.join(root, "sizes.json"), "w") as f:
+        json.dump(sizes, f)
+    return tsv, os.path.join(root, "shard-{00000..%05d}.tar" % (INPUT_SHARDS - 1)), sum(sizes.values())
+
+
+def batch_digests(batch: dict) -> dict:
+    return {k: digest((v,)) for k, v in sorted(batch.items()) if isinstance(v, torch.Tensor)}
+
+
+def host_digests(batch: dict) -> dict:
+    """What the prefetch must deliver for a host batch: images cast to bf16,
+    tokens cut by ``shrink_context``."""
+    return {"image": digest((torch.from_numpy(batch["image"]).to(torch.bfloat16),)),
+            "tokens": digest((torch.from_numpy(shrink_context(batch["tokens"])),))}
+
+
+def loader_rate(cfg, px: int, workers: int, batches: int = 6) -> dict:
+    """The loader alone at ``workers`` threads: one batch to fill the
+    window, then ``batches`` timed."""
+    import dataclasses
+
+    from flyp_tpu_torch.training.data import train_loader
+
+    it = iter(train_loader(dataclasses.replace(cfg, workers=workers), px))
+    t0 = time.perf_counter()
+    next(it)
+    first = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    dt = time.perf_counter() - t0
+    it.close()
+    return {"workers": workers, "img_s": batches * INPUT_BATCH / dt, "first_batch_s": first}
+
+
+def native_costs(dataset, px: int, n: int = 64) -> dict:
+    """One thread over the first ``n`` PNG rows: ms per image in native
+    decode (file read included) and in the train transform."""
+    from flyp_tpu_torch.data import native_decode
+
+    decode_s = transform_s = 0.0
+    paths = [p for p in dataset.images if p.endswith(".png")][:n]
+    for i, path in enumerate(paths):
+        t0 = time.perf_counter()
+        with open(path, "rb") as f:
+            rgb = native_decode.decode(f.read())
+        t1 = time.perf_counter()
+        native_decode.train_transform_from_rgb(rgb, px, np.random.default_rng(i))
+        decode_s += t1 - t0
+        transform_s += time.perf_counter() - t1
+    n = len(paths)
+    return {"images": n, "decode_ms": decode_s / n * 1e3, "transform_ms": transform_s / n * 1e3}
+
+
+def batch_costs(batch: dict) -> dict:
+    """ms per batch of 256: collate (``np.stack`` of the samples), the bf16
+    cast into pinned memory, and the copy to the card (CUDA events)."""
+    from flyp_tpu_torch.data.loader import _collate
+
+    samples = [{k: v[i] for k, v in batch.items()} for i in range(len(batch["image"]))]
+    t0 = time.perf_counter()
+    collated = _collate(samples)
+    collate_ms = (time.perf_counter() - t0) * 1e3
+    host = torch.from_numpy(collated["image"])
+    pinned = torch.empty(host.shape, dtype=torch.bfloat16, pin_memory=True)
+    t0 = time.perf_counter()
+    pinned.copy_(host)
+    cast_ms = (time.perf_counter() - t0) * 1e3
+    h2d_ms = cuda_ms(lambda: pinned.to("cuda", non_blocking=True), iters=5, warmup=1)
+    return {"collate_ms": collate_ms, "cast_ms": cast_ms, "h2d_ms": h2d_ms,
+            "h2d_gb_s": pinned.numel() * 2 / h2d_ms / 1e6}
+
+
+def ring_check(source, host: list, where: str) -> int:
+    """Every batch of ``source`` through the pinned ring at size 2, the
+    consumer running a large matmul first each time and cloning the batch
+    behind it on its stream before dropping it (so the copies race the
+    compute, and a slot refilled early or memory reused before the consumer
+    read it shows), held bit for bit to the independent host pass."""
+    from flyp_tpu_torch.data.loader import prefetch_to_device
+
+    a = torch.randn(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    kept = []
+    refills = prefetch_to_device.slot_refills
+    for batch in prefetch_to_device(source, "cuda", size=2, image_dtype=torch.bfloat16):
+        for _ in range(64):  # ~0.1 s of the consumer's stream, longer than staging a batch
+            a = (a @ a).clamp_(-1, 1)
+        kept.append({k: v.clone() for k, v in batch.items() if isinstance(v, torch.Tensor)})
+        del batch
+    torch.cuda.synchronize()
+    got = [batch_digests(b) for b in kept]
+    if got != host:
+        bad = [n for n, (g, h) in enumerate(zip(got, host)) if g != h]
+        raise AssertionError(f"{where}: device batches differ from the host pass at {bad} of {len(host)}")
+    return prefetch_to_device.slot_refills - refills
+
+
+def phase_input(card: str, synthetic_img_s: float, seed: int = 0) -> dict:
+    """The training input pipeline at full width: parser -> CSV (and tar
+    shard) loader -> native decode and transform -> bf16 host cast -> the
+    pinned ring -> the default route's train step."""
+    from flyp_tpu_torch.config import parse_arguments
+    from flyp_tpu_torch.data import native_decode
+    from flyp_tpu_torch.data.webdataset import WebDatasetLoader
+    from flyp_tpu_torch.training.data import device_iter, train_loader
+
+    t_phase = time.perf_counter()
+    px, layers_v, layers_t = model_shape()
+    per_step = layers_v + layers_t
+    native_decode.load()  # available() or NativeCompileError with g++'s message
+    out = {"codecs": native_decode.codecs(), "nproc": os.cpu_count()}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        tsv, shards, n_tar = write_corpus(root, seed)
+        out["corpus_s"] = time.perf_counter() - t0
+        argv = ["--ft_data", tsv, "--batch-size", str(INPUT_BATCH), "--data_backend", "native", "--workers",
+                str(INPUT_WORKERS), "--model", MODEL, "--seed", str(seed)]
+        cfg = parse_arguments(argv)
+        loader = train_loader(cfg, px)
+        if len(loader) != INPUT_BATCHES:
+            raise AssertionError(f"the loader has {len(loader)} batches, expected {INPUT_BATCHES}")
+        log(f"input: corpus of {INPUT_SOURCES} sources + JPEG fixtures, {len(loader.dataset)} rows, {n_tar} tar "
+            f"samples in {out['corpus_s']:.1f} s; codecs {out['codecs']}, {out['nproc']} host cores")
+
+        # The independent host pass (it also warms the tokenizer's
+        # cache and the page cache for the timings after it).
+        loader.set_epoch(0)
+        host_batches = list(loader)
+        host = [host_digests(b) for b in host_batches]
+        # Host rates.
+        out["rates"] = [loader_rate(cfg, px, w) for w in sorted({INPUT_WORKERS, os.cpu_count() or 1})]
+        out["native"] = native_costs(loader.dataset, px)
+        out["batch"] = batch_costs(host_batches[0])
+        log(f"input: loader {out['rates']}, native {out['native']}, per batch {out['batch']}")
+        # The epoch through the ring, from the live loader and from the
+        # host batches; the fast-forward.
+        loader.set_epoch(0)
+        refills = ring_check(loader, host, "the live loader through the ring")
+        refills += ring_check(host_batches, host, "the host batches through the ring")
+        del host_batches
+        loader.set_epoch(0, start_batch=5)
+        it = device_iter(loader, "cuda", "bfloat16")
+        forward = batch_digests(next(it))
+        it.close()
+        if forward != host[5]:
+            raise AssertionError(f"set_epoch(0, start_batch=5) gave {forward}, batch 5 is {host[5]}")
+        out.update(ring_batches=2 * len(host), ring_refills=refills, fast_forward_equal=True)
+        log(f"input: {2 * len(host)} batches through the pinned ring bit-equal to the host pass ({refills} slot "
+            f"refills); set_epoch(0, start_batch=5) gives batch 5")
+
+        # Full width, fed from disk: 3 warm-up and 10 timed steps (epoch
+        # 1), then one step profiled after 3 more (epoch 2), so that it
+        # waits for the loader as a step in the middle of an epoch does.
+        model = build_clip_model(cfg, device="cuda")
+        opt = make_optimizer(warmup_cosine_lr(1e-5, 500, 10_000), weight_decay=0.1, moment_dtype="bfloat16")
+        state, step = create_train_state(model, opt), make_train_step(model, opt)
+        loader.set_epoch(1)
+        it = device_iter(loader, "cuda", cfg.compute_dtype)
+        reset_counts()
+        # ---- the fed training path: counts start at 0 here ----------------
+        for _ in range(3):
+            batch = next(it)
+            state, metrics = step(state, batch["image"], batch["tokens"])
+        first_loss = float(metrics["loss"])
+        t0 = time.perf_counter()
+        for _ in range(10):
+            batch = next(it)
+            state, metrics = step(state, batch["image"], batch["tokens"])
+        last_loss = float(metrics["loss"])
+        dt = time.perf_counter() - t0
+        launches = counts()
+        # ---- end of the fed training path -----------------------------------
+        it.close()
+        expect_counts("training fed by the loader, 13 steps", B1=13 * per_step, B2=13 * per_step)
+        if not (math.isfinite(first_loss) and math.isfinite(last_loss)):
+            raise AssertionError(f"non-finite loss fed by the loader: {first_loss}, {last_loss}")
+        if batch["image"].dtype != torch.bfloat16 or tuple(batch["image"].shape) != (INPUT_BATCH, px, px, 3):
+            raise AssertionError(f"fed images {batch['image'].dtype} {list(batch['image'].shape)}")
+        loader.set_epoch(2)
+        it = device_iter(loader, "cuda", cfg.compute_dtype)
+        reset_counts()
+        for _ in range(3):
+            batch = next(it)
+            state, _ = step(state, batch["image"], batch["tokens"])
+
+        def fed_step():
+            b = next(it)
+            step(state, b["image"], b["tokens"])
+
+        out["profile"] = device_profile(fed_step, {"B1": B1_KERNELS, "B2": B2_KERNELS})
+        it.close()
+        expect_counts("the profiled fed step and its 3 warm-up steps", B1=4 * per_step, B2=4 * per_step)
+        out.update(fed_img_s=10 * INPUT_BATCH / dt, fed_step_ms=dt / 10 * 1e3, synthetic_img_s=synthetic_img_s,
+                   loss=[first_loss, last_loss], launches=launches)
+        log(f"input: fed from disk, batch {INPUT_BATCH}, bf16: {out['fed_img_s']:.2f} img/s "
+            f"({out['fed_step_ms']:.2f} ms/step; synthetic {synthetic_img_s:.2f}), loss {first_loss:.5f} -> "
+            f"{last_loss:.5f}, busy share {out['profile'].get('busy_share')}, launches {launches} on {card}")
+
+        # Tar shards: two steps, the sample accounting exact.
+        wds_cfg = parse_arguments(["--ft_data", shards, "--train-num-samples", str(INPUT_TAR_STEPS * INPUT_BATCH),
+                                   *argv[2:]])
+        tar_loader = train_loader(wds_cfg, px)
+        if not isinstance(tar_loader, WebDatasetLoader) or len(tar_loader) != INPUT_TAR_STEPS:
+            raise AssertionError(f"tar shards: {type(tar_loader).__name__} of {len(tar_loader)} batches")
+        reset_counts()
+        # ---- the tar-shard training path: counts start at 0 here ------------
+        tar_losses, tar_rows = [], 0
+        for batch in device_iter(tar_loader, "cuda", wds_cfg.compute_dtype):
+            state, metrics = step(state, batch["image"], batch["tokens"])
+            tar_losses.append(float(metrics["loss"]))
+            tar_rows += int(batch["image"].shape[0])
+        launches = counts()
+        # ---- end of the tar-shard training path -----------------------------
+        expect_counts("training fed by tar shards", B1=INPUT_TAR_STEPS * per_step, B2=INPUT_TAR_STEPS * per_step)
+        if len(tar_losses) != INPUT_TAR_STEPS or tar_rows != INPUT_TAR_STEPS * INPUT_BATCH:
+            raise AssertionError(f"tar shards fed {len(tar_losses)} steps of {tar_rows} rows")
+        if not all(math.isfinite(v) for v in tar_losses):
+            raise AssertionError(f"non-finite loss fed by tar shards: {tar_losses}")
+        out["tar"] = {"steps": len(tar_losses), "rows": tar_rows, "samples_in_shards": n_tar, "loss": tar_losses,
+                      "launches": launches}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"input: tar shards fed {len(tar_losses)} steps of {INPUT_BATCH}; phase took {out['phase_s']:.1f} s")
+    return out
 
 
 # B4, B5 and B6 at the training main path's shapes (batch 256 in bf16 at
@@ -1085,8 +1410,6 @@ def phase_impls(card: str) -> dict:
     and phase_training measure) at full ViT-B/16 width: the step against the
     CPU (all but xla), 13 train steps and one 256-image request with exact
     launch counts, img/s, and the sub-blocks' device ms."""
-    from types import SimpleNamespace
-
     cfg = {n: SimpleNamespace(model=MODEL, clip_load=None, compute_dtype=n, seed=0) for n in ("float32", "bfloat16")}
     px, layers_v, _ = model_shape()
     results = {}
@@ -1439,8 +1762,6 @@ def zeroshot_head_cosine(head) -> float:
     """The zero-shot probe's head (B3 in every text block) against the head
     of the same seed-0 model on the plain ``xla`` route: the least cosine of
     a class's row, at least 0.99 in bf16 (the serving phase's bound)."""
-    from types import SimpleNamespace
-
     from flyp_tpu_torch.templates import get_template
 
     cfg = SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="bfloat16", seed=0)
@@ -1568,6 +1889,13 @@ def main() -> int:
     if "--gemm" in sys.argv[1:]:
         log(json.dumps({"card": card, "gemm": phase_gemm(peaks)}))
         return 0
+    if "--input" in sys.argv[1:]:
+        use_impl("auto")
+        synthetic = bench_training(build_clip_model(SimpleNamespace(model=MODEL, clip_load=None,
+                                                                    compute_dtype="bfloat16", seed=0),
+                                                    device="cuda"), "pallas_block", card)[-1]["train_img_s"]
+        log(json.dumps({"card": card, "input": phase_input(card, synthetic)}))
+        return 0
 
     # The default route ("auto", the fused block) for the phases before the
     # route phase, whatever the environment says.
@@ -1579,6 +1907,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         serving = phase_serving(tmp, card)
     training = phase_training(card)
+    input_phase = phase_input(card, training["train_img_s"])
     # The default route's numbers come from the serving and training phases.
     impls = {"pallas_block": {**{k: training[k] for k in ("train_img_s", "step_ms", "loss", "train_launches",
                                                           "layers_train_ms", "layers_eval_ms", "profile")},
@@ -1639,6 +1968,7 @@ def main() -> int:
     log(json.dumps({"card": card, "img_s": serving["img_s"], "cos_fp32": serving["cos_fp32"],
                     "cos_bf16": serving["cos_bf16"], "breakdown": serving["breakdown"]}))
     log(json.dumps({"card": card, "training": training}))
+    log(json.dumps({"card": card, "input": input_phase}))
     log(json.dumps({"card": card, "routes": impls}))
     log(json.dumps({"card": card, "tools": tools}))
     log(json.dumps({"card": card, "gemm": gemm_cases}))

@@ -646,3 +646,98 @@ def test_gemm_products_refuse_what_they_cannot_tile(card):
     with pytest.raises(ValueError, match="shape"):
         tgs.input_grad_product(torch.zeros(3, 64, 128, dtype=torch.bfloat16, device=card),
                                torch.zeros(3, 256, 256, dtype=torch.bfloat16, device=card))
+
+
+# ------------------------------------------------------- input pipeline ----
+
+def _host_batches(n, seed):
+    """Seeded host batches as the CSV loader yields them: float32 images,
+    padded tokens (EOT at varied positions), int32 labels, paths."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for b in range(n):
+        tokens = np.zeros((16, 77), np.int32)
+        tokens[:, 0] = 49406
+        for i, length in enumerate(rng.integers(4, 40, 16)):
+            tokens[i, 1:length] = rng.integers(1, 49000, length - 1)
+            tokens[i, length] = 49407
+        out.append({"image": rng.standard_normal((16, 64, 64, 3)).astype(np.float32), "tokens": tokens,
+                    "label": rng.integers(0, 1000, 16).astype(np.int32), "path": [f"p{b}_{i}" for i in range(16)]})
+    return out
+
+
+def test_prefetch_ring_on_card(card):
+    """20 host batches through the pinned ring at size 2 with a slow
+    consumer (matmuls on its stream, then a clone of the batch behind them,
+    the batch dropped at once): every device copy equals its host batch,
+    bf16-cast and token-shrunk, and the ring's slots are refilled, not
+    reallocated."""
+    from flyp_tpu_torch.data.loader import prefetch_to_device
+    from flyp_tpu_torch.tokenizer import shrink_context
+
+    host = _host_batches(20, seed=9)
+    refills, allocs = prefetch_to_device.slot_refills, prefetch_to_device.pinned_allocations
+    a = torch.randn(4096, 4096, device=card, dtype=torch.bfloat16)
+    kept, paths = [], []
+    for batch in prefetch_to_device(iter(host), card, size=2, image_dtype=torch.bfloat16):
+        for _ in range(24):
+            a = (a @ a).clamp_(-1, 1)
+        kept.append({k: v.clone() for k, v in batch.items() if isinstance(v, torch.Tensor)})
+        paths.append(batch["path"])
+        del batch
+    torch.cuda.synchronize()
+    assert len(kept) == 20
+    for got, ref, p in zip(kept, host, paths):
+        assert torch.equal(got["image"].cpu(), torch.from_numpy(ref["image"]).to(torch.bfloat16))
+        assert torch.equal(got["tokens"].cpu(), torch.from_numpy(shrink_context(ref["tokens"])))
+        assert torch.equal(got["label"].cpu(), torch.from_numpy(ref["label"]))
+        assert p == ref["path"]
+    assert prefetch_to_device.slot_refills - refills == 17  # 20 batches, 3 slots
+    widths = {shrink_context(b["tokens"]).shape[1] for b in host}
+    assert prefetch_to_device.pinned_allocations - allocs <= 3 * (2 + len(widths))
+
+
+def _png(arr):
+    import struct
+    import zlib
+
+    h, w, _ = arr.shape
+    raw = np.hstack([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)]).tobytes()
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def test_native_loader_feeds_a_vit_step_on_card(card, tmp_path):
+    """PNG and ``.npy`` rows through the native-backend loader and the ring
+    feed one full-width ViT-B/16 step at batch 8 on the default route."""
+    from flyp_tpu_torch.config import parse_arguments
+    from flyp_tpu_torch.models import build_clip_model
+    from flyp_tpu_torch.training import create_train_state, make_optimizer, make_train_step, warmup_cosine_lr
+    from flyp_tpu_torch.training.data import device_iter, train_loader
+
+    rng = np.random.default_rng(3)
+    rows = ["title\tfilepath\tlabel\tguidance\timg_id"]
+    for i in range(8):
+        arr = rng.integers(0, 256, (200 + 9 * i, 260, 3), dtype=np.uint8)
+        path = tmp_path / (f"i{i}.npy" if i % 4 == 0 else f"i{i}.png")
+        if i % 4 == 0:
+            np.save(path, arr)
+        else:
+            path.write_bytes(_png(arr))
+        rows.append(f"a photo of a dog number {i}.\t{path}\t{i}\t100\t{i}")
+    (tmp_path / "t.tsv").write_text("\n".join(rows) + "\n")
+    cfg = parse_arguments(["--ft_data", str(tmp_path / "t.tsv"), "--batch-size", "8", "--data_backend", "native",
+                           "--model", "ViT-B/16"])
+    model = build_clip_model(cfg, device=card)
+    opt = make_optimizer(warmup_cosine_lr(1e-5, 1, 10), weight_decay=0.1, moment_dtype="bfloat16")
+    state, step = create_train_state(model, opt), make_train_step(model, opt)
+    (batch,) = list(device_iter(train_loader(cfg, 224), card, cfg.compute_dtype))
+    assert batch["image"].dtype == torch.bfloat16 and batch["image"].shape == (8, 224, 224, 3)
+    before = tab.attention_block.fwd_launches, tab.attention_block.bwd_launches
+    state, metrics = step(state, batch["image"], batch["tokens"])
+    assert torch.isfinite(metrics["loss"]).item()
+    assert (tab.attention_block.fwd_launches - before[0], tab.attention_block.bwd_launches - before[1]) == (24, 24)
