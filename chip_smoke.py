@@ -6,6 +6,7 @@
     python3 chip_smoke.py --attention-times    # only the attention kernels' device ms
     python3 chip_smoke.py --gemm               # only the five products of gemm_sm90.cuh (G1-G5)
     python3 chip_smoke.py --input              # only the input pipeline (phase 5b) and a synthetic bench
+    python3 chip_smoke.py --eval               # only the evaluation harness (phase 9)
 
 Phases, each of which raises on failure:
 
@@ -87,9 +88,24 @@ Phases, each of which raises on failure:
    ported tools end to end (``int8_matmul_probe`` ``main``/``main_pallas``
    at batch 256, every ``mfu_levers`` probe, the head rebuild at 100
    classes), each kernel's launches counted exactly.
+9. the evaluation harness at full width in bf16: a seeded corpus on disk
+   (PNGs of 256-400 px: ImageNet's val tree at 2 images a class,
+   ImageNet-R's 200 folders, ObjectNet's 113 with their red border, and
+   iWildCam's and FMoW's metadata with rows that must be left out), then
+   ``cli/zeroshot_eval.main`` three times as a user runs it (batch 256,
+   ``--workers 6``): the ImageNet head of 1,000 classes x 80 templates over
+   ImageNet, ImageNet-R and ObjectNet; iWildCam's head over IWildCamOOD;
+   FMoW's over FMOWOOD.  B3's launches exact (every text block per prompt
+   chunk, every vision block per batch); every ``train_stats`` entry equal
+   to a numpy recomputation from the logits the harness saw and the labels
+   the corpus was written with; 64 images' features against the CPU plain
+   forward (cosine 0.9999 fp32, 0.99 bf16); the head's first 10 classes
+   against the CPU plain head; ``get_features`` twice, the cache hit
+   launching nothing; eval img/s through the loader beside device-only
+   img/s of the same batches.
 
 The products' numbers are a JSON line of their own (``"gemm"``), the input
-pipeline's too (``"input"``); the line
+pipeline's and the evaluation's too (``"input"``, ``"evaluation"``); the line
 before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -858,9 +874,10 @@ def png_bytes(arr: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
-def corpus_image(seed: int, i: int) -> np.ndarray:
+def corpus_image(seed: int, i: int, high: int = 513) -> np.ndarray:
+    """A photograph-like image of sides 256 to ``high - 1`` px."""
     rng = np.random.default_rng([seed, i])
-    h, w = (int(v) for v in rng.integers(256, 513, 2))
+    h, w = (int(v) for v in rng.integers(256, high, 2))
     y, x = np.mgrid[0:h, 0:w].astype(np.float32)
     fx, fy, p = rng.uniform(0.004, 0.04), rng.uniform(0.004, 0.04), rng.uniform(0, 6, 3)
     base = np.stack([128 + 70 * np.sin(x * fx + p[c]) * np.cos(y * fy + 2 * p[c]) + 50 * (x / w - y / h) * (c - 1)
@@ -1137,6 +1154,337 @@ def phase_input(card: str, synthetic_img_s: float, seed: int = 0) -> dict:
                       "launches": launches}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"input: tar shards fed {len(tar_losses)} steps of {INPUT_BATCH}; phase took {out['phase_s']:.1f} s")
+    return out
+
+
+# The evaluation phase's corpus (seed 0), PNGs of 256-400 px a side: the
+# ImageNet val tree (1,000 class folders, 2 images each; the real set has
+# 50), ImageNet-R's 200 sublist folders (1 each), ObjectNet's 113 folders (2
+# each, with its red 2-px border), iWildCam's metadata.csv with 512 rows of
+# IWildCamOOD's split over 60 classes, and FMoW's rgb_metadata.csv with 512
+# rows of the OOD test split (2016 on) over the five named regions and
+# "Other"; rows of other splits, 'seq' rows and pre-2016 test rows are in
+# the metadata and must be left out.  Three zero-shot runs, each as a user
+# runs ``python -m flyp_tpu_torch.cli.zeroshot_eval``.
+EVAL_BATCH, EVAL_WORKERS = 256, 6
+EVAL_PER_CLASS, EVAL_OBJECTNET_PER_CLASS, EVAL_WILDS_ROWS = 2, 2, 512
+EVAL_FEATURES, EVAL_HEAD_CLASSES = 64, 10
+EVAL_RUNS = (("ImageNet", "openai_imagenet_template", ("ImageNet", "ImageNetR", "ObjectNet")),
+             ("IWildCamOOD", "iwildcam_template", ("IWildCamOOD",)),
+             ("FMOWOOD", "fmow_template", ("FMOWOOD",)))
+FMOW_REGIONS = ("Asia", "Europe", "Africa", "Americas", "Oceania", "Other")
+
+
+def eval_png(seed: int, i: int, border: bool = False) -> bytes:
+    arr = corpus_image(seed, i, high=401)
+    if border:  # ObjectNet's red frame, which its loader crops away
+        arr[:2], arr[-2:], arr[:, :2], arr[:, -2:] = (255, 0, 0), (255, 0, 0), (255, 0, 0), (255, 0, 0)
+    return png_bytes(arr)
+
+
+def write_eval_corpus(root: str, seed: int) -> dict:
+    """The trees under ``root``; for each dataset, what its loader must
+    yield in order (labels, and FMoW's regions), written down here and not
+    read back through the package."""
+    import csv
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flyp_tpu_torch.data.classnames import IMAGENET_R_SUBLIST, fmow_classnames
+    from flyp_tpu_torch.data.datasets.objectnet import get_metadata
+
+    jobs, expected = [], {}
+    val = os.path.join(root, "ILSVRC2012", "val")
+    os.makedirs(os.path.join(root, "ILSVRC2012", "train"))
+    for c in range(1000):
+        for i in range(EVAL_PER_CLASS):
+            jobs.append((os.path.join(val, f"n{c:05d}", f"{i}.png"), False))
+    expected["ImageNet"] = {"labels": [c for c in range(1000) for _ in range(EVAL_PER_CLASS)]}
+    for c in IMAGENET_R_SUBLIST:
+        jobs.append((os.path.join(root, "imagenet-r", f"n{c:05d}", "0.png"), False))
+    expected["ImageNetR"] = {"labels": list(range(len(IMAGENET_R_SUBLIST))), "columns": sorted(IMAGENET_R_SUBLIST)}
+    _, _, folder_to_ids, _ = get_metadata()
+    folders = sorted(folder_to_ids)
+    for folder in folders:
+        for i in range(EVAL_OBJECTNET_PER_CLASS):
+            jobs.append((os.path.join(root, "objectnet-1.0", "images", folder, f"{i}.png"), True))
+    expected["ObjectNet"] = {"labels": [k for k in range(len(folders)) for _ in range(EVAL_OBJECTNET_PER_CLASS)],
+                             "ids": [folder_to_ids[f] for f in folders]}
+
+    wild = os.path.join(root, "iwildcam_v2.0")
+    rows, labels = [], []
+    r = 0
+    while len(labels) < EVAL_WILDS_ROWS:
+        split = ("train", "id_test", "id_val")[r // 8 % 3] if r % 8 == 7 else "test"  # others: left out
+        y = (7 * r) % 60 if split == "test" else r % 182
+        rows.append({"split": split, "filename": f"{r:06d}.png", "y": y, "image_id": f"id{r}", "location": r % 9})
+        if split == "test":
+            labels.append(y)
+            jobs.append((os.path.join(wild, "train", f"{r:06d}.png"), False))
+        r += 1
+    os.makedirs(wild)
+    with open(os.path.join(wild, "metadata.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    expected["IWildCamOOD"] = {"labels": labels}
+
+    fmow = os.path.join(root, "fmow_v1.1")
+    rows, labels, regions = [], [], []
+    r = 0
+    while len(labels) < EVAL_WILDS_ROWS:
+        year = 2016 + r % 3
+        kind = r % 10
+        split, stamp = "test", f"{year}-{1 + r % 12:02d}-{1 + r % 28:02d}T10:{r % 60:02d}:00Z"
+        if kind == 7:
+            split = "seq"  # dropped
+        elif kind == 8:
+            split, stamp = "test", f"2014-{1 + r % 12:02d}-03T00:00:00Z"  # OOD val's years: not OOD test
+        elif kind == 9:
+            split = ("train", "val")[r % 2]  # other splits
+        elif kind == 3:
+            stamp = f"{year}-{1 + r % 12:02d}-{1 + r % 28:02d} 08:30:00"  # another timestamp format
+        category, region = fmow_classnames[(5 * r) % 62], FMOW_REGIONS[r % len(FMOW_REGIONS)]
+        if split == "test" and year >= 2016 and kind != 8:
+            labels.append(fmow_classnames.index(category))
+            regions.append(region)
+            jobs.append((os.path.join(fmow, "images", f"rgb_img_{r}.png"), False))
+        rows.append({"split": split, "timestamp": stamp, "category": category, "region": region})
+        r += 1
+    os.makedirs(os.path.join(fmow, "images"))
+    with open(os.path.join(fmow, "rgb_metadata.csv"), "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0]))
+        w.writeheader()
+        w.writerows(rows)
+    expected["FMOWOOD"] = {"labels": labels, "regions": regions}
+
+    def write(job):
+        n, (path, border) = job
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(eval_png(seed, n, border))
+
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+        list(pool.map(write, enumerate(jobs)))
+    expected["images"] = len(jobs)
+    return expected
+
+
+def macro_f1_numpy(preds: np.ndarray, labels: np.ndarray) -> float:
+    """WILDS's macro F1: the mean over the classes in the labels or the
+    predictions of 2 tp / (2 tp + fp + fn)."""
+    scores = []
+    for c in np.union1d(labels, preds):
+        tp = np.sum((preds == c) & (labels == c))
+        denom = 2 * tp + np.sum((preds == c) & (labels != c)) + np.sum((preds != c) & (labels == c))
+        scores.append(2 * tp / denom if tp else 0.0)
+    return float(np.mean(scores))
+
+
+def expected_stats(name: str, logits: np.ndarray, want: dict) -> dict:
+    """``train_stats``' entries for ``name``, recomputed from the logits the
+    harness saw and the labels the corpus was written with: top-1 (after
+    ImageNet-R's 200-column projection, or ObjectNet's max over each
+    class's ImageNet ids, which has no per-class rows), then each class's
+    accuracy and count in ascending accuracy (ties in the order the
+    classes first appear, batch by batch, in increasing id), then
+    iWildCam's macro F1 or FMoW's worst named region."""
+    labels = np.asarray(want["labels"])
+    if name == "ObjectNet":
+        pooled = np.stack([logits[:, ids].max(axis=1) for ids in want["ids"]], axis=1)
+        return {f"{name} Accuracy": round(float((pooled.argmax(1) == labels).sum()) / len(labels), 4)}
+    if name == "ImageNetR":
+        logits = logits[:, want["columns"]]
+    preds = logits.argmax(1)
+    out = {f"{name} Accuracy": round(float((preds == labels).sum()) / len(labels), 4)}
+    order = []
+    for b in range(0, len(labels), EVAL_BATCH):
+        order += [int(c) for c in sorted(set(labels[b:b + EVAL_BATCH].tolist())) if c not in order]
+    acc = {c: (int((preds[labels == c] == c).sum()), int((labels == c).sum())) for c in order}
+    for c in sorted(order, key=lambda c: acc[c][0] / acc[c][1]):
+        out[f"{name} Class {c} Accuracy"] = round(acc[c][0] / acc[c][1], 4)
+        out[f"{name} Class {c} Number"] = acc[c][1]
+    if name == "IWildCamOOD":
+        out[f"{name}F1-macro_all"] = round(macro_f1_numpy(preds, labels), 4)
+    if name == "FMOWOOD":
+        regions = np.asarray(want["regions"])
+        out[f"{name}acc_worst_region"] = round(min(float((preds[regions == r] == labels[regions == r]).mean())
+                                                   for r in FMOW_REGIONS if r != "Other"), 4)
+    return out
+
+
+def phase_evaluation(card: str, seed: int = 0) -> dict:
+    """The evaluation harness at full ViT-B/16 width in bf16:
+    ``cli/zeroshot_eval.main`` three times over the seeded corpus, B3's
+    launches exact, every metric recomputed, the features and the head
+    against the CPU, and the feature cache."""
+    import contextlib
+    import io
+
+    from flyp_tpu_torch.cli import zeroshot_eval
+    from flyp_tpu_torch.config import parse_arguments
+    from flyp_tpu_torch.data.classnames import openai_classnames
+    from flyp_tpu_torch.data.datasets import ImageNet
+    from flyp_tpu_torch.data.transforms import eval_transform
+    from flyp_tpu_torch.evaluation import evaluator
+    from flyp_tpu_torch.evaluation.features import get_features
+    from flyp_tpu_torch.templates import get_template
+
+    t_phase = time.perf_counter()
+    px, layers_v, layers_t = model_shape()
+    out = {}
+    saw = {"rows": {}, "heads": {}, "seconds": {}, "current": None}
+
+    class RecordingClassifier(Classifier):
+        """``Classifier`` that keeps what the harness saw: each batch's
+        device logits, its valid rows and its host images."""
+
+        def predict_logits_device(self, images):
+            logits, n = super().predict_logits_device(images)
+            saw["rows"].setdefault(saw["current"], []).append((logits, n, images))
+            return logits, n
+
+    build_head, eval_one = zeroshot_eval.build_zeroshot_head, evaluator.eval_single_dataset
+
+    def timed_head(cfg, model):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        head = build_head(cfg, model)
+        torch.cuda.synchronize()
+        saw["heads"][cfg.train_dataset] = (head, model, time.perf_counter() - t0)
+        return head
+
+    def timed_eval(classifier, dataset, cfg, *args, **kwargs):
+        saw["current"] = type(dataset).__name__
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eval_one(classifier, dataset, cfg, *args, **kwargs)
+        torch.cuda.synchronize()
+        saw["seconds"][saw["current"]] = time.perf_counter() - t0
+        return res
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        expected = write_eval_corpus(root, seed)
+        out["corpus_s"] = time.perf_counter() - t0
+        cpu_model = build_clip_model(SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="float32", seed=0),
+                                     device="cpu")
+        ckpt = os.path.join(root, "vit_b16_random.pt")
+        convert.save_torch_checkpoint(ckpt, convert.export_clip_state_dict(cpu_model.state_dict(),
+                                                                           cpu_model.config))
+        del cpu_model
+        log(f"evaluation: corpus of {expected['images']} PNGs and a random-init {MODEL} .pt in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        stats, prompts, want_b3 = {}, {}, 0
+        zeroshot_eval.Classifier, zeroshot_eval.build_zeroshot_head = RecordingClassifier, timed_head
+        evaluator.eval_single_dataset = timed_eval
+        try:
+            reset_counts()
+            # ---- the evaluation path: counts start at 0 here ----------------
+            for train_dataset, template, names in EVAL_RUNS:
+                cfg = parse_arguments(["--clip_load", ckpt, "--model", MODEL, "--train-dataset", train_dataset,
+                                       "--template", template, "--eval-datasets", ",".join(names),
+                                       "--data-location", root, "--batch-size", str(EVAL_BATCH),
+                                       "--workers", str(EVAL_WORKERS), "--seed", str(seed)])
+                cfg.log_dir = os.path.join(root, "logs", train_dataset)
+                with contextlib.redirect_stdout(io.StringIO()):  # its log (every stats row) goes to log_dir
+                    stats[train_dataset] = zeroshot_eval.main(cfg)
+                prompts[train_dataset] = len(saw["heads"][train_dataset][0].weight) * len(get_template(template))
+                want_b3 += layers_t * math.ceil(prompts[train_dataset] / min(1024, max(8, prompts[train_dataset])))
+                want_b3 += layers_v * sum(math.ceil(len(expected[n]["labels"]) / EVAL_BATCH) for n in names)
+            launches = counts()
+            # ---- end of the evaluation path ---------------------------------
+        finally:
+            zeroshot_eval.Classifier, zeroshot_eval.build_zeroshot_head = Classifier, build_head
+            evaluator.eval_single_dataset = eval_one
+        expect_counts("the evaluation path (3 zero-shot runs)", B3=want_b3)
+        out.update(launches=launches, prompts=prompts,
+                   head_s={k: v[2] for k, v in saw["heads"].items()})
+        log(f"evaluation: {launches['B3']} attention-block kernel launches, as expected; prompts {prompts}, head "
+            f"build s {out['head_s']}")
+
+        # Every metric, recomputed from the logits the harness saw.
+        out["images"], out["eval_img_s"], out["top1"] = {}, {}, {}
+        for train_dataset, _, names in EVAL_RUNS:
+            want_stats = {}
+            for name in names:
+                rows = saw["rows"][name]
+                logits = np.concatenate([t[:n].float().cpu().numpy() for t, n, _ in rows])
+                if logits.shape[0] != len(expected[name]["labels"]) or not np.isfinite(logits).all():
+                    raise AssertionError(f"{name}: {logits.shape} logits for {len(expected[name]['labels'])} images")
+                want_stats.update(expected_stats(name, logits, expected[name]))
+                out["images"][name] = logits.shape[0]
+                out["eval_img_s"][name] = logits.shape[0] / saw["seconds"][name]
+                out["top1"][name] = want_stats[f"{name} Accuracy"]
+            got = stats[train_dataset]
+            if list(got.items()) != list(want_stats.items()):
+                diff = [k for k in set(got) | set(want_stats) if got.get(k) != want_stats.get(k)]
+                raise AssertionError(f"{train_dataset} run: train_stats differ from the recomputation at "
+                                     f"{sorted(diff)[:10]} (order equal: {list(got) == list(want_stats)})")
+        out["stats_entries"] = {k: len(v) for k, v in stats.items()}
+        log(f"evaluation: every train_stats entry equals the recomputation ({out['stats_entries']}); eval img/s "
+            f"through the loader {out['eval_img_s']} on {card}")
+
+        # The same batches, decoded already and on the card: device-only img/s.
+        head, model, _ = saw["heads"]["ImageNet"]
+        out["device_img_s"] = {}
+        for name, rows in saw["rows"].items():
+            batches = []
+            for _, n, images in rows:
+                x = torch.zeros((EVAL_BATCH, px, px, 3), dtype=torch.bfloat16)
+                x[:n] = torch.from_numpy(images)
+                batches.append(x.cuda())
+            run_head = saw["heads"][next(t for t, _, ns in EVAL_RUNS if name in ns)][0]
+            with torch.inference_mode():
+                run_head(model.encode_image(batches[0]))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for x in batches:
+                    run_head(model.encode_image(x))
+                torch.cuda.synchronize()
+            out["device_img_s"][name] = sum(n for _, n, _ in rows) / (time.perf_counter() - t0)
+            del batches
+        log(f"evaluation: device-only img/s (pre-decoded batches on the card) {out['device_img_s']}")
+
+        # Features of 64 corpus images on the card against the CPU plain
+        # forward of the same .pt; the head against the CPU plain head.
+        sample = np.concatenate([images[:n] for _, n, images in saw["rows"]["ImageNet"]])[:EVAL_FEATURES]
+        del saw["rows"]
+        cpu_cfg = SimpleNamespace(model=MODEL, clip_load=ckpt, compute_dtype="float32", seed=0)
+        cpu_model = build_clip_model(cpu_cfg, device="cpu")
+        with torch.inference_mode():
+            ref = cpu_model.encode_image(torch.from_numpy(sample)).numpy()
+        card32 = build_clip_model(cpu_cfg, device="cuda")
+        cos32 = cosine(Classifier(card32, head, batch_size=EVAL_FEATURES).features(sample), ref)
+        cos16 = cosine(Classifier(model, head, batch_size=EVAL_FEATURES).features(sample), ref)
+        del card32
+        log(f"evaluation: {EVAL_FEATURES} corpus images' features against the CPU plain forward: fp32 "
+            f"{cos32.min():.7f}, bf16 {cos16.min():.5f}")
+        if cos32.min() < 0.9999 or cos16.min() < 0.99:
+            raise AssertionError(f"eval features drift from the CPU plain forward: fp32 {cos32}, bf16 {cos16}")
+        out.update(cos_fp32=float(cos32.min()), cos_bf16=float(cos16.min()),
+                   head_cosine=zeroshot_head_cosine(head, classnames=openai_classnames[:EVAL_HEAD_CLASSES],
+                                                    model=cpu_model))
+        del cpu_model
+
+        # The feature cache: a miss encodes (B3 in every vision block of
+        # every batch), a hit launches nothing and returns equal arrays.
+        ds = ImageNet(preprocess=eval_transform(px), location=root, batch_size=EVAL_BATCH, num_workers=EVAL_WORKERS)
+        clf = Classifier(model, head, batch_size=EVAL_BATCH)
+        cache = os.path.join(root, "features")
+        reset_counts()
+        miss = get_features(clf, ds, split="test", cache_dir=cache)
+        expect_counts("get_features, a miss", B3=layers_v * math.ceil(len(expected["ImageNet"]["labels"]) / EVAL_BATCH))
+        reset_counts()
+        hit = get_features(clf, ds, split="test", cache_dir=cache)
+        expect_counts("get_features, a hit", B3=0)
+        if sorted(hit) != sorted(miss) or not all(np.array_equal(hit[k], miss[k]) for k in miss):
+            raise AssertionError("the cached features differ from the encoded ones")
+        if hit["features"].shape != (len(expected["ImageNet"]["labels"]), model.config.embed_dim):
+            raise AssertionError(f"features {hit['features'].shape}")
+        out["cache"] = {"rows": int(hit["features"].shape[0]), "hit_launches": 0}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"evaluation: the feature cache's hit launched nothing; phase took {out['phase_s']:.1f} s")
     return out
 
 
@@ -1758,28 +2106,37 @@ def phase_tools() -> dict:
     return out
 
 
-def zeroshot_head_cosine(head) -> float:
-    """The zero-shot probe's head (B3 in every text block) against the head
-    of the same seed-0 model on the plain ``xla`` route: the least cosine of
-    a class's row, at least 0.99 in bf16 (the serving phase's bound)."""
+def zeroshot_head_cosine(head, classnames=None, model=None) -> float:
+    """A zero-shot head (B3 in every text block) against the head of the
+    same seed-0 model on a plain path, over ``openai_imagenet_template``:
+    the least cosine of a class's row, at least 0.99 in bf16 (the serving
+    phase's bound).  By default the probe's head (``ZEROSHOT_CLASSES``
+    classes) against the model on the card under the plain ``xla`` route;
+    with ``model`` (e.g. on the CPU, where every op takes its plain version)
+    the first ``len(classnames)`` rows of ``head`` against a head of those
+    classes built on it."""
     from flyp_tpu_torch.templates import get_template
 
-    cfg = SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="bfloat16", seed=0)
-    model = build_clip_model(cfg, device="cuda")
-    classnames = [f"class number {i}" for i in range(ZEROSHOT_CLASSES)]
-    use_impl("xla")
-    try:
-        plain = get_zeroshot_classifier(model, classnames, get_template("openai_imagenet_template"),
-                                        encode_batch=2048)
-    finally:
-        use_impl("auto")
-    got, ref = head.weight.float(), plain.weight.float()
+    template = get_template("openai_imagenet_template")
+    if model is None:
+        cfg = SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="bfloat16", seed=0)
+        model = build_clip_model(cfg, device="cuda")
+        classnames = [f"class number {i}" for i in range(ZEROSHOT_CLASSES)]
+        use_impl("xla")
+        try:
+            plain = get_zeroshot_classifier(model, classnames, template, encode_batch=2048)
+        finally:
+            use_impl("auto")
+    else:
+        plain = get_zeroshot_classifier(model, classnames, template)
+    got, ref = head.weight[:len(classnames)].float().cpu(), plain.weight.float().cpu()
     if got.shape != ref.shape or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"zero-shot head {tuple(got.shape)} against the plain {tuple(ref.shape)}, or not finite")
     cos = float(torch.nn.functional.cosine_similarity(got, ref, dim=-1).min())
-    log(f"zero-shot head against the plain route: least class cosine {cos:.6f}")
+    log(f"zero-shot head against the plain path ({len(classnames)} classes on {model.device}): least class cosine "
+        f"{cos:.6f}")
     if cos < 0.99:
-        raise AssertionError(f"zero-shot head drifts from the plain route: least class cosine {cos}")
+        raise AssertionError(f"zero-shot head drifts from the plain path: least class cosine {cos}")
     return cos
 
 
@@ -1896,6 +2253,10 @@ def main() -> int:
                                                     device="cuda"), "pallas_block", card)[-1]["train_img_s"]
         log(json.dumps({"card": card, "input": phase_input(card, synthetic)}))
         return 0
+    if "--eval" in sys.argv[1:]:
+        use_impl("auto")
+        log(json.dumps({"card": card, "evaluation": phase_evaluation(card)}))
+        return 0
 
     # The default route ("auto", the fused block) for the phases before the
     # route phase, whatever the environment says.
@@ -1914,6 +2275,8 @@ def main() -> int:
                               "serve_img_s": serving["img_s"][BUCKETS[-1]]},
              **phase_impls(card)}
     probes, tools = phase_probes(peaks), phase_tools()
+    use_impl("auto")
+    evaluation = phase_evaluation(card)
 
     def line(name, source, replaces, launches, cases, pick=None):
         # B1-B6 are reported at the main path's vision shape, T1-T4 at the
@@ -1972,6 +2335,7 @@ def main() -> int:
     log(json.dumps({"card": card, "routes": impls}))
     log(json.dumps({"card": card, "tools": tools}))
     log(json.dumps({"card": card, "gemm": gemm_cases}))
+    log(json.dumps({"card": card, "evaluation": evaluation}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,9 +66,11 @@ def decoded_batches(paths: Sequence[str], image_size: int, batch: int) -> Iterat
 def _resolve_classnames(args) -> List[str]:
     if args.classnames:
         return [c.strip() for c in args.classnames.split(",") if c.strip()]
+    from types import SimpleNamespace
+
     from flyp_tpu_torch.data.registry import get_classnames_for
 
-    return get_classnames_for(args.train_dataset)
+    return get_classnames_for(args.train_dataset, SimpleNamespace(data_location=args.data_location))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -81,6 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--train-dataset", default=None,
                    help="dataset name whose classnames build the zero-shot head")
     p.add_argument("--template", default=None, help="prompt template set name")
+    p.add_argument("--data-location", default=None, help="data root for dataset classname lookup")
     p.add_argument("--top-k", type=int, default=5)
     p.add_argument("--output", default=None, help="TSV path for predictions (default: stdout)")
     p.add_argument("--features", default=None,

@@ -1,80 +1,76 @@
-"""Class names for a dataset name, from packaged assets alone.
+"""Name -> dataset class, and a dataset's class names from packaged assets.
 
-Counterpart of ``get_classnames_for`` in ``flyp_tpu/data/registry.py``,
-for the zero-shot head of ``cli/serve.py --train-dataset``.  The dataset
-classes themselves are not ported yet; ObjectNet's class list needs their
-metadata and raises.
+Counterpart of ``flyp_tpu/data/registry.py``.  ``get_classnames_for`` reads
+no dataset tree: the zero-shot head needs only the names, and for every
+suite but OxfordPet (whose names come from its annotations) they come with
+the package.  iWildCam's ``labels.csv`` is read without pandas.
 """
 
 from __future__ import annotations
 
-import csv
-import pathlib
 from typing import List
 
-from flyp_tpu_torch.data.classnames import (
-    IMAGENET_A_SUBLIST,
-    IMAGENET_R_SUBLIST,
-    caltech101_classnames,
-    flowers102_classnames,
-    fmow_classnames,
-    get_classnames,
-    patchcamelyon_classnames,
-    sst2_classnames,
-    stanfordcars_classnames,
-)
+from flyp_tpu_torch.data import datasets as _datasets
 
-_ALIASES = {"sst2Val": "SST2Val", "sst2Test": "SST2Test", "sst2Train": "SST2Train"}
-
-_SPLITS = ("Train", "Val", "Test")
-_FIXED = {
-    "Caltech101": caltech101_classnames,
-    "StanfordCars": stanfordcars_classnames,
-    "Flowers102": flowers102_classnames,
-    "PatchCamelyon": patchcamelyon_classnames,
-    "SST2": sst2_classnames,
+# The lower-case aliases of the reference's registry.
+_ALIASES = {
+    "sst2Val": "SST2Val",
+    "sst2Test": "SST2Test",
+    "sst2Train": "SST2Train",
 }
-_IMAGENET = (
-    "ImageNet", "ImageNet1", "ImageNet2", "ImageNet4", "ImageNet8", "ImageNet16", "ImageNet25", "ImageNet32",
-    "ImageNet50", "ImageNet64", "ImageNet128", "ImageNet600", "ImageNetA", "ImageNetAValClasses", "ImageNetK",
-    "ImageNetKShot", "ImageNetR", "ImageNetRValClasses", "ImageNetSketch", "ImageNetSubsample",
-    "ImageNetSubsampleValClasses", "ImageNetTrain", "ImageNetV2", "ImageNetVidRobust",
-    "ImageNetVidRobustValClasses",
-)
-_IWILDCAM = (
-    "IWildCam", "IWildCamID", "IWildCamIDNonEmpty", "IWildCamIDVal", "IWildCamNonEmpty", "IWildCamOOD",
-    "IWildCamOODNonEmpty",
-)
-_FMOW = ("FMOW", "FMOWID", "FMOWIDVal", "FMOWOOD")
-KNOWN_DATASETS = frozenset(
-    [f"{base}{split}" for base in _FIXED for split in _SPLITS] + list(_IMAGENET + _IWILDCAM + _FMOW)
-)
 
 
-def _iwildcam_classnames() -> List[str]:
-    labels = pathlib.Path(__file__).parent / "metadata" / "iwildcam" / "labels.csv"
-    with open(labels, newline="") as f:
-        return [row["english"].lower() for row in csv.DictReader(f) if int(row["y"]) < 99999]
-
-
-def get_classnames_for(name: str) -> List[str]:
+def get_dataset_class(name: str):
     name = _ALIASES.get(name, name)
-    if name.startswith("ObjectNet"):
-        raise KeyError(f"{name}: ObjectNet's class list comes with the dataset port (ROADMAP.md, data layer)")
-    if name not in KNOWN_DATASETS:
-        raise KeyError(f"no packaged classnames for {name!r}; known: {sorted(KNOWN_DATASETS)}")
-    for prefix, names in _FIXED.items():
-        if name.startswith(prefix):
-            return list(names)
+    cls = getattr(_datasets, name, None)
+    if cls is None:
+        known = sorted(n for n in dir(_datasets) if not n.startswith("_"))
+        raise KeyError(f"unknown dataset {name!r}; known: {known}")
+    return cls
+
+
+def get_classnames_for(name: str, cfg=None) -> List[str]:
+    """Class names of the dataset ``name`` without reading its tree.
+    ``cfg`` (its ``data_location``) is taken for the JAX signature; no
+    suite's names need it."""
+    from flyp_tpu_torch.data.classnames import (
+        IMAGENET_A_SUBLIST,
+        IMAGENET_R_SUBLIST,
+        fmow_classnames,
+        get_classnames,
+    )
+
+    name = _ALIASES.get(name, name)
+    cls = get_dataset_class(name)
+
+    fixed = getattr(cls, "fixed_classnames", None)
+    if fixed is not None:
+        return list(fixed)
+
     if name.startswith("IWildCam"):
-        return _iwildcam_classnames()
+        from flyp_tpu_torch.data.datasets.wilds_sets import iwildcam_english_names
+
+        return [s.lower() for s in iwildcam_english_names()]
+
     if name.startswith("FMOW"):
         return list(fmow_classnames)
+
+    if name.startswith("ObjectNet"):
+        from flyp_tpu_torch.data.datasets.objectnet import get_metadata
+
+        _, _, folder_to_ids, classname_map = get_metadata()
+        return [classname_map[c].lower() for c in sorted(folder_to_ids.keys())]
+
     if "VidRobust" in name:
         return get_classnames("imagenet_vid_robust_classnames")
+
     base = get_classnames("openai")
     if name.startswith("ImageNetR"):
         return [base[i] for i in IMAGENET_R_SUBLIST]
-    if name.startswith("ImageNetA"):
+    if name.startswith("ImageNetA") and name != "ImageNetAll":
         return [base[i] for i in IMAGENET_A_SUBLIST]
-    return list(base)
+    if name.startswith("ImageNet"):
+        return list(base)
+    if name.startswith("OxfordPet"):
+        raise KeyError("OxfordPet classnames require the on-disk annotations; instantiate the dataset")
+    raise KeyError(f"no static classnames for {name!r}")

@@ -9,7 +9,7 @@ positive scores 0.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -35,3 +35,14 @@ def macro_f1(preds: np.ndarray, labels: np.ndarray, num_classes: Optional[int] =
         fn = float(np.sum((preds != c) & (labels == c)))
         scores.append(2.0 * tp / (2.0 * tp + fp + fn) if tp > 0 else 0.0)
     return float(np.mean(scores)) if scores else 0.0
+
+
+def per_class_tally(preds: np.ndarray, labels: np.ndarray, tally: Dict[int, list]) -> Dict[int, list]:
+    """Accumulate ``{class: [correct, total]}``; classes enter ``tally`` in
+    the order they are first seen (sorted within a batch)."""
+    for cls in np.unique(labels):
+        sel = labels == cls
+        rec = tally.setdefault(int(cls), [0, 0])
+        rec[0] += int((preds[sel] == cls).sum())
+        rec[1] += int(sel.sum())
+    return tally

@@ -1,3 +1,3 @@
-from .pipeline import OneStepLag, host_cast_images, to_device
+from .pipeline import OneStepLag, host_cast_images, lagged_device_method, to_device
 
-__all__ = ["OneStepLag", "host_cast_images", "to_device"]
+__all__ = ["OneStepLag", "host_cast_images", "lagged_device_method", "to_device"]

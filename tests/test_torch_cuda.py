@@ -741,3 +741,59 @@ def test_native_loader_feeds_a_vit_step_on_card(card, tmp_path):
     state, metrics = step(state, batch["image"], batch["tokens"])
     assert torch.isfinite(metrics["loss"]).item()
     assert (tab.attention_block.fwd_launches - before[0], tab.attention_block.bwd_launches - before[1]) == (24, 24)
+
+
+def _eval_tree(root, classes=20, per_class=2):
+    """An ImageNet-style val tree: ``classes`` folders of tinted PNGs."""
+    from PIL import Image
+
+    rng = np.random.default_rng(11)
+    (root / "ILSVRC2012" / "train").mkdir(parents=True)
+    for c in range(classes):
+        tint = rng.integers(0, 256, 3)
+        for i in range(per_class):
+            img = np.clip(tint + rng.integers(-40, 40, (56 + 3 * i, 70, 3)), 0, 255).astype(np.uint8)
+            path = root / "ILSVRC2012" / "val" / f"n{c:03d}" / f"{i}.png"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            Image.fromarray(img).save(path)
+
+
+def test_evaluate_on_card(card, tmp_path):
+    """``evaluate`` over a 20-class ImageNet-style tree with a small ViT in
+    fp32: B3 in every vision block of every batch, and ``train_stats``
+    equal to a CPU run's on the same ``.pt`` (no top-1/top-2 margin of the
+    CPU's logits under 1e-3, so equal metrics are expected)."""
+    from types import SimpleNamespace
+
+    from flyp_tpu_torch.config import ExperimentConfig
+    from flyp_tpu_torch.data.datasets import ImageNet
+    from flyp_tpu_torch.data.transforms import eval_transform
+    from flyp_tpu_torch.evaluation import Classifier, evaluate
+    from flyp_tpu_torch.models import build_clip_model
+    from flyp_tpu_torch.models.head import ClassificationHead
+
+    cfg = MODEL_CONFIGS["ViT-B/16"]
+    tiny = dataclasses.replace(cfg, embed_dim=64,
+                               vision=dataclasses.replace(cfg.vision, image_size=64, width=128, layers=2, heads=2),
+                               text=dataclasses.replace(cfg.text, width=128, heads=2, layers=2))
+    _eval_tree(tmp_path)
+    spec = SimpleNamespace(model="ViT-B/16", clip_load=None, compute_dtype="float32", seed=0)
+    cpu = build_clip_model(spec, config_override=tiny, device="cpu")
+    ckpt = str(tmp_path / "tiny.pt")
+    convert.save_torch_checkpoint(ckpt, convert.export_clip_state_dict(cpu.state_dict(), cpu.config))
+    weight = torch.from_numpy(np.random.default_rng(5).standard_normal((20, 64)).astype(np.float32) * 30)
+    run = ExperimentConfig(eval_datasets=["ImageNet"], data_location=str(tmp_path), batch_size=16, workers=2)
+    stats, launches = {}, {}
+    for device in ("cpu", card):
+        model = build_clip_model(SimpleNamespace(**{**vars(spec), "clip_load": ckpt}), device=device)
+        clf = Classifier(model, ClassificationHead(weight).to(device), batch_size=16)
+        if device == "cpu":
+            ds = ImageNet(preprocess=eval_transform(64), location=str(tmp_path), batch_size=16, num_workers=2)
+            top2 = np.sort(np.concatenate([clf.predict_logits(b["image"]) for b in ds.test_loader]), axis=1)[:, -2:]
+            assert (top2[:, 1] - top2[:, 0]).min() > 1e-3
+        before = tab.attention_block_inference.launches
+        stats[str(device)] = evaluate(clf, run, {})
+        launches[str(device)] = tab.attention_block_inference.launches - before
+    assert launches == {"cpu": 0, "cuda": tiny.vision.layers * 3}  # 40 images in batches of 16
+    assert list(stats["cuda"]) == list(stats["cpu"]) and stats["cuda"] == stats["cpu"]
+    assert "ImageNet Class 19 Number" in stats["cuda"]
