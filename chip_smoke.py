@@ -7,6 +7,7 @@
     python3 chip_smoke.py --gemm               # only the five products of gemm_sm90.cuh (G1-G5)
     python3 chip_smoke.py --input              # only the input pipeline (phase 5b) and a synthetic bench
     python3 chip_smoke.py --eval               # only the evaluation harness (phase 9)
+    python3 chip_smoke.py --trainer            # only the FLYP trainer (phase 10)
 
 Phases, each of which raises on failure:
 
@@ -103,9 +104,27 @@ Phases, each of which raises on failure:
    against the CPU plain head; ``get_features`` twice, the cache hit
    launching nothing; eval img/s through the loader beside device-only
    img/s of the same batches.
+10. the FLYP trainer at full ViT-B/16 width in bf16 with bf16 moments, batch
+   256, through ``cli/main.py`` as a user runs it: the input phase's corpus
+   (14 batches, guidance 100 and 50, ``--curriculum``, ``--data_backend
+   native``, ``--workers 6``) and phase 9's ImageNet val tree (2,000 PNGs,
+   ``--eval-datasets ImageNet`` with the 80-template head).  Run A trains 2
+   epochs (train, checkpoint, head, evaluation, ``stats.tsv``); run B is
+   the same command stopped by ``--max_steps 7 --save_every_n_steps 5``,
+   then ``--max_steps 10``, then resumed to the end.  Held exactly: A's and
+   B's ``checkpoint_0`` and ``checkpoint_1`` bit-equal (params, moments,
+   meta), their ``stats.tsv`` equal, B1/B2/B3 launches as predicted (24
+   blocks x 28 steps for B1/B2; 79 text chunks x 12 + 8 batches x 12 a
+   epoch for B3); ``checkpoint_1`` reloaded through ``cli/zeroshot_eval``
+   gives the trainer's logged top-1, and its ``--save``'d head reads back
+   bit-equal; 13 synthetic steps with ``--remat`` give the losses and
+   parameters of 13 without it, at a lower peak.  Seconds per epoch
+   (train, the save's blocking part, its background commit, head,
+   evaluation), fed img/s and peak memory go to a ``"trainer"`` line.
 
 The products' numbers are a JSON line of their own (``"gemm"``), the input
-pipeline's and the evaluation's too (``"input"``, ``"evaluation"``); the line
+pipeline's, the evaluation's and the trainer's too (``"input"``,
+``"evaluation"``, ``"trainer"``); the line
 before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -1187,18 +1206,11 @@ def write_eval_corpus(root: str, seed: int) -> dict:
     yield in order (labels, and FMoW's regions), written down here and not
     read back through the package."""
     import csv
-    from concurrent.futures import ThreadPoolExecutor
 
     from flyp_tpu_torch.data.classnames import IMAGENET_R_SUBLIST, fmow_classnames
     from flyp_tpu_torch.data.datasets.objectnet import get_metadata
 
-    jobs, expected = [], {}
-    val = os.path.join(root, "ILSVRC2012", "val")
-    os.makedirs(os.path.join(root, "ILSVRC2012", "train"))
-    for c in range(1000):
-        for i in range(EVAL_PER_CLASS):
-            jobs.append((os.path.join(val, f"n{c:05d}", f"{i}.png"), False))
-    expected["ImageNet"] = {"labels": [c for c in range(1000) for _ in range(EVAL_PER_CLASS)]}
+    jobs, expected = imagenet_val_jobs(root)
     for c in IMAGENET_R_SUBLIST:
         jobs.append((os.path.join(root, "imagenet-r", f"n{c:05d}", "0.png"), False))
     expected["ImageNetR"] = {"labels": list(range(len(IMAGENET_R_SUBLIST))), "columns": sorted(IMAGENET_R_SUBLIST)}
@@ -1257,6 +1269,25 @@ def write_eval_corpus(root: str, seed: int) -> dict:
         w.writerows(rows)
     expected["FMOWOOD"] = {"labels": labels, "regions": regions}
 
+    write_pngs(jobs, seed)
+    expected["images"] = len(jobs)
+    return expected
+
+
+def imagenet_val_jobs(root: str):
+    """ImageNet's val tree under ``root`` (1,000 class folders of
+    ``EVAL_PER_CLASS`` images): the PNG jobs and the labels in loader order."""
+    val = os.path.join(root, "ILSVRC2012", "val")
+    os.makedirs(os.path.join(root, "ILSVRC2012", "train"))
+    jobs = [(os.path.join(val, f"n{c:05d}", f"{i}.png"), False) for c in range(1000) for i in range(EVAL_PER_CLASS)]
+    return jobs, {"ImageNet": {"labels": [c for c in range(1000) for _ in range(EVAL_PER_CLASS)]}}
+
+
+def write_pngs(jobs, seed: int) -> None:
+    """Job n, ``(path, border)``, becomes ``eval_png(seed, n, border)`` at
+    ``path``."""
+    from concurrent.futures import ThreadPoolExecutor
+
     def write(job):
         n, (path, border) = job
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1265,8 +1296,6 @@ def write_eval_corpus(root: str, seed: int) -> dict:
 
     with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
         list(pool.map(write, enumerate(jobs)))
-    expected["images"] = len(jobs)
-    return expected
 
 
 def macro_f1_numpy(preds: np.ndarray, labels: np.ndarray) -> float:
@@ -1485,6 +1514,253 @@ def phase_evaluation(card: str, seed: int = 0) -> dict:
         out["cache"] = {"rows": int(hit["features"].shape[0]), "hit_launches": 0}
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"evaluation: the feature cache's hit launched nothing; phase took {out['phase_s']:.1f} s")
+    return out
+
+
+# The trainer phase (10): the 5b corpus (14 batches of 256 rows, guidance
+# 100 and 50) and the ImageNet val tree of phase 9; run A trains 2 epochs
+# uninterrupted through ``cli/main.py``, run B the same command stopped twice
+# in mid-epoch (``--max_steps 7 --save_every_n_steps 5``, ``--max_steps 10``)
+# and resumed to the end.  Then the checkpoint reloaded through
+# ``cli/zeroshot_eval.py``, and 13 synthetic steps with and without --remat.
+TRAINER_EPOCHS = 2
+TRAINER_INTERRUPTS = (("--max_steps", "7", "--save_every_n_steps", "5"), ("--max_steps", "10"), ())
+TRAINER_RETURNS = ("checkpoint_0_step_6", "checkpoint_1_step_2", "checkpoint_1")
+REMAT_STEPS = 13
+
+
+def checkpoint_equal(a: str, b: str, where: str) -> int:
+    """Every tensor file and the meta of two checkpoint directories bit for
+    bit; returns the bytes of ``a``."""
+    from flyp_tpu_torch.utils import checkpoint
+
+    for name in (checkpoint.PARAMS_FILE, checkpoint.OPT_FILE, checkpoint.STATS_FILE):
+        ta, tb = checkpoint.load_tensors(a, name), checkpoint.load_tensors(b, name)
+        bad = sorted(k for k in set(ta) | set(tb) if k not in ta or k not in tb or ta[k].dtype != tb[k].dtype
+                     or not torch.equal(ta[k], tb[k]))
+        if bad:
+            raise AssertionError(f"{where}: {name} differs at {len(bad)} tensors, e.g. {bad[:5]}")
+    if checkpoint.read_meta(a) != checkpoint.read_meta(b):
+        raise AssertionError(f"{where}: meta.json differs: {checkpoint.read_meta(a)} vs {checkpoint.read_meta(b)}")
+    return sum(os.path.getsize(os.path.join(a, f)) for f in os.listdir(a))
+
+
+def remat_run(remat: bool, images, tokens) -> dict:
+    """13 steps of the bench configuration with or without ``--remat``: the
+    losses, the parameters after, memory held before the steps (model,
+    moments, inputs and whatever the process still holds) and the peak
+    during them, and ms a step."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = build_clip_model(SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="bfloat16", seed=0,
+                                             remat=remat), device="cuda")
+    opt = make_optimizer(warmup_cosine_lr(1e-5, 500, 10_000), weight_decay=0.1, moment_dtype="bfloat16")
+    state, step = create_train_state(model, opt), make_train_step(model, opt)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for n in range(REMAT_STEPS):
+        if n == 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, metrics = step(state, images, tokens)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out = {"losses": torch.stack(losses).cpu(), "params": [p.detach().cpu() for p in model.parameters()],
+           "base_gib": base / 2 ** 30, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "ms_per_step": dt / (REMAT_STEPS - 3) * 1e3}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_trainer(card: str, seed: int = 0) -> dict:
+    """The FLYP trainer at full ViT-B/16 width through its command line:
+    whole epochs (train, checkpoint, head, evaluation, stats.tsv) fed from
+    disk, a run interrupted twice that resumes to the uninterrupted run's
+    checkpoint bit for bit, the checkpoint reloaded, and --remat."""
+    from flyp_tpu_torch.cli import main as cli_main
+    from flyp_tpu_torch.cli import zeroshot_eval
+    from flyp_tpu_torch.training import flyp
+    from flyp_tpu_torch.utils import checkpoint
+
+    t_phase = time.perf_counter()
+    px, layers_v, layers_t = model_shape()
+    per_step = layers_v + layers_t
+    steps = INPUT_BATCHES * TRAINER_EPOCHS
+    out = {"card": card}
+    marks = {"step": [], "save": [], "commit": [], "head": [], "eval": []}
+    real = {"step": flyp.make_train_step, "save": flyp.save_checkpoint, "commit": checkpoint._write_checkpoint_dir,
+            "head": flyp.build_zeroshot_head, "eval": flyp.evaluate}
+
+    def timed(kind, fn, sync=True):
+        def wrapper(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            marks[kind].append((t0, time.perf_counter(), args[0] if kind in ("save", "commit") else None))
+            return res
+        return wrapper
+
+    def make_step(*args, **kwargs):
+        step = real["step"](*args, **kwargs)
+
+        def stamped(*a, **k):
+            marks["step"].append((time.perf_counter(), None, None))
+            return step(*a, **k)
+        return stamped
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "train"))
+        tsv, _, _ = write_corpus(os.path.join(root, "train"), seed)
+        jobs, expected = imagenet_val_jobs(root)
+        write_pngs(jobs, seed)
+        out["corpus_s"] = time.perf_counter() - t0
+        log(f"trainer: corpus of {INPUT_BATCH * INPUT_BATCHES} TSV rows and {len(jobs)} ImageNet val PNGs in "
+            f"{out['corpus_s']:.1f} s")
+        argv = ["--ft_data", tsv, "--batch-size", str(INPUT_BATCH), "--data_backend", "native", "--workers",
+                str(INPUT_WORKERS), "--model", MODEL, "--seed", str(seed), "--curriculum", "--epochs",
+                str(TRAINER_EPOCHS), "--lr", "1e-5", "--warmup_length", "500", "--adam_moment_dtype", "bfloat16",
+                "--train-dataset", "ImageNet", "--template", "openai_imagenet_template", "--eval-datasets",
+                "ImageNet", "--data-location", root, "--save", os.path.join(root, "ckpt")]
+        prompts = 1000 * 80
+        head_b3 = layers_t * math.ceil(prompts / 1024)
+        eval_b3 = layers_v * math.ceil(len(expected["ImageNet"]["labels"]) / INPUT_BATCH)
+        runs, launches = {}, {}
+        flyp.make_train_step, flyp.save_checkpoint = make_step, timed("save", real["save"])
+        flyp.build_zeroshot_head, flyp.evaluate = timed("head", real["head"]), timed("eval", real["eval"])
+        checkpoint._write_checkpoint_dir = timed("commit", real["commit"], sync=False)
+        os.chdir(root)  # cli/main.py writes expt_logs/ under the working directory
+        try:
+            for name, interrupts in (("a", ((),)), ("b", TRAINER_INTERRUPTS)):
+                reset_counts()
+                # ---- the trainer path: counts start at 0 here -----------------
+                t0 = time.perf_counter()
+                returned = [cli_main.main(cli_main.parse_main_arguments([*argv, "--exp_name", f"trainer_{name}",
+                                                                         *extra]))
+                            for extra in interrupts]
+                launches[name] = counts()
+                # ---- end of the trainer path ----------------------------------
+                runs[name] = {"returned": [os.path.basename(p) for p in returned], "s": time.perf_counter() - t0,
+                              "save": os.path.dirname(returned[-1]),
+                              "log": os.path.join(root, "expt_logs", f"trainer_{name}",
+                                                  os.path.basename(os.path.dirname(returned[-1])))}
+                expect_counts(f"trainer run {name}", B1=steps * per_step, B2=steps * per_step,
+                              B3=TRAINER_EPOCHS * (head_b3 + eval_b3))
+        finally:
+            os.chdir(cwd)
+            flyp.make_train_step, flyp.save_checkpoint = real["step"], real["save"]
+            flyp.build_zeroshot_head, flyp.evaluate = real["head"], real["eval"]
+            checkpoint._write_checkpoint_dir = real["commit"]
+        if runs["b"]["returned"] != list(TRAINER_RETURNS) or runs["a"]["returned"] != ["checkpoint_1"]:
+            raise AssertionError(f"the runs returned {runs['a']['returned']} and {runs['b']['returned']}")
+        out.update(launches=launches, runs_s={k: v["s"] for k, v in runs.items()})
+        log(f"trainer: run A {runs['a']['s']:.1f} s, run B (3 invocations) {runs['b']['s']:.1f} s; launches "
+            f"{launches}, as predicted")
+
+        # Run A's epochs: train (first step to the save; epoch 1 from the end
+        # of epoch 0's evaluation), the save's blocking part, its commit,
+        # the head, the evaluation.
+        n_a = steps
+        step_t = [t for t, _, _ in marks["step"][:n_a]]
+        saves = [(t0, t1) for t0, t1, p in marks["save"] if "trainer_a" in p and "_step_" not in p]
+        commits = [(t0, t1) for t0, t1, p in marks["commit"] if "trainer_a" in p and "_step_" not in p]
+        heads, evals = marks["head"][:TRAINER_EPOCHS], marks["eval"][:TRAINER_EPOCHS]
+        epochs = []
+        for e in range(TRAINER_EPOCHS):
+            start = step_t[e * INPUT_BATCHES] if e == 0 else evals[e - 1][1]
+            epochs.append({"train_s": saves[e][0] - start, "save_blocking_s": saves[e][1] - saves[e][0],
+                           "commit_s": commits[e][1] - commits[e][0], "head_s": heads[e][1] - heads[e][0],
+                           "eval_s": evals[e][1] - evals[e][0]})
+        out["epochs"] = epochs
+        out["fed_img_s"] = INPUT_BATCHES * INPUT_BATCH / epochs[-1]["train_s"]
+        out["eval_img_s"] = len(expected["ImageNet"]["labels"]) / epochs[-1]["eval_s"]
+        log(f"trainer: run A by epoch {epochs}; epoch {TRAINER_EPOCHS - 1} fed at {out['fed_img_s']:.2f} img/s, "
+            f"evaluated at {out['eval_img_s']:.2f} img/s on {card}")
+
+        # Held exactly: A's and B's checkpoints and stats.tsv.
+        for e in range(TRAINER_EPOCHS):
+            out["checkpoint_bytes"] = checkpoint_equal(os.path.join(runs["a"]["save"], f"checkpoint_{e}"),
+                                                       os.path.join(runs["b"]["save"], f"checkpoint_{e}"),
+                                                       f"checkpoint_{e} of runs A and B")
+        with open(os.path.join(runs["a"]["log"], "stats.tsv")) as f:
+            stats_a = f.read()
+        with open(os.path.join(runs["b"]["log"], "stats.tsv")) as f:
+            stats_b = f.read()
+        if stats_a != stats_b:
+            raise AssertionError(f"stats.tsv of runs A and B differ:\n{stats_a}\n{stats_b}")
+        rows = [line.split("\t") for line in stats_a.rstrip("\n").split("\n")]
+        stats = [dict(zip(rows[0][1:], r[1:])) for r in rows[1:]]
+        if len(stats) != TRAINER_EPOCHS or not all(math.isfinite(float(r["Avg ID FLYP Loss"])) for r in stats):
+            raise AssertionError(f"stats.tsv of run A: {stats}")
+        out["stats"] = stats
+        log(f"trainer: checkpoint_0 and checkpoint_1 ({out['checkpoint_bytes']} bytes) of runs A and B bit-equal, "
+            f"params and moments; stats.tsv equal: {stats}")
+
+        # The checkpoint reloaded as a user evaluates it, with the head saved.
+        saw = {}
+        build_head = zeroshot_eval.build_zeroshot_head
+
+        def keep_head(cfg, model):
+            saw["head"] = build_head(cfg, model)
+            return saw["head"]
+
+        zeroshot_eval.build_zeroshot_head = keep_head
+        reset_counts()
+        try:
+            cfg = cli_main.parse_main_arguments([
+                "--clip_load", os.path.join(runs["a"]["save"], f"checkpoint_{TRAINER_EPOCHS - 1}"), "--model", MODEL,
+                "--train-dataset", "ImageNet", "--template", "openai_imagenet_template", "--eval-datasets", "ImageNet",
+                "--data-location", root, "--batch-size", str(INPUT_BATCH), "--workers", str(INPUT_WORKERS),
+                "--save", os.path.join(root, "head")])
+            cfg.log_dir = os.path.join(root, "logs", "zeroshot")
+            import contextlib
+            import io
+
+            with contextlib.redirect_stdout(io.StringIO()):
+                reloaded = zeroshot_eval.main(cfg)
+        finally:
+            zeroshot_eval.build_zeroshot_head = build_head
+        expect_counts("the reloaded checkpoint's head and evaluation", B3=head_b3 + eval_b3)
+        logged = float(stats[-1]["ImageNet Accuracy"])
+        if reloaded["ImageNet Accuracy"] != logged:
+            raise AssertionError(f"the reloaded checkpoint's top-1 {reloaded['ImageNet Accuracy']} differs from the "
+                                 f"trainer's logged {logged}")
+        head = checkpoint.restore_params(os.path.join(root, "head", "zeroshot_head"))
+        if sorted(head) != ["bias", "weight"] or not all(
+                torch.equal(head[k], getattr(saw["head"], k).detach().cpu()) for k in head):
+            raise AssertionError("the saved zero-shot head differs from the one evaluated")
+        out.update(reloaded_top1=reloaded["ImageNet Accuracy"], head_shape=list(head["weight"].shape))
+        log(f"trainer: checkpoint_1 reloaded through zeroshot_eval gives top-1 {logged}, the logged value; its saved "
+            f"head {list(head['weight'].shape)} reads back bit-equal")
+
+    # --remat: 13 synthetic steps, losses and parameters bit-equal, less memory.
+    images, tokens = bench_batch(INPUT_BATCH, px, seed=0)
+    images, tokens = torch.from_numpy(images).to(torch.bfloat16).cuda(), torch.from_numpy(tokens).cuda()
+    plain, remat = remat_run(False, images, tokens), remat_run(True, images, tokens)
+    if not torch.equal(plain["losses"], remat["losses"]):
+        raise AssertionError(f"--remat changes the losses: {plain['losses'].tolist()} vs {remat['losses'].tolist()}")
+    if not all(torch.equal(a, b) for a, b in zip(plain["params"], remat["params"])):
+        raise AssertionError("--remat changes the parameters after 13 steps")
+    if not remat["peak_gib"] < plain["peak_gib"]:
+        raise AssertionError(f"--remat does not lower the peak: {remat['peak_gib']} vs {plain['peak_gib']} GiB")
+    out["remat"] = {k: {n: r[n] for n in ("base_gib", "peak_gib", "ms_per_step")}
+                    for k, r in (("off", plain), ("on", remat))}
+    out["remat"]["losses"] = plain["losses"].tolist()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"trainer: --remat: losses and parameters bit-equal over {REMAT_STEPS} steps; peak {plain['peak_gib']:.3f} "
+        f"-> {remat['peak_gib']:.3f} GiB (held before the steps {plain['base_gib']:.3f}, {remat['base_gib']:.3f}), "
+        f"{plain['ms_per_step']:.2f} -> {remat['ms_per_step']:.2f} ms/step; phase took {out['phase_s']:.1f} s on "
+        f"{card}")
     return out
 
 
@@ -2257,6 +2533,10 @@ def main() -> int:
         use_impl("auto")
         log(json.dumps({"card": card, "evaluation": phase_evaluation(card)}))
         return 0
+    if "--trainer" in sys.argv[1:]:
+        use_impl("auto")
+        log(json.dumps({"card": card, "trainer": phase_trainer(card)}))
+        return 0
 
     # The default route ("auto", the fused block) for the phases before the
     # route phase, whatever the environment says.
@@ -2277,6 +2557,7 @@ def main() -> int:
     probes, tools = phase_probes(peaks), phase_tools()
     use_impl("auto")
     evaluation = phase_evaluation(card)
+    trainer = phase_trainer(card)
 
     def line(name, source, replaces, launches, cases, pick=None):
         # B1-B6 are reported at the main path's vision shape, T1-T4 at the
@@ -2336,6 +2617,7 @@ def main() -> int:
     log(json.dumps({"card": card, "tools": tools}))
     log(json.dumps({"card": card, "gemm": gemm_cases}))
     log(json.dumps({"card": card, "evaluation": evaluation}))
+    log(json.dumps({"card": card, "trainer": trainer}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

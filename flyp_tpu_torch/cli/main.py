@@ -1,0 +1,62 @@
+"""The FLYP trainer's command line.
+
+Counterpart of ``flyp_tpu/cli/main.py``, with its flags
+(``flyp_tpu_torch.config``) and one more, ``--device`` (``cuda``, the
+default, or ``cpu``)::
+
+    python -m flyp_tpu_torch.cli.main --model ViT-B/16 --ft_data train.tsv \\
+        --train-dataset ImageNet --template openai_imagenet_template \\
+        --eval-datasets ImageNet,ImageNetR --data-location ~/data \\
+        --batch-size 256 --epochs 10 --data_backend native --workers 6 \\
+        --save checkpoints --exp_name flyp
+
+Run directories are keyed ``<exp_name>/_BS{bs}_WD{wd}_LR{lr}_run{n}`` under
+``--save`` (checkpoints) and ``expt_logs/`` (log, stats TSVs, metrics).
+``--ce_ablation`` and ``--progress_validation`` are ROADMAP item A11.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import List, Optional
+
+from flyp_tpu_torch.config import ExperimentConfig, parse_arguments
+from flyp_tpu_torch.utils.logging import get_logger
+
+
+def parse_main_arguments(argv: Optional[List[str]] = None) -> ExperimentConfig:
+    """The trainer's flags plus ``--device``."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ns, rest = pre.parse_known_args(argv)
+    cfg = parse_arguments(rest)
+    cfg.device = ns.device
+    return cfg
+
+
+def main(cfg=None):
+    cfg = cfg or parse_main_arguments()
+    for flag, trainer in (("ce_ablation", "the CE-ablation trainer"),
+                          ("progress_validation", "the progress-validation trainer")):
+        if getattr(cfg, flag):
+            raise NotImplementedError(
+                f"--{flag} runs {trainer}, which is not ported yet: ROADMAP.md, item A11 (research trainers)")
+
+    run_key = cfg.run_key()
+    exp = cfg.exp_name or "flyp"
+    if cfg.save is not None:
+        cfg.save = os.path.join(cfg.save, exp, run_key)
+        os.makedirs(cfg.save, exist_ok=True)
+    cfg.log_dir = os.path.join("expt_logs", exp, run_key)
+    os.makedirs(cfg.log_dir, exist_ok=True)
+    logger = get_logger(cfg.log_dir)
+    logger.info(cfg)
+
+    from flyp_tpu_torch.training.flyp import flyp_train
+
+    return flyp_train(cfg, logger)
+
+
+if __name__ == "__main__":
+    main()

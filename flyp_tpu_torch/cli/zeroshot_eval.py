@@ -10,6 +10,9 @@ unless a caller asks for the CPU)::
         --template openai_imagenet_template \\
         --eval-datasets ImageNet,ImageNetR,ObjectNet \\
         --data-location ~/data --batch-size 256 --workers 6
+
+``--save DIR`` also writes the head to ``DIR/zeroshot_head``
+(``utils/checkpoint.py::save_params``; ``restore_params`` reads it).
 """
 
 from __future__ import annotations
@@ -21,15 +24,12 @@ from flyp_tpu_torch.evaluation.classifier import Classifier
 from flyp_tpu_torch.evaluation.evaluator import evaluate
 from flyp_tpu_torch.models.factory import build_clip_model
 from flyp_tpu_torch.training.flyp import build_zeroshot_head
+from flyp_tpu_torch.utils.checkpoint import save_params
 from flyp_tpu_torch.utils.logging import get_logger
 
 
 def main(cfg=None):
     cfg = cfg or parse_arguments()
-    if cfg.save is not None:
-        raise NotImplementedError(
-            "--save stores the zero-shot head through save_params, which comes with the torch-native "
-            "checkpoint format (ROADMAP.md, item A7: checkpoint/resume)")
     cfg.log_dir = cfg.log_dir or os.path.join("expt_logs", cfg.exp_name or "zeroshot", cfg.run_key())
     logger = get_logger(cfg.log_dir)
 
@@ -41,6 +41,10 @@ def main(cfg=None):
     evaluate(classifier, cfg, train_stats, logger)
     for key, value in train_stats.items():
         logger.info(f"{key}: {value}")
+
+    if cfg.save is not None:
+        path = save_params(os.path.join(cfg.save, "zeroshot_head"), {"weight": head.weight, "bias": head.bias})
+        logger.info(f"Saved zero-shot head to {path}")
     return train_stats
 
 

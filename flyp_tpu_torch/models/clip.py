@@ -26,9 +26,10 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tens
 
 class CLIPModel(nn.Module):
     """Parameters are float32 (the JAX tree's storage type); matrices are
-    cast to ``compute_dtype`` where they are used."""
+    cast to ``compute_dtype`` where they are used.  ``remat`` recomputes
+    activations of both towers' blocks in the backward (``models/layers.py``)."""
 
-    def __init__(self, config: CLIPConfig, compute_dtype: torch.dtype = torch.float32):
+    def __init__(self, config: CLIPConfig, compute_dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         if not config.vision.is_vit:
             raise NotImplementedError(
@@ -36,8 +37,9 @@ class CLIPModel(nn.Module):
             )
         self.config = config
         self.compute_dtype = compute_dtype
-        self.visual = VisionTransformer(config.vision, config.embed_dim)
-        self.text = TextTransformer(config.text, config.embed_dim)
+        self.remat = remat
+        self.visual = VisionTransformer(config.vision, config.embed_dim, remat=remat)
+        self.text = TextTransformer(config.text, config.embed_dim, remat=remat)
         self.logit_scale = nn.Parameter(torch.tensor(config.logit_scale_init, dtype=torch.float32))
 
     def init_parameters(self, seed: int = 0) -> "CLIPModel":

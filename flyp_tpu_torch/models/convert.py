@@ -5,6 +5,8 @@ uses the JAX param tree's names joined by dots (``visual.transformer.
 block_0.attn.qkv_kernel``) and its layouts, so:
 
 * :func:`from_jax_params` flattens a JAX Flax param tree (numpy leaves);
+* :func:`from_jax_train_state` carries a JAX train state (params, optax's
+  Adam moments and count, step) onto a port model and its AdamW state;
 * :func:`convert_clip_state_dict` reads the OpenAI torch key layout (what
   real OpenAI ``.pt`` files and the JAX package's ``export_clip_state_dict``
   + ``save_torch_checkpoint`` hold): Linear ``[out, in]`` -> ``[in, out]``,
@@ -33,8 +35,16 @@ def _f32(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))  # a writable copy, 0-d kept 0-d
 
 
-def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A JAX CLIP param tree (nested dicts of arrays) -> the port's state dict."""
+def _as_stored(x) -> torch.Tensor:
+    """A host array as a CPU tensor of its own dtype; bfloat16 (numpy's
+    ``ml_dtypes`` type, which torch cannot take) through its bits."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _flatten(tree: Mapping[str, Any], leaf=_f32) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node, prefix):
@@ -42,10 +52,54 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for k, v in node.items():
                 walk(v, f"{prefix}.{k}" if prefix else str(k))
         else:
-            out[prefix] = _f32(node)
+            out[prefix] = leaf(node)
 
-    walk(params, "")
+    walk(tree, "")
     return out
+
+
+def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX CLIP param tree (nested dicts of arrays) -> the port's state dict."""
+    return _flatten(params)
+
+
+def _adam_state(node):
+    """The first node of an optax state tree with ``mu``, ``nu`` and
+    ``count`` (``ScaleByAdamState``, inside ``inject_hyperparams`` and a
+    chain for the bf16-moment optimizer)."""
+    if all(hasattr(node, f) for f in ("mu", "nu", "count")):
+        return node
+    children = node.values() if isinstance(node, Mapping) else node if isinstance(node, (tuple, list)) else ()
+    for child in children:
+        found = _adam_state(child)
+        if found is not None:
+            return found
+    return None
+
+
+def from_jax_train_state(params: Mapping[str, Any], opt_state, step, model):
+    """A JAX ``TrainState``'s parts (host arrays) -> a port ``TrainState``
+    over ``model``: the params loaded into the model (``from_jax_params``),
+    optax's ``mu``/``nu`` trees flattened the same way and laid out in
+    ``model.parameters()`` order in their stored dtype, and the update
+    count as an int32 scalar, all on the model's device."""
+    from flyp_tpu_torch.training.train_state import AdamWState, TrainState
+
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("the optimizer state holds no Adam moments (mu, nu, count)")
+    model.load_state_dict(from_jax_params(params), strict=True)
+    names = [name for name, _ in model.named_parameters()]
+    device = model.logit_scale.device
+    moments = []
+    for tree in (adam.mu, adam.nu):
+        flat = _flatten(tree, leaf=_as_stored)
+        if set(flat) != set(names):
+            raise ValueError(f"the moments' names differ from the model's: {sorted(set(flat) ^ set(names))[:5]}")
+        moments.append([flat[n].to(device) for n in names])
+    count = torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32, device=device)
+    model.train().requires_grad_(True)
+    return TrainState(step=int(np.asarray(step)), model=model, opt_state=AdamWState(count, *moments))
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

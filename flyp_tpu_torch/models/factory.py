@@ -2,8 +2,10 @@
 
 Counterpart of ``flyp_tpu/models/factory.py``: ``cfg.clip_load`` names a
 torch ``.pt``/``.bin`` checkpoint (OpenAI layout, loaded through the
-converter); without one, weights are drawn from CLIP's init distributions
-with a ``torch.Generator`` seeded from ``cfg.seed``.
+converter) or a checkpoint directory of ``utils/checkpoint.py`` (a trainer
+checkpoint or a bare ``save_params`` tree); without one, weights are drawn
+from CLIP's init distributions with a ``torch.Generator`` seeded from
+``cfg.seed``.
 """
 
 from __future__ import annotations
@@ -35,24 +37,58 @@ def build_clip_model(cfg, config_override: Optional[CLIPConfig] = None, device="
     (``training/train_state.py::create_train_state`` makes it trainable)."""
     device = resolve_device(device)
     compute_dtype = _DTYPES[cfg.compute_dtype]
+    remat = getattr(cfg, "remat", False)
     load_path = cfg.clip_load
     if load_path and (load_path.endswith(".pt") or load_path.endswith(".bin")):
         state, config = convert.convert_clip_state_dict(convert.load_torch_checkpoint(load_path), config_override)
-        model = CLIPModel(config, compute_dtype)
+        model = CLIPModel(config, compute_dtype, remat=remat)
         model.load_state_dict(state, strict=True)
-    elif load_path:
-        if os.path.isdir(load_path):
-            raise NotImplementedError(
-                f"{load_path!r} is a checkpoint directory; the torch-native checkpoint format is not "
-                "ported yet (ROADMAP.md, item A7: checkpoint/resume).  Export it to a .pt with "
-                "flyp_tpu.models.convert.export_clip_state_dict + save_torch_checkpoint."
-            )
-        raise FileNotFoundError(f"checkpoint path {load_path!r} is not a torch .pt/.bin file")
+        return model.to(device).eval().requires_grad_(False)
+    if config_override is not None:
+        config = config_override
     else:
-        if config_override is not None:
-            config = config_override
-        else:
-            key, _source = resolve_model_name(cfg.model)
-            config = MODEL_CONFIGS[key]
-        model = CLIPModel(config, compute_dtype).init_parameters(getattr(cfg, "seed", 0))
+        key, _source = resolve_model_name(cfg.model)
+        config = MODEL_CONFIGS[key]
+    model = CLIPModel(config, compute_dtype, remat=remat)
+    if load_path:
+        if not os.path.isdir(load_path):
+            raise FileNotFoundError(
+                f"--clip_load path {load_path!r} is neither a torch .pt/.bin file nor a checkpoint directory")
+        _load_checkpoint_dir(load_path, cfg.model, model)
+    else:
+        model.init_parameters(getattr(cfg, "seed", 0))
     return model.to(device).eval().requires_grad_(False)
+
+
+def _load_checkpoint_dir(load_path: str, model_name: str, model: CLIPModel,
+                         batch_stats: Optional[dict] = None) -> None:
+    """Load a checkpoint directory's params into ``model``: a trainer
+    checkpoint (whose moments are never read) or a bare ``save_params``
+    tree.  The saved names and shapes are checked against the model first
+    (a ViT-B/32 checkpoint has a B/16 model's names but not its shapes),
+    and a model with BatchNorm statistics (``batch_stats``) refuses a
+    checkpoint that carries none.
+
+    Port of ``flyp_tpu/models/factory.py::_load_checkpoint_dir``."""
+    from flyp_tpu_torch.utils import checkpoint
+
+    checkpoint.wait_for_saves()  # a just-written checkpoint must be committed first
+    meta = checkpoint.read_meta(load_path)
+    saved = checkpoint.load_tensors(load_path, mmap=True)  # names and shapes; data read on copy
+    want = model.state_dict()
+    if set(saved) != set(want):
+        raise ValueError(f"--clip_load checkpoint at {load_path} does not match model {model_name}: "
+                         "parameter tree structures differ")
+    mismatches = [f"{k}: saved {tuple(saved[k].shape)} vs model {tuple(v.shape)}"
+                  for k, v in want.items() if tuple(saved[k].shape) != tuple(v.shape)]
+    if mismatches:
+        raise ValueError(f"--clip_load checkpoint at {load_path} does not match model {model_name}: "
+                         "parameter shapes differ — " + "; ".join(mismatches[:5]))
+    saved_stats = (checkpoint.load_tensors(load_path, checkpoint.STATS_FILE, mmap=True)
+                   if meta["kind"] == "trainer" else {})
+    if batch_stats is not None and not saved_stats:
+        raise ValueError(
+            f"--clip_load checkpoint at {load_path} carries no batch_stats but model {model_name} has "
+            "BatchNorm towers: serving trained conv weights with fresh running statistics would be silently "
+            "wrong. Load a trainer checkpoint or a torch .pt (both carry BN stats).")
+    model.load_state_dict(saved, strict=True)

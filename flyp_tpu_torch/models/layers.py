@@ -20,6 +20,13 @@ type, as the JAX package leaves them to XLA.  Parameter names and shapes
 follow the JAX param tree under every impl (``ln_1.scale``,
 ``attn.qkv_kernel [3, D, D]``, ``mlp.fc_kernel [D, 4D]``...), so carrying
 weights across is a rename and a checkpoint loads under any impl.
+
+``remat`` (``--remat``) recomputes activations in the backward
+(``torch.utils.checkpoint``) as the JAX ``remat`` policy does: under the
+fused routes only the MLP sub-block is recomputed (JAX saves the fused
+attention block's residuals by name), under the others the whole block (no
+names to save, so JAX's policy becomes full per-block remat).  The values,
+and so the gradients, are those of the run without it.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import os
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from flyp_tpu_torch.ops.attention import _default_impl, multi_head_attention
 from flyp_tpu_torch.ops.attention_block import attention_block, attention_block_inference
@@ -149,14 +157,15 @@ class ResidualBlock(nn.Module):
     sub-block, each on the route ``FLYP_ATTENTION_IMPL`` picks (module
     docstring).  Under the fused routes the module's ``training`` flag picks
     the attention op (JAX's ``train`` argument): the training op keeps the
-    forward's residuals for the backward; the inference op does not
-    (per-block rematerialisation, the JAX ``remat`` option, is not ported
-    yet)."""
+    forward's residuals for the backward; the inference op does not.  With
+    ``remat`` a forward that records gradients recomputes the MLP sub-block
+    (fused routes) or the whole block (other routes) in the backward."""
 
-    def __init__(self, width: int, heads: int, causal: bool = False):
+    def __init__(self, width: int, heads: int, causal: bool = False, remat: bool = False):
         super().__init__()
         self.heads = heads
         self.causal = causal
+        self.remat = remat
         self.ln_1 = LayerNormFp32(width)
         self.attn = MultiHeadAttention(width, heads, causal)
         self.ln_2 = LayerNormFp32(width)
@@ -180,18 +189,25 @@ class ResidualBlock(nn.Module):
             return mlp_block(x, self.ln_2.scale, self.ln_2.bias, m.fc_kernel, m.fc_bias, m.proj_kernel, m.proj_bias)
         return x + self.mlp(self.ln_2(x))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
         return self.feed_forward(self.attention(x))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._block(x)
+        if _default_impl() in ("pallas_block", "pallas_block_mlp"):
+            return checkpoint(self.feed_forward, self.attention(x), use_reentrant=False)
+        return checkpoint(self._block, x, use_reentrant=False)
 
 
 class Transformer(nn.Module):
     """Stack of residual blocks named ``block_{i}`` as in the JAX tree."""
 
-    def __init__(self, width: int, layers: int, heads: int, causal: bool = False):
+    def __init__(self, width: int, layers: int, heads: int, causal: bool = False, remat: bool = False):
         super().__init__()
         self.layers = layers
         for i in range(layers):
-            self.add_module(f"block_{i}", ResidualBlock(width, heads, causal))
+            self.add_module(f"block_{i}", ResidualBlock(width, heads, causal, remat))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.layers):

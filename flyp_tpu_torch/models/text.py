@@ -16,13 +16,13 @@ from flyp_tpu_torch.models.layers import LayerNormFp32, Transformer, _normal_
 
 
 class TextTransformer(nn.Module):
-    def __init__(self, config: TextConfig, embed_dim: int):
+    def __init__(self, config: TextConfig, embed_dim: int, remat: bool = False):
         super().__init__()
         self.config = config
         cfg = config
         self.token_embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.width))
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, cfg.width))
-        self.transformer = Transformer(cfg.width, cfg.layers, cfg.heads, causal=True)
+        self.transformer = Transformer(cfg.width, cfg.layers, cfg.heads, causal=True, remat=remat)
         self.ln_final = LayerNormFp32(cfg.width)
         self.text_projection = nn.Parameter(torch.empty(cfg.width, embed_dim))
 

@@ -15,7 +15,7 @@ from flyp_tpu_torch.models.layers import LayerNormFp32, Transformer, _normal_
 
 
 class VisionTransformer(nn.Module):
-    def __init__(self, config: VisionConfig, embed_dim: int):
+    def __init__(self, config: VisionConfig, embed_dim: int, remat: bool = False):
         super().__init__()
         self.config = config
         cfg = config
@@ -24,7 +24,7 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(W))
         self.positional_embedding = nn.Parameter(torch.empty(cfg.seq_len, W))
         self.ln_pre = LayerNormFp32(W)
-        self.transformer = Transformer(W, cfg.layers, cfg.heads, causal=False)
+        self.transformer = Transformer(W, cfg.layers, cfg.heads, causal=False, remat=remat)
         self.ln_post = LayerNormFp32(W)
         self.proj = nn.Parameter(torch.empty(W, embed_dim))
 

@@ -3,8 +3,8 @@
 Counterpart of the data half of ``flyp_tpu/training/flyp.py::flyp_train``:
 which loader an epoch reads (:func:`train_loader`), the copy of its batches
 to the card (:func:`device_iter`), and the check that step checkpoints can
-resume exactly (:func:`check_resumable`).  The port's trainer (ROADMAP A6)
-calls these.
+resume exactly (:func:`check_resumable`).  The trainer
+(``training/flyp.py``) calls these.
 
 ``--data_backend tfdata`` and ``grain`` are refused by name: the JAX
 package reads CSV through ``tf.data`` or Grain there, with their own data
@@ -91,7 +91,7 @@ def check_resumable(cfg) -> None:
     if cfg.save_every_n_steps or cfg.max_steps:
         if getattr(cfg, "data_backend", "threads") == "tfdata" or is_webdataset(cfg.ft_data, cfg.dataset_type):
             raise ValueError(
-                "--save_every_n_steps/--max_steps need the threads/native/grain "
+                "--save_every_n_steps/--max_steps need the threads/native "
                 "CSV backends (deterministic mid-epoch fast-forward); "
                 f"data_backend={cfg.data_backend!r} or webdataset streams are unsupported"
             )

@@ -159,3 +159,12 @@ def test_check_resumable(flags, refused):
             check_resumable(cfg)
     else:
         check_resumable(cfg)
+
+
+def test_check_resumable_names_the_ported_backends():
+    """``grain`` is refused by ``train_loader``, so the message names only
+    the backends that resume."""
+    cfg = config.parse_arguments(["--max_steps", "5", "--ft_data", "x.tsv", "--data_backend", "tfdata"])
+    with pytest.raises(ValueError) as err:
+        check_resumable(cfg)
+    assert "need the threads/native CSV backends" in str(err.value) and "grain" not in str(err.value)

@@ -8,6 +8,7 @@ runs without the repo's conftest (which sets JAX up):
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -797,3 +798,55 @@ def test_evaluate_on_card(card, tmp_path):
     assert launches == {"cpu": 0, "cuda": tiny.vision.layers * 3}  # 40 images in batches of 16
     assert list(stats["cuda"]) == list(stats["cpu"]) and stats["cuda"] == stats["cpu"]
     assert "ImageNet Class 19 Number" in stats["cuda"]
+
+
+def test_trainer_resumes_bit_for_bit_on_card(card, tmp_path):
+    """``flyp_train`` for 2 epochs on the card (a 2-layer ViT, bf16, bf16
+    moments, curriculum over guidance 50 and 100), and the same run stopped
+    once by ``--max_steps`` and resumed: both epochs' checkpoints bit-equal,
+    B1/B2 launched once per block per step."""
+    from types import SimpleNamespace
+
+    from PIL import Image
+
+    from flyp_tpu_torch.config import ExperimentConfig
+    from flyp_tpu_torch.data.classnames import openai_classnames
+    from flyp_tpu_torch.models import build_clip_model
+    from flyp_tpu_torch.training import flyp
+    from flyp_tpu_torch.utils import checkpoint
+
+    cfg = MODEL_CONFIGS["ViT-B/16"]
+    tiny = dataclasses.replace(cfg, embed_dim=64,
+                               vision=dataclasses.replace(cfg.vision, image_size=32, width=128, layers=2, heads=2),
+                               text=dataclasses.replace(cfg.text, width=128, heads=2, layers=2))
+    _eval_tree(tmp_path)
+    rng = np.random.default_rng(4)
+    rows = ["title\tfilepath\tlabel\tguidance\timg_id"]
+    for i in range(32):
+        path = tmp_path / "train" / f"{i}.png"
+        path.parent.mkdir(exist_ok=True)
+        Image.fromarray(rng.integers(0, 256, (40 + i, 48, 3), dtype=np.uint8)).save(path)
+        rows.append(f"a photo of a {openai_classnames[i % 20]}.\t{path}\t{i % 20}\t{(100, 50)[i % 2]}\t{i}")
+    (tmp_path / "train.tsv").write_text("\n".join(rows) + "\n")
+    spec = SimpleNamespace(model="ViT-B/16", clip_load=None, compute_dtype="bfloat16", seed=0)
+
+    def run(name, **flags):
+        run_cfg = ExperimentConfig(ft_data=str(tmp_path / "train.tsv"), data_location=str(tmp_path),
+                                   train_dataset="ImageNet", template="simple_template", eval_datasets=["ImageNet"],
+                                   batch_size=8, epochs=2, curriculum=True, workers=2, adam_moment_dtype="bfloat16",
+                                   save=str(tmp_path / name / "ckpt"), log_dir=str(tmp_path / name / "logs"), **flags)
+        return flyp.flyp_train(run_cfg, model=build_clip_model(spec, config_override=tiny, device=card))
+
+    before = tab.attention_block.fwd_launches, tab.attention_block.bwd_launches
+    assert os.path.basename(run("a")) == "checkpoint_1"
+    assert os.path.basename(run("b", max_steps=3)) == "checkpoint_0_step_2"
+    assert os.path.basename(run("b")) == "checkpoint_1"
+    per_run = 2 * 4 * (tiny.vision.layers + tiny.text.layers)  # 2 epochs of 4 steps
+    assert (tab.attention_block.fwd_launches - before[0], tab.attention_block.bwd_launches - before[1]) == (
+        2 * per_run, 2 * per_run)
+    for epoch in (0, 1):
+        a, b = (tmp_path / name / "ckpt" / f"checkpoint_{epoch}" for name in ("a", "b"))
+        for file in ("params.pt", "opt_state.pt"):
+            ta, tb = checkpoint.load_tensors(str(a), file), checkpoint.load_tensors(str(b), file)
+            assert list(ta) == list(tb) and all(torch.equal(ta[k], tb[k]) for k in ta), (epoch, file)
+    assert (tmp_path / "a" / "logs" / "stats.tsv").read_text() == (tmp_path / "b" / "logs" / "stats.tsv").read_text()

@@ -327,11 +327,14 @@ def test_zeroshot_eval_cli_matches_jax(trees, tiny, tmp_path, train_dataset, tem
 
 
 def test_zeroshot_eval_cli_refusals(tiny, tmp_path):
-    cfg = ExperimentConfig(clip_load=tiny.ckpt, model="ViT-B/16", save=str(tmp_path / "head"), device="cpu",
+    orbax_dir = tmp_path / "orbax"
+    orbax_dir.mkdir()
+    (orbax_dir / "_CHECKPOINT_METADATA").write_text("{}")
+    cfg = ExperimentConfig(clip_load=str(orbax_dir), model="ViT-B/16", save=str(tmp_path / "head"), device="cpu",
                            log_dir=str(tmp_path / "logs"))
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(ValueError, match="tools/export_checkpoint.py"):  # the JAX package's orbax directory
         zeroshot_eval.main(cfg)
-    assert not os.path.exists(tmp_path / "head") and not os.path.exists(tmp_path / "logs")
+    assert not os.path.exists(tmp_path / "head")
     if not torch.cuda.is_available():
         cfg = ExperimentConfig(clip_load=tiny.ckpt, model="ViT-B/16", log_dir=str(tmp_path / "logs"))
         assert cfg.device == "cuda"

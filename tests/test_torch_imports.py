@@ -1,5 +1,6 @@
-"""The port stands alone: no JAX-family or flyp_tpu import anywhere in
-``flyp_tpu_torch`` or ``chip_smoke.py``, statically and at run time."""
+"""The port stands alone: no JAX-family, flyp_tpu or scikit-learn import
+anywhere in ``flyp_tpu_torch`` or ``chip_smoke.py``, statically and at run
+time."""
 
 import ast
 import os
@@ -8,7 +9,7 @@ import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "flyp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "flyp_tpu", "sklearn")
 
 
 def _imported_roots(path: pathlib.Path):

@@ -169,5 +169,5 @@ def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CLIPModel(MODEL_CONFIGS["RN50"])
     cfg = SimpleNamespace(model="ViT-B/16", clip_load=str(tmp_path), compute_dtype="float32", seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_clip_model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="not a checkpoint directory of this package"):
+        build_clip_model(cfg, device="cpu")  # a directory without the port's meta.json
