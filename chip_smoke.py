@@ -8,6 +8,7 @@
     python3 chip_smoke.py --input              # only the input pipeline (phase 5b) and a synthetic bench
     python3 chip_smoke.py --eval               # only the evaluation harness (phase 9)
     python3 chip_smoke.py --trainer            # only the FLYP trainer (phase 10)
+    python3 chip_smoke.py --resnet             # only the RN50 towers and the chunked step (phase 11)
 
 Phases, each of which raises on failure:
 
@@ -121,10 +122,28 @@ Phases, each of which raises on failure:
    parameters of 13 without it, at a lower peak.  Seconds per epoch
    (train, the save's blocking part, its background commit, head,
    evaluation), fed img/s and peak memory go to a ``"trainer"`` line.
+11. the ModifiedResNet towers and the chunked (GradCache) step on the
+   default route: RN50 at full width (one fp32 step's loss, gradients and
+   updated running statistics on the card against the CPU plain step, and
+   bf16 against the same; 13 steps of the bench configuration with B1 = B2
+   = 12 a step exactly and no B3, the statistics moving, a learning check);
+   the chunked RN50 step (256 = 2 x 128, bf16) against the chunk-wise oracle
+   on the card (loss, gradients, the statistics chained over both chunks);
+   the chunked ViT-B/16 step at 512 = 4 x 128 against the direct step at
+   512 (loss, per-tensor gradient cosines, launches B1 = 24 x 2 x 4 and B2
+   = 24 x 4 a step against 24 and 24, ms a step and peak memory); the RN50
+   trainer through ``cli/main.py`` with ``--grad_cache_chunks 2`` on the
+   input phase's corpus and phase 9's ImageNet val tree, the same command
+   stopped by ``--max_steps 5 --save_every_n_steps 3`` and resumed,
+   ``checkpoint_0`` bit-equal (params, moments, ``batch_stats.pt``, meta),
+   launches exact, the checkpoint reloaded through ``cli/zeroshot_eval`` to
+   the logged top-1; ``ClipServer.from_checkpoint`` on an RN50 ``.pt`` with
+   moved running statistics (a 256-image ``classify``, B3 exact, features
+   against the CPU plain forward).  Its numbers go to a ``"resnet"`` line.
 
 The products' numbers are a JSON line of their own (``"gemm"``), the input
-pipeline's, the evaluation's and the trainer's too (``"input"``,
-``"evaluation"``, ``"trainer"``); the line
+pipeline's, the evaluation's, the trainer's and phase 11's too (``"input"``,
+``"evaluation"``, ``"trainer"``, ``"resnet"``); the line
 before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -830,8 +849,10 @@ def bench_training(model, impl: str, card: str):
     """13 steps of the bench configuration (batch 256, bf16, bf16 Adam
     moments) under the route ``impl``, with every kernel's launches checked
     exactly (the route's own kernels once per block per step, no other):
-    ``(state, step, images, tokens, results)``."""
-    px, layers_v, layers_t = model_shape()
+    ``(state, step, images, tokens, results)``.  A ModifiedResNet's image
+    tower has no transformer blocks (its config's ``layers`` is 0)."""
+    c = model.config
+    px, layers_v, layers_t = c.vision.image_size, c.vision.layers, c.text.layers
     opt = make_optimizer(warmup_cosine_lr(1e-5, 500, 10_000), weight_decay=0.1, moment_dtype="bfloat16")
     state = create_train_state(model, opt)
     step = make_train_step(model, opt)
@@ -1764,6 +1785,410 @@ def phase_trainer(card: str, seed: int = 0) -> dict:
     return out
 
 
+# Phase 11: the ModifiedResNet towers (RN50: BatchNorm state) and the chunked
+# (GradCache) step, on the default route.
+RN_MODEL = "RN50"
+RN_CHUNKS = 2  # the chunked RN50 step: 256 = 2 x 128
+VIT_CHUNKED = (512, 4)  # the chunked ViT-B/16 step: 512 = 4 x 128
+VIT_CHUNKED_STEPS = 5  # timed, after one untimed
+RN_TRAINER_INTERRUPTS = (("--max_steps", "5", "--save_every_n_steps", "3"), ())
+RN_TRAINER_RETURNS = ("checkpoint_0_step_4", "checkpoint_0")
+RN_SERVE_BATCH = 256
+RN_BF16_LOSS = 2e-2  # the bf16 RN50 step's loss against the CPU fp32 step (phase 5's bound)
+
+
+class GradCapture:
+    """An optimizer that keeps a step's gradients (fp32, on the device) and
+    updates nothing: how a step's gradients are read beside an oracle's."""
+
+    def init(self, params):
+        from flyp_tpu_torch.training.train_state import AdamWState
+
+        return AdamWState(count=torch.zeros((), dtype=torch.int32, device=next(iter(params)).device), mu=[], nu=[])
+
+    def update(self, params, grads, state, frozen=None):
+        self.grads = [g.detach().float().clone() for g in grads]
+        return torch.zeros((), device=state.count.device)
+
+
+def rn_cfg(dtype: str, model: str = RN_MODEL) -> SimpleNamespace:
+    return SimpleNamespace(model=model, clip_load=None, compute_dtype=dtype, seed=0)
+
+
+def stats_of(model) -> dict:
+    """A host copy of the running statistics (a copy on the CPU too, where
+    the next train-mode forward updates the buffers in place)."""
+    return {k: v.detach().to("cpu", torch.float32, copy=True) for k, v in model.named_buffers()}
+
+
+def stats_rel_err(stats, ref) -> float:
+    """The largest ||a - b|| / ||b|| over the running statistics."""
+    return max(float((stats[k] - v).norm() / v.norm()) for k, v in ref.items())
+
+
+def stats_moved(stats, before) -> float:
+    """The largest change of a running statistic."""
+    return max(float((stats[k] - v).abs().max()) for k, v in before.items())
+
+
+# The attention pool's k bias has an exact gradient of 0 (a constant added to
+# every key leaves the softmax unchanged): its cosine is a ratio of rounding
+# noise, so it is held to a norm below 1e-5 of the largest gradient instead.
+ZERO_GRADS = ("visual.attnpool.k_proj.bias",)
+
+
+def grad_report(grads, ref, names, min_cos: float, where: str, select=None) -> dict:
+    """Per-tensor cosines of two gradient lists over the parameters that
+    ``select(name)`` keeps (all by default); raises below ``min_cos``."""
+    grads, ref = [g.cpu() for g in grads], [g.cpu() for g in ref]
+    largest = max(float(g.norm()) for g in ref)
+    keep = [i for i, n in enumerate(names) if n not in ZERO_GRADS and (select is None or select(n))]
+    for i, n in enumerate(names):
+        if n in ZERO_GRADS and max(float(grads[i].norm()), float(ref[i].norm())) > 1e-5 * largest:
+            raise AssertionError(f"{where}: {n}'s gradient is not ~0: {grads[i].norm()}, {ref[i].norm()}")
+    cos = grad_cosines([grads[i] for i in keep], [ref[i] for i in keep])
+    rel = max(float((grads[i] - ref[i]).norm() / ref[i].norm()) for i in keep if float(ref[i].norm()) > 0)
+    if min(cos) < min_cos:
+        raise AssertionError(f"{where}: gradients drift, worst {sorted(zip(cos, [names[i] for i in keep]))[:5]}")
+    return {"min_grad_cosine": min(cos), "max_grad_rel_err": rel}
+
+
+# The fp32 card step may differ from the CPU's by SPREAD_FACTOR times the
+# CPU's own spread (the same step at one thread against all threads).
+SPREAD_FACTOR = 4
+
+
+def rn_step_check(images, tokens) -> dict:
+    """One RN50 step's loss, gradients and updated running statistics at
+    B=4, full width, the card against the CPU plain step (all threads).
+
+    A random-init BatchNorm ResNet in training mode amplifies rounding:
+    batch statistics couple the images (Yang et al. 2019, "A Mean Field
+    Theory of Batch Normalization"), and a ReLU after a BatchNorm whose
+    channel is nearly constant over the batch masks outputs of rounding
+    size, so the order of an fp32 sum alone moves the image tower's
+    gradients.
+    fp32 is therefore held to the CPU's own spread, the same step at one
+    thread against all threads: least gradient cosine at least 1 -
+    SPREAD_FACTOR (1 - the spread's), loss within SPREAD_FACTOR times the
+    spread's rel err (each no tighter than phase 5's 0.9999 and 1e-4),
+    running statistics within 1e-4.  In bf16 a rounding is 2**16 times an
+    fp32 one: the image features move far more and, through the loss,
+    every gradient with them, so bf16 is held to the loss alone
+    (RN_BF16_LOSS, phase 5's bound) and its cosines and statistics are
+    recorded.  The bf16 tower is held where it is not chaotic: in eval mode
+    (the serving check) and against the chunked step's oracle, which runs
+    the same kernels."""
+    out = {}
+    threads = torch.get_num_threads()
+    refs = {}
+    for n in (threads, 1):
+        t0 = time.perf_counter()
+        torch.set_num_threads(n)
+        cpu = build_clip_model(rn_cfg("float32"), device="cpu").train().requires_grad_(True)
+        refs[n] = (*loss_and_grads(cpu, torch.from_numpy(images), torch.from_numpy(tokens)), stats_of(cpu))
+        log(f"resnet: CPU plain {RN_MODEL} step, fp32, B=4, {n} threads: loss {refs[n][0]:.7f} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    torch.set_num_threads(threads)
+    names = [n for n, _ in cpu.named_parameters()]
+    del cpu
+    ref_loss, ref_grads, ref_stats = refs[threads]
+    spread = grad_report(refs[1][1], ref_grads, names, -1.0, "the CPU's own spread")
+    spread["loss_rel_err"] = abs(refs[1][0] - ref_loss) / abs(ref_loss)
+    out["cpu_spread"] = spread
+    bounds = {"float32": (min(0.9999, 1 - SPREAD_FACTOR * (1 - spread["min_grad_cosine"])),
+                          max(1e-4, SPREAD_FACTOR * spread["loss_rel_err"]), 1e-4),
+              "bfloat16": (-1.0, RN_BF16_LOSS, math.inf)}
+    for name, (min_cos, loss_tol, stats_tol) in bounds.items():
+        model = build_clip_model(rn_cfg(name), device="cuda").train().requires_grad_(True)
+        before = stats_of(model)
+        loss, grads = loss_and_grads(model, torch.from_numpy(images).cuda(), torch.from_numpy(tokens).cuda())
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        where = f"{RN_MODEL} {name} step against the CPU"
+        rep = grad_report(grads, ref_grads, names, min_cos, where)
+        if name != "float32":
+            rep["text_min_grad_cosine"] = grad_report(grads, ref_grads, names, -1.0, where,
+                                                      select=lambda n: not n.startswith("visual."))["min_grad_cosine"]
+        stats_err = stats_rel_err(stats_of(model), ref_stats)
+        moved = stats_moved(stats_of(model), before)
+        log(f"resnet: card {RN_MODEL} step, {name}, B=4: loss {loss:.7f} (rel err {rel:.3g}, bound {loss_tol:.3g}), "
+            f"min grad cosine {rep['min_grad_cosine']:.7f} (bound {min_cos:.7f}), running statistics rel err "
+            f"{stats_err:.3g} (moved {moved:.3g}); the CPU's own spread: min cosine {spread['min_grad_cosine']:.7f}, "
+            f"loss rel err {spread['loss_rel_err']:.3g}"
+            + (f"; text tower and scale min cosine {rep['text_min_grad_cosine']:.4f}" if name != "float32" else ""))
+        if rel > loss_tol or stats_err > stats_tol or not math.isfinite(stats_err) or moved == 0.0:
+            raise AssertionError(f"{RN_MODEL} {name} step drifts from the CPU plain step: loss rel err {rel}, "
+                                 f"statistics rel err {stats_err}, moved {moved}")
+        out[name] = {"loss_rel_err": rel, **rep, "stats_rel_err": stats_err, "bounds": [min_cos, loss_tol]}
+        del model, grads
+    return out
+
+
+def rn_chunked_check(images, tokens, layers_t: int) -> dict:
+    """The chunked RN50 step (256 = 2 x 128, bf16) against the chunk-wise
+    oracle on the card: per-chunk forwards under autograd (the running
+    statistics chained), concatenated, one loss, one backward."""
+    model = build_clip_model(rn_cfg("bfloat16"), device="cuda")
+    oracle = build_clip_model(rn_cfg("bfloat16"), device="cuda").train().requires_grad_(True)
+    cap = GradCapture()
+    state = create_train_state(model, cap)
+    step = make_train_step(model, cap, grad_cache_chunks=RN_CHUNKS)
+    reset_counts()
+    # ---- the chunked RN50 step: counts start at 0 here ----------------------
+    state, metrics = step(state, images, tokens)
+    loss = float(metrics["loss"])
+    # ---- end of the chunked step --------------------------------------------
+    expect_counts("the chunked RN50 step", B1=layers_t * RN_CHUNKS * 2, B2=layers_t * RN_CHUNKS)
+    m = images.shape[0] // RN_CHUNKS
+    feats = [oracle(images[i:i + m], tokens[i:i + m]) for i in range(0, images.shape[0], m)]
+    ref = clip_loss(torch.cat([f[0] for f in feats]), torch.cat([f[1] for f in feats]), feats[0][2]).mean()
+    ref_grads = torch.autograd.grad(ref, list(oracle.parameters()))
+    names = [n for n, _ in model.named_parameters()]
+    rel = abs(loss - ref.item()) / abs(ref.item())
+    rep = grad_report(cap.grads, [g.float() for g in ref_grads], names, 0.9999, "the chunked RN50 step")
+    stats, ref_stats = stats_of(model), stats_of(oracle)
+    stats_err = stats_rel_err(stats, ref_stats)
+    equal = all(torch.equal(stats[k], v) for k, v in ref_stats.items())
+    log(f"resnet: chunked {RN_MODEL} step ({RN_CHUNKS} x {m}, bf16) against the chunk-wise oracle: loss {loss:.7f} "
+        f"(rel err {rel:.3g}), min grad cosine {rep['min_grad_cosine']:.7f}, chained running statistics rel err "
+        f"{stats_err:.3g} (bit-equal: {equal})")
+    if rel > 1e-5 or stats_err > 1e-6:
+        raise AssertionError(f"the chunked RN50 step differs from its oracle: loss rel err {rel}, statistics {stats_err}")
+    return {"loss": loss, "loss_rel_err": rel, **rep, "stats_rel_err": stats_err, "stats_bit_equal": equal}
+
+
+def vit_chunked(card: str) -> dict:
+    """The chunked ViT-B/16 step at batch 512 = 4 x 128 (bf16, bf16 moments,
+    the default route) against the direct step at 512: the loss and the
+    gradients of one step from one state, the launches exactly, ms a step
+    and peak memory over 1 + VIT_CHUNKED_STEPS steps each."""
+    import gc
+
+    B, n_chunks = VIT_CHUNKED
+    model = build_clip_model(rn_cfg("bfloat16", MODEL), device="cuda")
+    blocks = model.config.vision.layers + model.config.text.layers
+    images, tokens = bench_batch(B, model.config.vision.image_size, seed=0)
+    images, tokens = torch.from_numpy(images).to(torch.bfloat16).cuda(), torch.from_numpy(tokens).cuda()
+    launches = {"chunked": {"B1": blocks * 2 * n_chunks, "B2": blocks * n_chunks}, "direct": {"B1": blocks, "B2": blocks}}
+    out, grads, losses = {}, {}, {}
+    for name, c in (("chunked", n_chunks), ("direct", 1)):
+        cap = GradCapture()
+        reset_counts()
+        _, metrics = make_train_step(model, cap, grad_cache_chunks=c)(create_train_state(model, cap), images, tokens)
+        expect_counts(f"one {name} ViT-B/16 step at {B}", **launches[name])
+        losses[name], grads[name] = float(metrics["loss"]), cap.grads
+        del cap, metrics
+    names = [n for n, _ in model.named_parameters()]
+    rel = abs(losses["chunked"] - losses["direct"]) / abs(losses["direct"])
+    out.update(loss=losses, loss_rel_err=rel,
+               **grad_report(grads["chunked"], grads["direct"], names, 0.99, "the chunked ViT-B/16 step"))
+    if rel > 2e-3:
+        raise AssertionError(f"the chunked ViT-B/16 step's loss {losses} differs from the direct step's")
+    del grads
+    for name, c in (("chunked", n_chunks), ("direct", 1)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        opt = make_optimizer(warmup_cosine_lr(1e-5, 500, 10_000), weight_decay=0.1, moment_dtype="bfloat16")
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, grad_cache_chunks=c)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        # ---- the chunked (or direct) ViT-B/16 step at 512: counts from 0 ----
+        for n in range(1 + VIT_CHUNKED_STEPS):
+            if n == 1:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, metrics = step(state, images, tokens)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / VIT_CHUNKED_STEPS
+        # ---- end of the timed steps -----------------------------------------
+        expect_counts(f"{1 + VIT_CHUNKED_STEPS} {name} ViT-B/16 steps at {B}",
+                      **{k: (1 + VIT_CHUNKED_STEPS) * v for k, v in launches[name].items()})
+        out[name] = {"ms_per_step": dt * 1e3, "img_s": B / dt, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "base_gib": base / 2 ** 30, "launches_per_step": launches[name],
+                     "last_loss": float(metrics["loss"])}
+        log(f"resnet: {name} ViT-B/16 step at {B} ({c} x {B // c}), bf16: {dt * 1e3:.2f} ms/step ({B / dt:.1f} img/s), "
+            f"peak {out[name]['peak_gib']:.2f} GiB (held before {base / 2 ** 30:.2f}) on {card}")
+        del state, step, opt
+    if not out["chunked"]["peak_gib"] < out["direct"]["peak_gib"]:
+        raise AssertionError(f"the chunked step's peak {out['chunked']['peak_gib']} GiB is not below the direct "
+                             f"step's {out['direct']['peak_gib']}")
+    log(f"resnet: chunked ViT-B/16 at {B}: loss rel err {rel:.3g} to the direct step, min grad cosine "
+        f"{out['min_grad_cosine']:.6f}; launches per step {launches}")
+    return out
+
+
+def rn_trainer(card: str, layers_t: int, seed: int = 0) -> dict:
+    """The RN50 trainer through ``cli/main.py``: phase 5b's corpus, one
+    epoch with ``--grad_cache_chunks 2`` and the ImageNet evaluation on
+    phase 9's val tree; the same command stopped by ``--max_steps 5
+    --save_every_n_steps 3`` and resumed to the end; the checkpoints
+    bit-equal (params, moments, running statistics, meta); the checkpoint
+    reloaded through ``cli/zeroshot_eval``."""
+    import contextlib
+    import io
+
+    from flyp_tpu_torch.cli import main as cli_main
+    from flyp_tpu_torch.cli import zeroshot_eval
+    from flyp_tpu_torch.utils import checkpoint
+
+    out = {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "train"))
+        tsv, _, _ = write_corpus(os.path.join(root, "train"), seed)
+        jobs, _ = imagenet_val_jobs(root)
+        write_pngs(jobs, seed)
+        out["corpus_s"] = time.perf_counter() - t0
+        argv = ["--ft_data", tsv, "--batch-size", str(INPUT_BATCH), "--data_backend", "native", "--workers",
+                str(INPUT_WORKERS), "--model", RN_MODEL, "--seed", str(seed), "--curriculum", "--epochs", "1",
+                "--lr", "1e-5", "--warmup_length", "500", "--adam_moment_dtype", "bfloat16", "--grad_cache_chunks",
+                str(RN_CHUNKS), "--train-dataset", "ImageNet", "--template", "openai_imagenet_template",
+                "--eval-datasets", "ImageNet", "--data-location", root, "--save", os.path.join(root, "ckpt")]
+        head_b3 = layers_t * math.ceil(1000 * 80 / 1024)  # the image tower has no attention blocks
+        per_step = {"B1": layers_t * RN_CHUNKS * 2, "B2": layers_t * RN_CHUNKS}
+        runs, launches = {}, {}
+        os.chdir(root)  # cli/main.py writes expt_logs/ under the working directory
+        try:
+            for name, interrupts in (("a", ((),)), ("b", RN_TRAINER_INTERRUPTS)):
+                reset_counts()
+                # ---- the RN50 trainer path: counts start at 0 here ---------------
+                t0 = time.perf_counter()
+                returned = [cli_main.main(cli_main.parse_main_arguments([*argv, "--exp_name", f"rn_{name}", *extra]))
+                            for extra in interrupts]
+                launches[name] = counts()
+                # ---- end of the trainer path -------------------------------------
+                runs[name] = {"returned": [os.path.basename(p) for p in returned], "s": time.perf_counter() - t0,
+                              "save": os.path.dirname(returned[-1]),
+                              "log": os.path.join(root, "expt_logs", f"rn_{name}",
+                                                  os.path.basename(os.path.dirname(returned[-1])))}
+                expect_counts(f"RN50 trainer run {name}", B3=head_b3,
+                              **{k: INPUT_BATCHES * v for k, v in per_step.items()})
+        finally:
+            os.chdir(cwd)
+        if runs["b"]["returned"] != list(RN_TRAINER_RETURNS) or runs["a"]["returned"] != ["checkpoint_0"]:
+            raise AssertionError(f"the RN50 runs returned {runs['a']['returned']} and {runs['b']['returned']}")
+        a, b = (os.path.join(runs[k]["save"], "checkpoint_0") for k in ("a", "b"))
+        out["checkpoint_bytes"] = checkpoint_equal(a, b, "checkpoint_0 of the RN50 runs A and B")
+        stats = checkpoint.load_tensors(a, checkpoint.STATS_FILE)
+        fresh = stats_of(build_clip_model(rn_cfg("float32"), device="cpu"))
+        if sorted(stats) != sorted(fresh) or stats_moved(stats, fresh) == 0.0:
+            raise AssertionError("checkpoint_0's batch_stats.pt does not hold trained running statistics")
+        with open(os.path.join(runs["a"]["log"], "stats.tsv")) as f:
+            rows = [line.split("\t") for line in f.read().rstrip("\n").split("\n")]
+        logged = dict(zip(rows[0][1:], rows[1][1:]))
+        out.update(launches=launches, runs_s={k: v["s"] for k, v in runs.items()}, stats=logged,
+                   stats_tensors=len(stats))
+        log(f"resnet: trainer run A {runs['a']['s']:.1f} s, run B (2 invocations) {runs['b']['s']:.1f} s; launches "
+            f"{launches}, as predicted; checkpoint_0 ({out['checkpoint_bytes']} bytes, {len(stats)} running "
+            f"statistics) of runs A and B bit-equal; stats.tsv {logged} on {card}")
+
+        reset_counts()
+        cfg = cli_main.parse_main_arguments([
+            "--clip_load", a, "--model", RN_MODEL, "--train-dataset", "ImageNet", "--template",
+            "openai_imagenet_template", "--eval-datasets", "ImageNet", "--data-location", root, "--batch-size",
+            str(INPUT_BATCH), "--workers", str(INPUT_WORKERS)])
+        cfg.log_dir = os.path.join(root, "logs", "zeroshot")
+        with contextlib.redirect_stdout(io.StringIO()):
+            reloaded = zeroshot_eval.main(cfg)
+        expect_counts("the reloaded RN50 checkpoint's head and evaluation", B3=head_b3)
+        if reloaded["ImageNet Accuracy"] != float(logged["ImageNet Accuracy"]):
+            raise AssertionError(f"the reloaded RN50 checkpoint's top-1 {reloaded['ImageNet Accuracy']} differs from "
+                                 f"the logged {logged['ImageNet Accuracy']}")
+        out["reloaded_top1"] = reloaded["ImageNet Accuracy"]
+        log(f"resnet: checkpoint_0 reloaded through zeroshot_eval gives top-1 {out['reloaded_top1']}, the logged value")
+    return out
+
+
+def rn_serving(tmp: str, card: str, layers_t: int) -> dict:
+    """``ClipServer.from_checkpoint`` on an RN50 ``.pt`` written by the
+    port's converter, with running statistics moved by train-mode forwards:
+    a 256-image ``classify`` with B3 exact (the head only: the image tower
+    has no attention blocks), features against the CPU plain forward."""
+    cpu_model = build_clip_model(rn_cfg("float32"), device="cpu")
+    px = cpu_model.config.vision.image_size
+    rng = np.random.default_rng(3)
+    with torch.no_grad():
+        cpu_model.train()
+        for _ in range(2):
+            cpu_model.encode_image(torch.from_numpy(rng.standard_normal((8, px, px, 3)).astype(np.float32)))
+        cpu_model.eval()
+    ckpt = os.path.join(tmp, "rn50_random.pt")
+    convert.save_torch_checkpoint(ckpt, convert.export_clip_state_dict(cpu_model.state_dict(), cpu_model.config))
+    images = rng.standard_normal((RN_SERVE_BATCH, px, px, 3)).astype(np.float32)
+    reset_counts()
+    # ---- the RN50 serving path: counts start at 0 here ----------------------
+    srv = ClipServer.from_checkpoint(ckpt, model=RN_MODEL, classnames=CLASSNAMES, template=simple_template,
+                                     compute_dtype="bfloat16", device="cuda", image_buckets=BUCKETS)
+    logits = srv.classify(images)
+    # ---- end of the serving path --------------------------------------------
+    expect_counts("RN50 serving", B3=layers_t)
+    if logits.shape != (RN_SERVE_BATCH, len(CLASSNAMES)) or not np.isfinite(logits).all():
+        raise AssertionError(f"RN50 classify: logits {logits.shape}")
+    stats = {k: v for k, v in srv.model.named_buffers()}
+    if not all(torch.equal(stats[k].cpu(), v) for k, v in cpu_model.named_buffers()):
+        raise AssertionError("the server does not hold the checkpoint's running statistics")
+    few = images[:16]
+    with torch.inference_mode():
+        ref = cpu_model.encode_image(torch.from_numpy(few), normalize=True).numpy()
+    fp32_srv = ClipServer.from_checkpoint(ckpt, model=RN_MODEL, compute_dtype="float32", device="cuda",
+                                          image_buckets=BUCKETS)
+    cos32, cos16 = cosine(fp32_srv.encode_images(few), ref), cosine(srv.encode_images(few), ref)
+    log(f"resnet: {RN_MODEL} server features against the CPU plain forward: fp32 {cos32.min():.7f}, "
+        f"bf16 {cos16.min():.5f}")
+    if cos32.min() < 0.9999 or cos16.min() < 0.99:
+        raise AssertionError(f"RN50 server features drift from the CPU: fp32 {cos32}, bf16 {cos16}")
+    del fp32_srv
+    srv.classify(images)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        srv.classify(images)
+    img_s = 5 * RN_SERVE_BATCH / (time.perf_counter() - t0)
+    log(f"resnet: {RN_MODEL} classify, bucket {RN_SERVE_BATCH}, bf16: {img_s:.1f} img/s on {card}")
+    return {"cos_fp32": float(cos32.min()), "cos_bf16": float(cos16.min()), "img_s": img_s, "launches": {"B3": layers_t}}
+
+
+def phase_resnet(card: str) -> dict:
+    """Phase 11: RN50 at full width (one step against the CPU in fp32 and
+    bf16; the bench configuration with launches exact, the statistics
+    moving and the loss falling), the chunked RN50 step against its oracle,
+    the chunked ViT-B/16 step at 512 against the direct step, the RN50
+    trainer stopped and resumed bit for bit, and the RN50 server."""
+    t_phase = time.perf_counter()
+    c = MODEL_CONFIGS[RN_MODEL]
+    px, layers_t = c.vision.image_size, c.text.layers
+    out = {"card": card}
+    images, tokens = bench_batch(4, px, seed=1)
+    out["step_check"] = rn_step_check(images, tokens)
+
+    model = build_clip_model(rn_cfg("bfloat16"), device="cuda")
+    before = stats_of(model)
+    state, step, images, tokens, res = bench_training(model, "pallas_block", card)
+    moved = stats_moved(stats_of(model), before)
+    fast = make_optimizer(warmup_cosine_lr(1e-4, 1, 10_000), weight_decay=0.1, moment_dtype="bfloat16")
+    fast_state, fast_step = create_train_state(model, fast), make_train_step(model, fast)
+    losses = [float(fast_step(fast_state, images[:64], tokens[:64])[1]["loss"]) for _ in range(8)]
+    log(f"resnet: learning check, 8 steps at 1e-4 on one batch of 64: {[round(v, 5) for v in losses]}; the bench "
+        f"moved the running statistics by {moved:.3g}")
+    if moved == 0.0 or not losses[-1] < losses[0]:
+        raise AssertionError(f"RN50 training: statistics moved {moved}, losses {losses}")
+    out["bench"] = {**res, "stats_moved": moved, "learning_losses": losses}
+    del model, state, step, fast_state, fast_step
+
+    out["chunked_rn"] = rn_chunked_check(images, tokens, layers_t)
+    out["chunked_vit"] = vit_chunked(card)
+    out["trainer"] = rn_trainer(card, layers_t)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["serving"] = rn_serving(tmp, card, layers_t)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"resnet: phase took {out['phase_s']:.1f} s on {card}")
+    return out
+
+
 # B4, B5 and B6 at the training main path's shapes (batch 256 in bf16 at
 # vision L=197 and text L=32), at B=64 in fp32 and bf16 (vision L=197, text
 # L=77); B5 and B6 also at ViT-L/14@336px's L=577 and at their limit 1024.
@@ -2537,6 +2962,10 @@ def main() -> int:
         use_impl("auto")
         log(json.dumps({"card": card, "trainer": phase_trainer(card)}))
         return 0
+    if "--resnet" in sys.argv[1:]:
+        use_impl("auto")
+        log(json.dumps({"card": card, "resnet": phase_resnet(card)}))
+        return 0
 
     # The default route ("auto", the fused block) for the phases before the
     # route phase, whatever the environment says.
@@ -2558,6 +2987,7 @@ def main() -> int:
     use_impl("auto")
     evaluation = phase_evaluation(card)
     trainer = phase_trainer(card)
+    resnet = phase_resnet(card)
 
     def line(name, source, replaces, launches, cases, pick=None):
         # B1-B6 are reported at the main path's vision shape, T1-T4 at the
@@ -2618,6 +3048,7 @@ def main() -> int:
     log(json.dumps({"card": card, "gemm": gemm_cases}))
     log(json.dumps({"card": card, "evaluation": evaluation}))
     log(json.dumps({"card": card, "trainer": trainer}))
+    log(json.dumps({"card": card, "resnet": resnet}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

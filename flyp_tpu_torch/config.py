@@ -108,7 +108,7 @@ class ExperimentConfig:
     #: GradCache microbatching: >1 splits each contrastive batch into this
     #: many chunks with EXACT big-batch InfoNCE semantics (~4/3 the FLOPs;
     #: use when the direct batch does not fit, e.g. ViT-L at bs512 on one
-    #: chip); not ported yet (ROADMAP A8).
+    #: card; ``training/grad_cache.py``).
     grad_cache_chunks: int = 1
     #: Preemption safety (the reference resumes only at epoch boundaries):
     #: >0 writes a mid-epoch step checkpoint every N steps; auto-resume

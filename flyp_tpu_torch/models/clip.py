@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from flyp_tpu_torch.models.configs import CLIPConfig
+from flyp_tpu_torch.models.resnet import ModifiedResNet
 from flyp_tpu_torch.models.text import TextTransformer
 from flyp_tpu_torch.models.vit import VisionTransformer
 
@@ -26,19 +27,21 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tens
 
 class CLIPModel(nn.Module):
     """Parameters are float32 (the JAX tree's storage type); matrices are
-    cast to ``compute_dtype`` where they are used.  ``remat`` recomputes
-    activations of both towers' blocks in the backward (``models/layers.py``)."""
+    cast to ``compute_dtype`` where they are used.  The image tower is a ViT,
+    or a ModifiedResNet when ``config.vision.resnet_layers`` is set; the
+    latter's BatchNorm running statistics are the model's buffers.
+    ``remat`` recomputes activations of the transformer blocks in the
+    backward (``models/layers.py``), as the JAX package's ``remat`` does."""
 
     def __init__(self, config: CLIPConfig, compute_dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
-        if not config.vision.is_vit:
-            raise NotImplementedError(
-                "ModifiedResNet (BatchNorm) towers are not ported yet: ROADMAP.md, item A10 (ResNet towers)"
-            )
         self.config = config
         self.compute_dtype = compute_dtype
         self.remat = remat
-        self.visual = VisionTransformer(config.vision, config.embed_dim, remat=remat)
+        if config.vision.is_vit:
+            self.visual = VisionTransformer(config.vision, config.embed_dim, remat=remat)
+        else:
+            self.visual = ModifiedResNet(config.vision, config.embed_dim)
         self.text = TextTransformer(config.text, config.embed_dim, remat=remat)
         self.logit_scale = nn.Parameter(torch.tensor(config.logit_scale_init, dtype=torch.float32))
 

@@ -4,14 +4,18 @@ Counterpart of ``flyp_tpu/models/convert.py``.  The port's ``state_dict``
 uses the JAX param tree's names joined by dots (``visual.transformer.
 block_0.attn.qkv_kernel``) and its layouts, so:
 
-* :func:`from_jax_params` flattens a JAX Flax param tree (numpy leaves);
+* :func:`from_jax_params` flattens a JAX Flax param tree (numpy leaves)
+  and, for a ModifiedResNet, its ``batch_stats`` tree (the BatchNorm
+  buffers ``mean``/``var``);
 * :func:`from_jax_train_state` carries a JAX train state (params, optax's
   Adam moments and count, step) onto a port model and its AdamW state;
 * :func:`convert_clip_state_dict` reads the OpenAI torch key layout (what
   real OpenAI ``.pt`` files and the JAX package's ``export_clip_state_dict``
   + ``save_torch_checkpoint`` hold): Linear ``[out, in]`` -> ``[in, out]``,
   Conv ``[out, in, kh, kw]`` -> HWIO, ``in_proj_weight [3D, D]`` ->
-  ``qkv_kernel [3, D, D]``, LayerNorm ``weight`` -> ``scale``;
+  ``qkv_kernel [3, D, D]``, LayerNorm and BatchNorm ``weight`` ->
+  ``scale``, BatchNorm ``running_mean``/``running_var`` -> the buffers
+  ``mean``/``var``;
 * :func:`export_clip_state_dict` is the inverse, for
   :func:`save_torch_checkpoint`.
 """
@@ -26,7 +30,9 @@ import torch
 from flyp_tpu_torch.models.configs import CLIPConfig, TextConfig, VisionConfig
 
 _META_KEYS = ("input_resolution", "context_length", "vocab_size")
-_RESNET = "ModifiedResNet (BatchNorm) towers are not ported yet: ROADMAP.md, item A10 (ResNet towers)"
+_ATTNPOOL_PROJS = ("q_proj", "k_proj", "v_proj", "c_proj")
+# A BatchNorm's torch names and the port's (JAX's ``params`` and ``batch_stats``).
+_BN_FIELDS = (("weight", "scale"), ("bias", "bias"), ("running_mean", "mean"), ("running_var", "var"))
 
 
 def _f32(x) -> torch.Tensor:
@@ -58,9 +64,11 @@ def _flatten(tree: Mapping[str, Any], leaf=_f32) -> Dict[str, torch.Tensor]:
     return out
 
 
-def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """A JAX CLIP param tree (nested dicts of arrays) -> the port's state dict."""
-    return _flatten(params)
+def from_jax_params(params: Mapping[str, Any], batch_stats: Optional[Mapping[str, Any]] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """A JAX CLIP param tree (nested dicts of arrays), and the ``batch_stats``
+    tree of a ModifiedResNet, -> the port's state dict."""
+    return {**_flatten(params), **_flatten(batch_stats or {})}
 
 
 def _adam_state(node):
@@ -77,9 +85,9 @@ def _adam_state(node):
     return None
 
 
-def from_jax_train_state(params: Mapping[str, Any], opt_state, step, model):
+def from_jax_train_state(params: Mapping[str, Any], opt_state, step, model, batch_stats=None):
     """A JAX ``TrainState``'s parts (host arrays) -> a port ``TrainState``
-    over ``model``: the params loaded into the model (``from_jax_params``),
+    over ``model``: the params (and ``batch_stats``) loaded into the model (``from_jax_params``),
     optax's ``mu``/``nu`` trees flattened the same way and laid out in
     ``model.parameters()`` order in their stored dtype, and the update
     count as an int32 scalar, all on the model's device."""
@@ -88,7 +96,7 @@ def from_jax_train_state(params: Mapping[str, Any], opt_state, step, model):
     adam = _adam_state(opt_state)
     if adam is None:
         raise ValueError("the optimizer state holds no Adam moments (mu, nu, count)")
-    model.load_state_dict(from_jax_params(params), strict=True)
+    model.load_state_dict(from_jax_params(params, batch_stats), strict=True)
     names = [name for name, _ in model.named_parameters()]
     device = model.logit_scale.device
     moments = []
@@ -117,18 +125,29 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 def sniff_config(state: Mapping[str, Any]) -> CLIPConfig:
     """Infer the architecture from OpenAI-layout state-dict shapes."""
     shapes = {k: tuple(np.shape(v)) for k, v in state.items() if k not in _META_KEYS}
-    if "visual.proj" not in shapes:
-        raise NotImplementedError(_RESNET)
-    vision_width = shapes["visual.conv1.weight"][0]
-    patch = shapes["visual.conv1.weight"][-1]
-    grid = round((shapes["visual.positional_embedding"][0] - 1) ** 0.5)
-    vision = VisionConfig(
-        image_size=patch * grid,
-        width=vision_width,
-        patch_size=patch,
-        layers=len([k for k in shapes if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]),
-        heads=vision_width // 64,
-    )
+    if "visual.proj" in shapes:
+        vision_width = shapes["visual.conv1.weight"][0]
+        patch = shapes["visual.conv1.weight"][-1]
+        grid = round((shapes["visual.positional_embedding"][0] - 1) ** 0.5)
+        vision = VisionConfig(
+            image_size=patch * grid,
+            width=vision_width,
+            patch_size=patch,
+            layers=len([k for k in shapes if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]),
+            heads=vision_width // 64,
+        )
+    else:
+        blocks = tuple(len({k.split(".")[2] for k in shapes if k.startswith(f"visual.layer{b}.")}) for b in (1, 2, 3, 4))
+        vision_width = shapes["visual.layer1.0.conv1.weight"][0]
+        out_grid = round((shapes["visual.attnpool.positional_embedding"][0] - 1) ** 0.5)
+        vision = VisionConfig(
+            image_size=out_grid * 32,
+            width=vision_width,
+            patch_size=None,
+            layers=0,
+            heads=vision_width * 32 // 64,
+            resnet_layers=blocks,
+        )
     text_width = shapes["ln_final.weight"][0]
     text = TextConfig(
         context_length=shapes["positional_embedding"][0],
@@ -157,23 +176,44 @@ def _convert_block(state, src: str, dst: str, out: Dict[str, torch.Tensor]) -> N
     out[f"{dst}.mlp.proj_bias"] = state[f"{src}.mlp.c_proj.bias"]
 
 
+def _convert_resnet(state, config: VisionConfig, out: Dict[str, torch.Tensor]) -> None:
+    """The ModifiedResNet tower: conv weights OIHW -> HWIO ``kernel``, each
+    BatchNorm's weight/bias -> ``scale``/``bias`` and its running statistics
+    -> the buffers ``mean``/``var``; ``num_batches_tracked`` is dropped."""
+
+    def conv(src, dst):
+        out[f"{dst}.kernel"] = state[f"{src}.weight"].permute(2, 3, 1, 0).contiguous()
+
+    def bn(src, dst):
+        for a, b in _BN_FIELDS:
+            out[f"{dst}.{b}"] = state[f"{src}.{a}"]
+
+    for i in (1, 2, 3):
+        conv(f"visual.conv{i}", f"visual.conv{i}")
+        bn(f"visual.bn{i}", f"visual.bn{i}")
+    for stage, blocks in enumerate(config.resnet_layers):
+        for b in range(blocks):
+            src, dst = f"visual.layer{stage + 1}.{b}", f"visual.layer{stage + 1}_{b}"
+            for i in (1, 2, 3):
+                conv(f"{src}.conv{i}", f"{dst}.conv{i}")
+                bn(f"{src}.bn{i}", f"{dst}.bn{i}")
+            if f"{src}.downsample.0.weight" in state:
+                conv(f"{src}.downsample.0", f"{dst}.downsample_conv")
+                bn(f"{src}.downsample.1", f"{dst}.downsample_bn")
+    out["visual.attnpool.positional_embedding"] = state["visual.attnpool.positional_embedding"]
+    for proj in _ATTNPOOL_PROJS:
+        out[f"visual.attnpool.{proj}.kernel"] = state[f"visual.attnpool.{proj}.weight"].T.contiguous()
+        out[f"visual.attnpool.{proj}.bias"] = state[f"visual.attnpool.{proj}.bias"]
+
+
 def convert_clip_state_dict(
     state: Mapping[str, Any], config: Optional[CLIPConfig] = None
 ) -> Tuple[Dict[str, torch.Tensor], CLIPConfig]:
-    """OpenAI-layout CLIP state dict -> ``(port state dict, config)``."""
+    """OpenAI-layout CLIP state dict -> ``(port state dict, config)``; a
+    ModifiedResNet's state dict carries its BatchNorm running statistics."""
     state = {k: _f32(v) for k, v in state.items() if k not in _META_KEYS}
     config = config or sniff_config(state)
-    if not config.vision.is_vit or "visual.proj" not in state:
-        raise NotImplementedError(_RESNET)
     out: Dict[str, torch.Tensor] = {
-        "visual.patch_kernel": state["visual.conv1.weight"].permute(2, 3, 1, 0).contiguous(),
-        "visual.class_embedding": state["visual.class_embedding"],
-        "visual.positional_embedding": state["visual.positional_embedding"],
-        "visual.ln_pre.scale": state["visual.ln_pre.weight"],
-        "visual.ln_pre.bias": state["visual.ln_pre.bias"],
-        "visual.ln_post.scale": state["visual.ln_post.weight"],
-        "visual.ln_post.bias": state["visual.ln_post.bias"],
-        "visual.proj": state["visual.proj"],
         "text.token_embedding": state["token_embedding.weight"],
         "text.positional_embedding": state["positional_embedding"],
         "text.ln_final.scale": state["ln_final.weight"],
@@ -181,8 +221,21 @@ def convert_clip_state_dict(
         "text.text_projection": state["text_projection"],
         "logit_scale": state["logit_scale"].reshape(()),
     }
-    for i in range(config.vision.layers):
-        _convert_block(state, f"visual.transformer.resblocks.{i}", f"visual.transformer.block_{i}", out)
+    if config.vision.is_vit:
+        out.update({
+            "visual.patch_kernel": state["visual.conv1.weight"].permute(2, 3, 1, 0).contiguous(),
+            "visual.class_embedding": state["visual.class_embedding"],
+            "visual.positional_embedding": state["visual.positional_embedding"],
+            "visual.ln_pre.scale": state["visual.ln_pre.weight"],
+            "visual.ln_pre.bias": state["visual.ln_pre.bias"],
+            "visual.ln_post.scale": state["visual.ln_post.weight"],
+            "visual.ln_post.bias": state["visual.ln_post.bias"],
+            "visual.proj": state["visual.proj"],
+        })
+        for i in range(config.vision.layers):
+            _convert_block(state, f"visual.transformer.resblocks.{i}", f"visual.transformer.block_{i}", out)
+    else:
+        _convert_resnet(state, config.vision, out)
     for i in range(config.text.layers):
         _convert_block(state, f"transformer.resblocks.{i}", f"text.transformer.block_{i}", out)
     return out, config
@@ -205,33 +258,75 @@ def _export_block(sd, src: str, dst: str, out: Dict[str, torch.Tensor]) -> None:
     out[f"{dst}.mlp.c_proj.bias"] = sd[f"{src}.mlp.proj_bias"]
 
 
+def _export_resnet(sd, config: VisionConfig, out: Dict[str, torch.Tensor]) -> None:
+    """The inverse of :func:`_convert_resnet`; every BatchNorm also gets the
+    ``num_batches_tracked`` counter (0, int64) that torch's strict load needs."""
+
+    def conv(src, dst):
+        out[f"{dst}.weight"] = sd[f"{src}.kernel"].permute(3, 2, 0, 1)
+
+    def bn(src, dst):
+        for a, b in _BN_FIELDS:
+            out[f"{dst}.{a}"] = sd[f"{src}.{b}"]
+        out[f"{dst}.num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
+
+    for i in (1, 2, 3):
+        conv(f"visual.conv{i}", f"visual.conv{i}")
+        bn(f"visual.bn{i}", f"visual.bn{i}")
+    for stage, blocks in enumerate(config.resnet_layers):
+        for b in range(blocks):
+            src, dst = f"visual.layer{stage + 1}_{b}", f"visual.layer{stage + 1}.{b}"
+            for i in (1, 2, 3):
+                conv(f"{src}.conv{i}", f"{dst}.conv{i}")
+                bn(f"{src}.bn{i}", f"{dst}.bn{i}")
+            if f"{src}.downsample_conv.kernel" in sd:
+                conv(f"{src}.downsample_conv", f"{dst}.downsample.0")
+                bn(f"{src}.downsample_bn", f"{dst}.downsample.1")
+    out["visual.attnpool.positional_embedding"] = sd["visual.attnpool.positional_embedding"]
+    for proj in _ATTNPOOL_PROJS:
+        out[f"visual.attnpool.{proj}.weight"] = sd[f"visual.attnpool.{proj}.kernel"].T
+        out[f"visual.attnpool.{proj}.bias"] = sd[f"visual.attnpool.{proj}.bias"]
+
+
 def export_clip_state_dict(state_dict: Mapping[str, torch.Tensor], config: CLIPConfig) -> Dict[str, torch.Tensor]:
     """The port's state dict -> the OpenAI torch key layout (float32, CPU),
     the inverse of :func:`convert_clip_state_dict`."""
     sd = {k: _f32(v) for k, v in state_dict.items()}
-    out: Dict[str, torch.Tensor] = {
-        "visual.conv1.weight": sd["visual.patch_kernel"].permute(3, 2, 0, 1),
-        "visual.class_embedding": sd["visual.class_embedding"],
-        "visual.positional_embedding": sd["visual.positional_embedding"],
-        "visual.ln_pre.weight": sd["visual.ln_pre.scale"],
-        "visual.ln_pre.bias": sd["visual.ln_pre.bias"],
-        "visual.ln_post.weight": sd["visual.ln_post.scale"],
-        "visual.ln_post.bias": sd["visual.ln_post.bias"],
-        "visual.proj": sd["visual.proj"],
+    out: Dict[str, torch.Tensor] = {}
+    if config.vision.is_vit:
+        out.update({
+            "visual.conv1.weight": sd["visual.patch_kernel"].permute(3, 2, 0, 1),
+            "visual.class_embedding": sd["visual.class_embedding"],
+            "visual.positional_embedding": sd["visual.positional_embedding"],
+            "visual.ln_pre.weight": sd["visual.ln_pre.scale"],
+            "visual.ln_pre.bias": sd["visual.ln_pre.bias"],
+            "visual.ln_post.weight": sd["visual.ln_post.scale"],
+            "visual.ln_post.bias": sd["visual.ln_post.bias"],
+            "visual.proj": sd["visual.proj"],
+        })
+        for i in range(config.vision.layers):
+            _export_block(sd, f"visual.transformer.block_{i}", f"visual.transformer.resblocks.{i}", out)
+    else:
+        _export_resnet(sd, config.vision, out)
+    out.update({
         "token_embedding.weight": sd["text.token_embedding"],
         "positional_embedding": sd["text.positional_embedding"],
         "ln_final.weight": sd["text.ln_final.scale"],
         "ln_final.bias": sd["text.ln_final.bias"],
         "text_projection": sd["text.text_projection"],
         "logit_scale": sd["logit_scale"].reshape(()),
-    }
-    for i in range(config.vision.layers):
-        _export_block(sd, f"visual.transformer.block_{i}", f"visual.transformer.resblocks.{i}", out)
+    })
     for i in range(config.text.layers):
         _export_block(sd, f"text.transformer.block_{i}", f"transformer.resblocks.{i}", out)
     return {k: v.contiguous() for k, v in out.items()}
 
 
 def save_torch_checkpoint(path: str, state: Mapping[str, torch.Tensor]) -> None:
-    """Write a state dict as a plain ``.pt`` file (contiguous CPU tensors)."""
-    torch.save({k: _f32(v).contiguous() for k, v in state.items()}, path)
+    """Write a state dict as a plain ``.pt`` file (contiguous CPU tensors,
+    float32 but for integer counters such as ``num_batches_tracked``)."""
+    def stored(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().cpu() if not v.is_floating_point() else _f32(v)
+        return torch.from_numpy(np.array(v)) if np.issubdtype(np.asarray(v).dtype, np.integer) else _f32(v)
+
+    torch.save({k: stored(v).contiguous() for k, v in state.items()}, path)

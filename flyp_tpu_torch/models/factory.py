@@ -5,7 +5,9 @@ torch ``.pt``/``.bin`` checkpoint (OpenAI layout, loaded through the
 converter) or a checkpoint directory of ``utils/checkpoint.py`` (a trainer
 checkpoint or a bare ``save_params`` tree); without one, weights are drawn
 from CLIP's init distributions with a ``torch.Generator`` seeded from
-``cfg.seed``.
+``cfg.seed``.  A ModifiedResNet carries its BatchNorm running statistics
+as buffers: a fresh one's are zeros and ones, a loaded one's come with the
+checkpoint.
 """
 
 from __future__ import annotations
@@ -62,20 +64,20 @@ def build_clip_model(cfg, config_override: Optional[CLIPConfig] = None, device="
 
 def _load_checkpoint_dir(load_path: str, model_name: str, model: CLIPModel,
                          batch_stats: Optional[dict] = None) -> None:
-    """Load a checkpoint directory's params into ``model``: a trainer
-    checkpoint (whose moments are never read) or a bare ``save_params``
-    tree.  The saved names and shapes are checked against the model first
-    (a ViT-B/32 checkpoint has a B/16 model's names but not its shapes),
-    and a model with BatchNorm statistics (``batch_stats``) refuses a
-    checkpoint that carries none.
+    """Load a checkpoint directory's params and running statistics into
+    ``model``: a trainer checkpoint (whose moments are never read) or a bare
+    ``save_params`` tree.  The saved names and shapes are checked against
+    the model first (a ViT-B/32 checkpoint has a B/16 model's names but not
+    its shapes), and a model with BatchNorm statistics (``batch_stats``, by
+    default its buffers) refuses a checkpoint that carries none.
 
     Port of ``flyp_tpu/models/factory.py::_load_checkpoint_dir``."""
     from flyp_tpu_torch.utils import checkpoint
 
     checkpoint.wait_for_saves()  # a just-written checkpoint must be committed first
-    meta = checkpoint.read_meta(load_path)
+    checkpoint.read_meta(load_path)
     saved = checkpoint.load_tensors(load_path, mmap=True)  # names and shapes; data read on copy
-    want = model.state_dict()
+    want = dict(model.named_parameters())
     if set(saved) != set(want):
         raise ValueError(f"--clip_load checkpoint at {load_path} does not match model {model_name}: "
                          "parameter tree structures differ")
@@ -84,11 +86,15 @@ def _load_checkpoint_dir(load_path: str, model_name: str, model: CLIPModel,
     if mismatches:
         raise ValueError(f"--clip_load checkpoint at {load_path} does not match model {model_name}: "
                          "parameter shapes differ — " + "; ".join(mismatches[:5]))
-    saved_stats = (checkpoint.load_tensors(load_path, checkpoint.STATS_FILE, mmap=True)
-                   if meta["kind"] == "trainer" else {})
-    if batch_stats is not None and not saved_stats:
+    stats_path = os.path.join(load_path, checkpoint.STATS_FILE)
+    saved_stats = checkpoint.load_tensors(load_path, checkpoint.STATS_FILE, mmap=True) \
+        if os.path.isfile(stats_path) else {}
+    if batch_stats is None:
+        batch_stats = dict(model.named_buffers())
+    if batch_stats and not saved_stats:
         raise ValueError(
             f"--clip_load checkpoint at {load_path} carries no batch_stats but model {model_name} has "
             "BatchNorm towers: serving trained conv weights with fresh running statistics would be silently "
             "wrong. Load a trainer checkpoint or a torch .pt (both carry BN stats).")
-    model.load_state_dict(saved, strict=True)
+    checkpoint._check_names(load_path, "running statistics", saved_stats, dict(model.named_buffers()))
+    model.load_state_dict({**saved, **saved_stats}, strict=True)

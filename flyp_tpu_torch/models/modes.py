@@ -4,9 +4,10 @@ The JAX package passes ``train`` to the model explicitly: ``False`` (the
 default of ``CLIPModel.encode_image`` / ``encode_text``) where the
 zero-shot head is built, in the classifier and in the server, ``True`` in
 the train step.
-The port's blocks read the module's ``training`` flag instead
-(``ResidualBlock.attention``), so those four callers pin it for their call
-and give the caller's mode back afterwards.
+The port's modules read the module's ``training`` flag instead
+(``ResidualBlock.attention``; ``TorchBatchNorm``, batch or running
+statistics), so those four callers pin it for their call and give the
+caller's mode back afterwards.
 """
 
 from __future__ import annotations

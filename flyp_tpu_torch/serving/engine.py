@@ -14,8 +14,10 @@ Counterpart of ``flyp_tpu/serving/engine.py``.  ``ClipServer`` packages:
 * **Pipelined streams**: ``stream_logits``/``stream_features`` keep one
   batch in flight (``utils.pipeline.OneStepLag``).
 
-Every transformer block of both towers runs the attention-block CUDA kernel
-(``ops/attention_block.py``); requests run under ``torch.inference_mode()``
+Every transformer block runs the attention-block CUDA kernel
+(``ops/attention_block.py``): both towers of a ViT CLIP, the text tower of a
+ModifiedResNet one (whose image tower runs cuDNN convolutions and BatchNorm
+on its running statistics); requests run under ``torch.inference_mode()``
 and in eval mode whatever the model's mode (the JAX package's
 ``train=False``), which is restored after each dispatch.
 Measured rates on the H100 are in PERF.md.
@@ -91,7 +93,8 @@ class ClipServer:
         """One call from a checkpoint to a running server.
 
         ``path`` is a torch CLIP ``.pt``/``.bin`` (OpenAI key layout, as the
-        JAX package's converter writes it), or None for CLIP-initialised
+        JAX package's converter writes it; a ModifiedResNet's with its
+        BatchNorm running statistics), or None for CLIP-initialised
         random weights drawn from ``seed``.  Pass ``classnames`` (and
         ``template``, default the simple template) to build the zero-shot
         head.  ``device`` defaults to the GPU and raises if CUDA is absent;

@@ -4,15 +4,19 @@ after every epoch.
 Counterpart of ``flyp_tpu/training/flyp.py`` on one process:
 
 * the train step (``training/train_step.py``: both towers, the global-batch
-  InfoNCE, AdamW) fed by the CSV or tar-shard loader through the pinned
-  prefetch (``training/data.py``);
+  InfoNCE, AdamW; ``--grad_cache_chunks N`` its chunked form,
+  ``training/grad_cache.py``) fed by the CSV or tar-shard loader through the
+  pinned prefetch (``training/data.py``);
 * the curriculum (guidance sequencing, the ``curriculum_epoch`` budget and
   its ``drestart`` rollover, progress-driven selection with 15%
   exploration, proportion mixing, loss-pair clustering), as the JAX
   trainer keeps it;
-* per epoch: a checkpoint (params, AdamW state, curriculum cursor and host
-  state; ``utils/checkpoint.py``), a zero-shot head rebuilt from the
-  trained text tower, the evaluation suites, and ``class_stats{n}.tsv`` and
+* per epoch: a checkpoint (params, a ModifiedResNet's BatchNorm running
+  statistics, AdamW state, curriculum cursor and host state;
+  ``utils/checkpoint.py``), a zero-shot head rebuilt from the trained text
+  tower, the evaluation suites (in eval mode: BatchNorm on the running
+  statistics the training left in the model, which the JAX trainer passes
+  as its host variables' ``batch_stats``), and ``class_stats{n}.tsv`` and
   ``stats.tsv`` with the JAX trainer's file names and columns;
 * step checkpoints (``--save_every_n_steps``) and a clean step budget
   (``--max_steps``), from which an automatic resume continues the

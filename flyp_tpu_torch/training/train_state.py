@@ -8,7 +8,8 @@ included (the reference passes a single param group).  The learning rate is
 starting at 0, as ``optax.inject_hyperparams`` evaluates it.
 
 Unlike the JAX package's pure functions, the update runs in place: the
-parameters live in the model, and the moments and the count are updated
+parameters (and a ModifiedResNet's BatchNorm running statistics, JAX's
+``batch_stats``) live in the model, and the moments and the count are updated
 where they lie, with ``torch._foreach_*`` ops on the parameters' device.
 The count and the rate stay on that device too, so a step never waits on the
 host.
@@ -17,7 +18,7 @@ host.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -116,6 +117,13 @@ class TrainState:
     @property
     def params(self) -> List[torch.Tensor]:
         return list(self.model.parameters())
+
+    @property
+    def batch_stats(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The BatchNorm running statistics (the model's buffers) by name,
+        or None for a tower without BatchNorm.  The train step updates them
+        in place; the optimizer never sees them."""
+        return dict(self.model.named_buffers()) or None
 
 
 def create_train_state(model: CLIPModel, optimizer: AdamW) -> TrainState:

@@ -5,17 +5,18 @@ Counterpart of ``flyp_tpu/utils/checkpoint.py``, which writes orbax
 directories.  A checkpoint here is a directory of files that
 ``torch.load(..., weights_only=True)`` reads, each a flat dict of tensors:
 
-* ``params.pt``: the model's state dict (the port's parameter names);
+* ``params.pt``: the model's parameters (the port's parameter names);
 * ``opt_state.pt`` (trainer checkpoints): ``count`` and ``mu/<name>``,
   ``nu/<name>`` for every parameter, each moment in its own dtype, so bf16
   moments round-trip bit for bit;
-* ``batch_stats.pt`` (trainer checkpoints): BatchNorm running statistics,
-  empty for the ViT towers;
+* ``batch_stats.pt``: a ModifiedResNet's BatchNorm running statistics (the
+  model's buffers, ``visual.layer1_0.bn1.mean`` ...), empty for the ViT
+  towers; a bare ``save_params`` of a model without buffers has none;
 * ``meta.json``: the kind (``trainer`` or ``params``), the format version,
   the step, the curriculum cursor, the optional mid-epoch cursor and the
   optional trainer host state (a JSON string, as JAX encodes it).
 
-Loading a model reads ``params.pt`` alone, never the moments.  Writes are
+Loading a model reads ``params.pt`` and ``batch_stats.pt``, never the moments.  Writes are
 atomic: the files go into a temporary sibling directory whose name no
 checkpoint scan parses (``<name>.tmp-<pid>-<n>``), which is then renamed into
 place.  ``async_save=True`` stages a host copy of every tensor (a copy even on
@@ -218,9 +219,9 @@ def save_checkpoint(
         opt_tensors[f"mu/{name}"] = _host_copy(m)
         opt_tensors[f"nu/{name}"] = _host_copy(v)
     files = {
-        PARAMS_FILE: {k: _host_copy(t) for k, t in state.model.state_dict().items()},
+        PARAMS_FILE: {k: _host_copy(t) for k, t in named.items()},
         OPT_FILE: opt_tensors,
-        STATS_FILE: {k: _host_copy(t) for k, t in (getattr(state, "batch_stats", None) or {}).items()},
+        STATS_FILE: {k: _host_copy(t) for k, t in state.model.named_buffers()},
     }
     meta = {"kind": "trainer", "format": FORMAT_VERSION, "step": int(state.step),
             "cursor": (cursor or CurriculumCursor()).to_dict()}
@@ -250,8 +251,8 @@ def _check_names(path: str, what: str, saved: Mapping[str, torch.Tensor], want: 
 @torch.no_grad()
 def restore_checkpoint(path: str, state, mid: bool = False, host: bool = False):
     """Restore the checkpoint at ``path`` into ``state`` in place (the
-    parameters into its model, the moments and count into its AdamW state,
-    each keeping its device and dtype).
+    parameters and running statistics into its model, the moments and count
+    into its AdamW state, each keeping its device and dtype).
 
     Returns ``(state, cursor)``, or ``(state, cursor, step_cursor)`` with
     ``mid=True``; ``host=True`` appends the decoded host state, or None when
@@ -264,10 +265,11 @@ def restore_checkpoint(path: str, state, mid: bool = False, host: bool = False):
     if mid and "mid" not in meta:
         raise ValueError(f"{path!r} is an epoch checkpoint; it has no mid-epoch cursor")
     model = state.model
-    params = load_tensors(path)
-    _check_names(path, "parameter", params, model.state_dict())
-    opt_saved = load_tensors(path, OPT_FILE)
+    params, stats = load_tensors(path), load_tensors(path, STATS_FILE)
     named = dict(model.named_parameters())
+    _check_names(path, "parameter", params, named)
+    _check_names(path, "running statistics", stats, dict(model.named_buffers()))
+    opt_saved = load_tensors(path, OPT_FILE)
     opt = state.opt_state
     for (name, _), m, v in zip(named.items(), opt.mu, opt.nu):
         for kind, dst in (("mu", m), ("nu", v)):
@@ -276,7 +278,7 @@ def restore_checkpoint(path: str, state, mid: bool = False, host: bool = False):
                 got = None if src is None else (tuple(src.shape), src.dtype)
                 raise ValueError(f"checkpoint at {path}: moment {kind}/{name} is {got}, the optimizer holds "
                                  f"{(tuple(dst.shape), dst.dtype)}")
-    model.load_state_dict(params, strict=True)
+    model.load_state_dict({**params, **stats}, strict=True)
     for (name, _), m, v in zip(named.items(), opt.mu, opt.nu):
         m.copy_(opt_saved[f"mu/{name}"])
         v.copy_(opt_saved[f"nu/{name}"])
@@ -291,26 +293,45 @@ def restore_checkpoint(path: str, state, mid: bool = False, host: bool = False):
     return tuple(out)
 
 
+def _split_state(params) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A module's parameters and running statistics as the files that hold
+    them (no statistics file for a module without buffers); a dict is all
+    parameters."""
+    if not isinstance(params, torch.nn.Module):
+        return {PARAMS_FILE: dict(params)}
+    files = {PARAMS_FILE: dict(params.named_parameters())}
+    stats = dict(params.named_buffers())
+    if stats:
+        files[STATS_FILE] = stats
+    return files
+
+
 def save_params(path: str, params) -> str:
-    """Save a bare parameter dict (or a module's state dict): the zero-shot
-    head's export."""
+    """Save a bare parameter dict, or a module's parameters and (if it has
+    any) running statistics: the zero-shot head's export."""
     path = os.path.abspath(path)
     wait_for_saves()
-    tensors = params.state_dict() if isinstance(params, torch.nn.Module) else params
-    _write_checkpoint_dir(path, {PARAMS_FILE: {k: _host_copy(torch.as_tensor(t)) for k, t in tensors.items()}},
-                          {"kind": "params", "format": FORMAT_VERSION})
+    files = {name: {k: _host_copy(torch.as_tensor(t)) for k, t in tensors.items()}
+             for name, tensors in _split_state(params).items()}
+    _write_checkpoint_dir(path, files, {"kind": "params", "format": FORMAT_VERSION})
     return path
 
 
 def restore_params(path: str, template=None) -> Dict[str, torch.Tensor]:
-    """The parameter dict of a checkpoint directory (bare params or a
-    trainer checkpoint's params); with ``template`` (a dict or a module),
-    the names and shapes must match it."""
+    """The tensors of a checkpoint directory (bare params or a trainer
+    checkpoint's params) with its running statistics, if it holds any: a
+    module's whole state dict.  With ``template`` (a dict or a module), the
+    names and shapes must match it, the statistics those of the module's
+    buffers."""
     wait_for_saves()
     path = os.path.abspath(path)
     read_meta(path)
-    params = load_tensors(path)
+    files = {PARAMS_FILE: load_tensors(path)}
+    if os.path.isfile(os.path.join(path, STATS_FILE)):
+        files[STATS_FILE] = load_tensors(path, STATS_FILE)
     if template is not None:
-        want = template.state_dict() if isinstance(template, torch.nn.Module) else template
-        _check_names(path, "parameter", params, {k: torch.as_tensor(v) for k, v in want.items()})
-    return params
+        want = _split_state(template)
+        for name, what in ((PARAMS_FILE, "parameter"), (STATS_FILE, "running statistics")):
+            _check_names(path, what, files.get(name, {}),
+                         {k: torch.as_tensor(v) for k, v in want.get(name, {}).items()})
+    return {k: v for tensors in files.values() for k, v in tensors.items()}

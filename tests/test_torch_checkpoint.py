@@ -335,3 +335,73 @@ def test_zeroshot_eval_save_writes_a_head_restore_params_reads(tiny, tmp_path, m
     head = checkpoint.restore_params(str(tmp_path / "out" / "zeroshot_head"))
     assert sorted(head) == ["bias", "weight"] and head["weight"].shape == (2, tiny.config.embed_dim)
     assert torch.equal(head["weight"], heads[0].weight.detach()) and torch.equal(head["bias"], heads[0].bias.detach())
+
+
+def test_vit_checkpoint_files_keep_their_format(tiny, tmp_path):
+    """A ViT (no BatchNorm) checkpoint is byte for byte what it was before
+    parameters and running statistics were split: ``params.pt`` the host
+    copies of ``state_dict()``, ``batch_stats.pt`` an empty dict."""
+    state, _, _ = _trained(tiny, "bfloat16", steps=1)
+    path = checkpoint.save_checkpoint(str(tmp_path / "checkpoint_0"), state)
+    ref = tmp_path / "ref"
+    ref.mkdir()
+    torch.save({k: v.detach().to("cpu", copy=True) for k, v in state.model.state_dict().items()}, ref / "params.pt")
+    torch.save({}, ref / "batch_stats.pt")
+    for name in ("params.pt", "batch_stats.pt"):
+        with open(os.path.join(path, name), "rb") as a, open(ref / name, "rb") as b:
+            assert a.read() == b.read(), name
+
+
+def test_resnet_checkpoint_splits_params_and_running_statistics(tmp_path):
+    """A BatchNorm model: ``params.pt`` holds its parameters alone and
+    ``batch_stats.pt`` its running statistics, both restored bit for bit
+    (trainer checkpoints, ``save_params``/``restore_params`` and the
+    factory); a checkpoint without statistics is refused."""
+    from tests.test_flyp_trainer import tiny_resnet
+
+    jmodel, variables = tiny_resnet()
+    config = port_config(jmodel.config)
+    host = jax.tree_util.tree_map(np.asarray, variables)
+    model = CLIPModel(config)
+    model.load_state_dict(convert.from_jax_params(host["params"], host["batch_stats"]), strict=True)
+    opt = make_optimizer(warmup_cosine_lr(1e-3, 2, 10), 0.1, "bfloat16")
+    state, step = create_train_state(model, opt), make_train_step(model, opt)
+    images, tokens = _batch()
+    for _ in range(2):
+        state, _ = step(state, images, tokens)
+    path = checkpoint.save_checkpoint(str(tmp_path / "checkpoint_0"), state)
+    params = checkpoint.load_tensors(path)
+    stats = checkpoint.load_tensors(path, checkpoint.STATS_FILE)
+    assert list(params) == [n for n, _ in model.named_parameters()]
+    assert list(stats) == [n for n, _ in model.named_buffers()] == list(state.batch_stats)
+    assert "visual.layer1_0.bn1.mean" in stats and not torch.equal(stats["visual.bn1.var"], torch.ones(8))
+
+    fresh = create_train_state(CLIPModel(config).init_parameters(7), make_optimizer(
+        warmup_cosine_lr(1e-3, 2, 10), 0.1, "bfloat16"))
+    got = checkpoint.restore_checkpoint(path, fresh)[0]
+    _assert_leaves_equal(_leaves(got), _leaves(state))
+    _assert_leaves_equal(list(got.batch_stats.values()), list(state.batch_stats.values()))
+
+    bare = checkpoint.save_params(str(tmp_path / "bare"), model)
+    assert sorted(os.listdir(bare)) == ["batch_stats.pt", "meta.json", "params.pt"]
+    whole = checkpoint.restore_params(bare, template=model)
+    assert list(whole) == list(params) + list(stats)
+    want = model.state_dict()
+    assert all(torch.equal(whole[k], want[k]) for k in want)
+    for load in (path, bare):
+        cfg = SimpleNamespace(model="RN50", clip_load=load, compute_dtype="float32", seed=0)
+        loaded = build_clip_model(cfg, config_override=config, device="cpu")
+        assert all(torch.equal(v, want[k]) for k, v in loaded.state_dict().items())
+
+    import shutil
+
+    stale = str(tmp_path / "stale")
+    shutil.copytree(path, stale)
+    torch.save({}, os.path.join(stale, checkpoint.STATS_FILE))
+    with pytest.raises(ValueError, match=r"running statistics names differ \(missing \['visual\.bn1\.mean'"):
+        checkpoint.restore_checkpoint(stale, fresh)
+    with pytest.raises(ValueError, match="carries no batch_stats"):
+        build_clip_model(SimpleNamespace(model="RN50", clip_load=stale, compute_dtype="float32", seed=0),
+                         config_override=config, device="cpu")
+    with pytest.raises(ValueError, match="running statistics names differ"):
+        checkpoint.restore_params(stale, template=model)

@@ -850,3 +850,118 @@ def test_trainer_resumes_bit_for_bit_on_card(card, tmp_path):
             ta, tb = checkpoint.load_tensors(str(a), file), checkpoint.load_tensors(str(b), file)
             assert list(ta) == list(tb) and all(torch.equal(ta[k], tb[k]) for k in ta), (epoch, file)
     assert (tmp_path / "a" / "logs" / "stats.tsv").read_text() == (tmp_path / "b" / "logs" / "stats.tsv").read_text()
+
+
+def _tiny_rn(card_dtype="float32"):
+    """A tiny ModifiedResNet CLIP (32 px, width 16, blocks 1-1-1-1, a
+    128-wide 2-layer text tower) drawn from seed 0."""
+    from types import SimpleNamespace
+
+    cfg = MODEL_CONFIGS["RN50"]
+    tiny = dataclasses.replace(cfg, embed_dim=64,
+                               vision=dataclasses.replace(cfg.vision, image_size=32, width=16, heads=2,
+                                                          resnet_layers=(1, 1, 1, 1)),
+                               text=dataclasses.replace(cfg.text, width=128, heads=2, layers=2))
+    return SimpleNamespace(model="RN50", clip_load=None, compute_dtype=card_dtype, seed=0), tiny
+
+
+def _rn_batch(B, seed):
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((B, 16), np.int64)
+    tokens[:, 0] = 49406
+    for i, n in enumerate(rng.integers(3, 12, B)):
+        tokens[i, 1:n] = rng.integers(1, 49000, n - 1)
+        tokens[i, n] = 49407
+    return torch.from_numpy(rng.standard_normal((B, 32, 32, 3)).astype(np.float32)), torch.from_numpy(tokens)
+
+
+def test_resnet_tower_on_card_matches_cpu(card):
+    """The tiny RN CLIP on the card (cuDNN convolutions, BatchNorm, B1 in
+    the text tower) against the CPU plain version: the fp32 train-mode loss,
+    features and updated running statistics (1e-5 / 1e-4), eval-mode
+    features; then the image tower's gradients in float64 (1e-3: its
+    attention pool computes in fp32).  fp32 gradients are not compared: a
+    ReLU after a BatchNorm whose channel is nearly constant over the batch
+    masks outputs of rounding-noise size, so a change of summation order
+    flips whole masks and moves early gradients by percents, on either
+    device."""
+    from flyp_tpu_torch.models import build_clip_model
+    from flyp_tpu_torch.ops.losses import clip_loss
+
+    spec, tiny = _tiny_rn()
+    images, tokens = _rn_batch(8, 0)
+    cot = torch.from_numpy(np.random.default_rng(1).standard_normal((8, tiny.embed_dim)))
+    out = {}
+    for dev in ("cpu", card):
+        model = build_clip_model(spec, config_override=tiny, device=dev).train()
+        with torch.no_grad():
+            f, t, s = model(images.to(dev), tokens.to(dev))
+            loss = clip_loss(f, t, s).mean().item()
+            stats = {k: v.cpu() for k, v in model.named_buffers()}
+            model.eval()
+            feats = model.encode_image(images.to(dev), normalize=True).cpu()
+        tower = build_clip_model(spec, config_override=tiny, device=dev).visual.double().train().requires_grad_(True)
+        grads = torch.autograd.grad((tower(images.to(dev).double()) * cot.to(dev)).sum(), list(tower.parameters()))
+        out[str(dev)] = (loss, f.cpu(), stats, feats, [g.cpu() for g in grads])
+    (l0, f0, s0, e0, g0), (l1, f1, s1, e1, g1) = out["cpu"], out[str(card)]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    torch.testing.assert_close(f1, f0, rtol=1e-4, atol=1e-5)
+    for k, v in s0.items():
+        torch.testing.assert_close(s1[k], v, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(e1, e0, rtol=1e-4, atol=1e-5)
+    for (name, _), a, b in zip(tower.named_parameters(), g1, g0):
+        if name != "attnpool.k_proj.bias":  # its exact gradient is 0
+            assert float((a - b).norm()) <= 1e-3 * float(b.norm()), name
+
+
+@pytest.mark.parametrize("tower", ["vit", "resnet"])
+def test_chunked_step_on_card_matches_oracle(card, tower):
+    """The chunked step (2 chunks, bf16) on the card against the chunk-wise
+    oracle on the card (per-chunk forwards under autograd, one loss, one
+    backward): the same loss and running statistics bit for bit (pass 1 is
+    the oracle's forward), gradients to cosine 0.9999, B1 twice and B2 once
+    per block per chunk."""
+    from types import SimpleNamespace
+
+    from flyp_tpu_torch.models import build_clip_model
+    from flyp_tpu_torch.ops.losses import clip_loss
+    from flyp_tpu_torch.training import create_train_state, make_train_step
+    from flyp_tpu_torch.training.train_state import AdamWState
+
+    if tower == "resnet":
+        spec, tiny = _tiny_rn("bfloat16")
+    else:
+        cfg = MODEL_CONFIGS["ViT-B/16"]
+        tiny = dataclasses.replace(cfg, embed_dim=64,
+                                   vision=dataclasses.replace(cfg.vision, image_size=32, width=128, layers=2, heads=2),
+                                   text=dataclasses.replace(cfg.text, width=128, heads=2, layers=2))
+        spec = SimpleNamespace(model="ViT-B/16", clip_load=None, compute_dtype="bfloat16", seed=0)
+
+    class Capture:
+        def init(self, params):
+            return AdamWState(torch.zeros((), dtype=torch.int32, device=card), [], [])
+
+        def update(self, params, grads, state, frozen=None):
+            self.grads = [g.float().clone() for g in grads]
+            return torch.zeros((), device=card)
+
+    images, tokens = (t.to(card) for t in _rn_batch(16, 1))
+    images = images.to(torch.bfloat16)
+    model = build_clip_model(spec, config_override=tiny, device=card)
+    oracle = build_clip_model(spec, config_override=tiny, device=card).train().requires_grad_(True)
+    cap = Capture()
+    blocks = tiny.vision.layers + tiny.text.layers
+    before = tab.attention_block.fwd_launches, tab.attention_block.bwd_launches
+    _, metrics = make_train_step(model, cap, grad_cache_chunks=2)(create_train_state(model, cap), images, tokens)
+    assert (tab.attention_block.fwd_launches - before[0], tab.attention_block.bwd_launches - before[1]) == (
+        4 * blocks, 2 * blocks)
+    feats = [oracle(images[i:i + 8], tokens[i:i + 8]) for i in (0, 8)]
+    loss = clip_loss(torch.cat([f[0] for f in feats]), torch.cat([f[1] for f in feats]), feats[0][2]).mean()
+    grads = torch.autograd.grad(loss, list(oracle.parameters()))
+    assert float(metrics["loss"]) == loss.item()
+    for (name, _), a, b in zip(model.named_parameters(), cap.grads, grads):
+        if name != "visual.attnpool.k_proj.bias":
+            a, b = a.double().ravel(), b.double().ravel()
+            assert float(a @ b) >= 0.9999 * float(a.norm() * b.norm()), name
+    for (k, v), w in zip(model.named_buffers(), oracle.buffers()):
+        assert torch.equal(v, w), k

@@ -166,8 +166,17 @@ def test_random_init_is_seeded_and_clip_distributed(tiny):
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CLIPModel(MODEL_CONFIGS["RN50"])
+    # The ModifiedResNet towers are ported: every RN config builds (on the
+    # meta device, without memory), its BatchNorm statistics as buffers.
+    for name, config in MODEL_CONFIGS.items():
+        if config.vision.is_vit:
+            continue
+        with torch.device("meta"):
+            model = CLIPModel(config)
+        stats = dict(model.named_buffers())
+        assert "visual.bn1.mean" in stats and "visual.layer1_0.downsample_bn.var" in stats, name
+        assert model.visual.attnpool.positional_embedding.shape == ((config.vision.image_size // 32) ** 2 + 1,
+                                                                    config.vision.width * 32), name
     cfg = SimpleNamespace(model="ViT-B/16", clip_load=str(tmp_path), compute_dtype="float32", seed=0)
     with pytest.raises(ValueError, match="not a checkpoint directory of this package"):
         build_clip_model(cfg, device="cpu")  # a directory without the port's meta.json

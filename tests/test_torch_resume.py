@@ -12,13 +12,16 @@ import glob
 import json
 import os
 
+import jax
+import numpy as np
 import pytest
 import torch
 
+from flyp_tpu_torch.models import CLIPModel, convert
 from flyp_tpu_torch.training import flyp
 from flyp_tpu_torch.utils import checkpoint
-from tests.test_flyp_trainer import corpus  # noqa: F401
-from tests.test_torch_flyp_trainer import port_cfg, port_model
+from tests.test_flyp_trainer import corpus, tiny_resnet  # noqa: F401
+from tests.test_torch_flyp_trainer import port_cfg, port_config, port_model
 
 torch.set_num_threads(1)
 
@@ -76,6 +79,37 @@ def test_max_steps_resume_is_bitwise_exact(corpus, tmp_path):  # noqa: F811
             return [{k: v for k, v in r.items() if k != "ts"} for r in map(json.loads, f)]
 
     assert records(cfg_a.log_dir) == records(cfg_b.log_dir)
+
+
+def rn_port_model():
+    """``tests/test_flyp_trainer.py::tiny_resnet`` in the port: a BatchNorm
+    image tower, its running statistics from the JAX init."""
+    jmodel, variables = tiny_resnet()
+    host = jax.tree_util.tree_map(np.asarray, variables)
+    model = CLIPModel(port_config(jmodel.config))
+    model.load_state_dict(convert.from_jax_params(host["params"], host["batch_stats"]), strict=True)
+    return model
+
+
+def test_resnet_chunked_resume_is_bitwise_exact(corpus, tmp_path):  # noqa: F811
+    """A ModifiedResNet trained with the chunked step (2 chunks of 4),
+    stopped in mid-epoch and resumed: its checkpoints, running statistics
+    included, and stats.tsv equal the uninterrupted run's."""
+    flags = dict(curriculum=True, grad_cache_chunks=2)
+    cfg_a = port_cfg(corpus, tmp_path, "rn_a", **flags)
+    flyp.flyp_train(cfg_a, model=rn_port_model(), print_every=2)
+    cfg_b = port_cfg(corpus, tmp_path, "rn_b", max_steps=3, save_every_n_steps=2, **flags)
+    ret = flyp.flyp_train(cfg_b, model=rn_port_model(), print_every=2)
+    assert os.path.basename(ret) == "checkpoint_0_step_2"
+    cfg_b = port_cfg(corpus, tmp_path, "rn_b", **flags)
+    assert os.path.basename(flyp.flyp_train(cfg_b, model=rn_port_model(), print_every=2)) == "checkpoint_1"
+    for epoch in (0, 1):
+        a = os.path.join(cfg_a.save, f"checkpoint_{epoch}")
+        _assert_checkpoints_equal(a, os.path.join(cfg_b.save, f"checkpoint_{epoch}"))
+    stats = checkpoint.load_tensors(a, "batch_stats.pt")
+    fresh = dict(rn_port_model().named_buffers())
+    assert sorted(stats) == sorted(fresh) and not torch.equal(stats["visual.bn1.mean"], fresh["visual.bn1.mean"])
+    assert _text(os.path.join(cfg_a.log_dir, "stats.tsv")) == _text(os.path.join(cfg_b.log_dir, "stats.tsv"))
 
 
 def test_curriculum_midpass_resume_exact(corpus, tmp_path):  # noqa: F811

@@ -220,9 +220,7 @@ def test_train_step_supervised_loss_matches_jax(tiny, variant):
 def test_train_step_runs_the_training_op_and_refuses_grad_cache(tiny, monkeypatch):
     model = _port_model(tiny)
     opt = make_optimizer(warmup_cosine_lr(*SCHEDULE), weight_decay=0.1)
-    with pytest.raises(NotImplementedError, match="A8"):
-        make_train_step(model, opt, grad_cache_chunks=2)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="grad_cache_chunks"):
         make_train_step(model, opt, grad_cache_chunks=0)
     calls = {"train": 0, "infer": 0}
     real_train, real_infer = tab._train_forward, tab.attention_block_inference_reference
@@ -247,6 +245,13 @@ def test_train_step_runs_the_training_op_and_refuses_grad_cache(tiny, monkeypatc
     assert calls == {"train": 4, "infer": 2}
     with pytest.raises(ValueError, match="another model"):
         make_train_step(_port_model(tiny), opt)(state, images, tokens)
+    # grad_cache_chunks > 1 is the chunked step (training/grad_cache.py):
+    # 2 chunks x 2 passes x 4 blocks of the training op, none of the other.
+    state, metrics = make_train_step(model, opt, grad_cache_chunks=2)(create_train_state(model, opt), images, tokens)
+    assert calls == {"train": 20, "infer": 2}
+    assert state.step == 1 and metrics["per_item_loss"].shape == (4,) and torch.isfinite(metrics["loss"])
+    with pytest.raises(ValueError, match="another model"):
+        make_train_step(_port_model(tiny), opt, grad_cache_chunks=2)(state, images, tokens)
 
 
 def test_create_train_state_trains_served_model(tiny):
