@@ -9,6 +9,8 @@
     python3 chip_smoke.py --eval               # only the evaluation harness (phase 9)
     python3 chip_smoke.py --trainer            # only the FLYP trainer (phase 10)
     python3 chip_smoke.py --resnet             # only the RN50 towers and the chunked step (phase 11)
+    python3 chip_smoke.py --parallel           # only the head-shard kernels and the trainer across ranks (phase 12)
+    python3 chip_smoke.py --parallel-trainer   # only phase 12's trainer across ranks (nccl on every card)
 
 Phases, each of which raises on failure:
 
@@ -140,6 +142,27 @@ Phases, each of which raises on failure:
    the logged top-1; ``ClipServer.from_checkpoint`` on an RN50 ``.pt`` with
    moved running statistics (a 256-image ``classify``, B3 exact, features
    against the CPU plain forward).  Its numbers go to a ``"resnet"`` line.
+
+12. parallelism across ranks at full ViT-B/16 width in bf16: B3, B1 and B2
+   on head shards (``partial`` / ``add_g=False``; Dv = D / n at n = 2 and
+   4 for ViT-B/16 and ViT-L/14, fp32 and bf16) against their plain
+   versions, and the sum over the n shard launches (plus ``x + bout``, or
+   ``g``) against the unsharded kernel, timed beside both; the shard widths
+   the kernels cannot tile (Dv = 192) refused by name; that this torch
+   build's gloo takes CUDA tensors for every collective the port calls;
+   then ``cli/main.py`` trained for 4 steps at batch 256 from the seed-0
+   weights at a learning rate of 1e-4 with no warm-up: once as one process
+   under torchrun over ``nccl`` (world 1), then across ranks with data
+   parallelism, tensor parallelism (``--mesh_model 2``) and FSDP, over
+   ``nccl`` with one rank a card (world = min(cards, 4)) or, on one card,
+   as 2 ranks over ``gloo``; each run's per-step losses and global gradient
+   norms and its final parameters (the checkpoint, as a share of the one-
+   process run's own movement) against the one-process run's, every rank's
+   B1/B2 launches exact (one a block a step), each checkpoint holding the
+   whole model's shapes, an FSDP run stopped after 2 steps and resumed
+   ending bit-equal to the uninterrupted one, and a planted fault (a data-
+   parallel run whose gradient sum is skipped) failing each of the three
+   bounds.  Its numbers go to a ``"parallel"`` line.
 
 The products' numbers are a JSON line of their own (``"gemm"``), the input
 pipeline's, the evaluation's, the trainer's and phase 11's too (``"input"``,
@@ -2918,7 +2941,555 @@ def attention_times() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12 (--parallel): head-group shards of B1-B3 on the card, and the
+# trainer across ranks through cli/main.py.
+
+# (label, B, L, D, H, causal, shards n, dtypes): the shard widths Dv = D / n
+# that ViT-B/16 and ViT-L/14 give at --mesh_model 2 and 4, at the training
+# main path's batch for ViT-B/16 (256; L = 197 vision, 32 text) and a
+# smaller one for ViT-L/14 (vision L = 257).  Dv = 192 is refused (it is
+# not a multiple of the GEMMs' 128-column tile).
+SHARD_CASES = [
+    ("ViT-B/16 vision", 256, 197, 768, 12, False, 2, (torch.bfloat16,)),
+    ("ViT-B/16 vision", 16, 197, 768, 12, False, 2, (torch.float32,)),
+    ("ViT-B/16 text", 256, 32, 512, 8, True, 2, (torch.bfloat16,)),
+    ("ViT-B/16 text", 256, 32, 512, 8, True, 4, (torch.bfloat16,)),
+    ("ViT-B/16 text", 16, 32, 512, 8, True, 4, (torch.float32,)),
+    ("ViT-L/14 vision", 32, 257, 1024, 16, False, 2, (torch.bfloat16,)),
+    ("ViT-L/14 vision", 32, 257, 1024, 16, False, 4, (torch.bfloat16,)),
+    ("ViT-L/14 text", 256, 32, 768, 12, True, 2, (torch.bfloat16,)),
+]
+SHARD_REFUSED = [("ViT-B/16 vision", 8, 197, 768, 12, False, 4), ("ViT-L/14 text", 8, 32, 768, 12, True, 4)]
+
+
+def shard_bound_ms(B, L, D, Dv, causal, dtype, peaks, kind):
+    """(ms, "operations" | "bytes") of one shard launch.  Forward (B1, B3):
+    QKV 6BLDDv + attention 4BL^2Dv (halved when causal) + out-projection
+    2BLDvD; bytes x read, the fp32 partial written, the shard's weights
+    read (B1 also writes q, k, v, o and lse).  Backward (B2): 14BLDDv +
+    10BL^2Dv; x, g, q, k, v read, dx written, the weights and fp32 grads."""
+    el = torch.finfo(dtype).bits // 8
+    attn = B * L * L * Dv * (0.5 if causal else 1.0)
+    H = Dv // _HEAD_DIM
+    if kind == "bwd":
+        flops = 14 * B * L * D * Dv + 10 * attn
+        nbytes = (3 * B * L * D + 3 * B * L * Dv) * el + B * L * H * 4 + 4 * D * Dv * el + (3 * D * Dv + 3 * Dv
+                                                                                           + 2 * D) * 4
+    else:
+        flops = 8 * B * L * D * Dv + 4 * attn
+        nbytes = B * L * D * el + B * L * D * 4 + 4 * D * Dv * el
+        if kind == "fwd":
+            nbytes += 4 * B * L * Dv * el + B * L * H * 4
+    t_ops, t_bytes = flops / peaks[dtype], nbytes / peaks["bytes"]
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def shard_weights(args, n, i):
+    """Shard ``i`` of ``n`` of the block inputs: the heads' columns of Wqkv
+    and bqkv, the rows of Wout; x, LN and bout whole."""
+    x, ln_s, ln_b, wqkv, bqkv, wout, bout = args
+    Dv = wqkv.shape[-1] // n
+    cols = slice(i * Dv, (i + 1) * Dv)
+    return (x, ln_s, ln_b, wqkv[:, :, cols].contiguous(), bqkv[:, cols].contiguous(), wout[cols].contiguous(), bout)
+
+
+def phase_parallel_kernels(peaks) -> dict:
+    """B3, B1 and B2 on head shards (partial / add_g=False) at every width
+    of SHARD_CASES: each shard launch against its plain version, and the
+    sum over the n shards (plus x + bout, or g) against the unsharded
+    kernel; ms of one shard launch beside the plain version's and the
+    unsharded launch's."""
+    out = {"B3": [], "B1": [], "B2": []}
+    for label, B, L, D, H, causal, n, dtypes in SHARD_CASES:
+        for dtype in dtypes:
+            Dv, Hl = D // n, H // n
+            where = (label, B, L, D, Dv, n, str(dtype))
+            args = block_inputs(B, L, D, dtype, seed=L + n)
+            x, ln_s, ln_b, wqkv, _, wout, bout = args
+            g = torch.randn(B, L, D, generator=torch.Generator().manual_seed(L + 7)).cuda().to(dtype)
+            elem, norm, _ = BWD_TOL[dtype]
+            common = dict(model=label, B=B, L=L, D=D, Dv=Dv, H=Hl, shards=n, causal=causal,
+                          dtype=str(dtype).split(".")[-1])
+            with torch.no_grad():
+                full3 = ab._fwd_kernel_call(*args, H, causal, train=False)
+                full1 = ab._fwd_kernel_call(*args, H, causal, train=True)
+                full2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *full1[2:], H, causal)
+                p3, p1, p2 = [], [], []
+                errs = {"B3": 0.0, "B1": 0.0, "B2": 0.0}
+                for i in range(n):
+                    sa = shard_weights(args, n, i)
+                    r3 = ab._fwd_kernel_call(*sa, Hl, causal, train=False, partial=True)
+                    torch.cuda.synchronize()
+                    errs["B3"] = max(errs["B3"], check_close(
+                        "B3 shard", r3, ab.attention_block_inference_reference(*sa, Hl, causal, partial=True),
+                        TOL[dtype], where))
+                    r1 = ab._fwd_kernel_call(*sa, Hl, causal, train=True, partial=True)
+                    torch.cuda.synchronize()
+                    ref1 = ab.attention_block_reference(*sa, Hl, causal, partial=True)
+                    for name, a, r in zip(("out", "o", "q", "k", "v"), r1, ref1):
+                        e = check_close(f"B1 shard {name}", a, r, TOL[dtype], where)
+                        errs["B1"] = max(errs["B1"], e) if name == "out" else errs["B1"]
+                    check_close("B1 shard lse", r1[5], ref1[5], LSE_TOL[dtype], where, rtol=0.0)
+                    r2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, sa[3], sa[5], *r1[2:], Hl, causal, add_g=False)
+                    torch.cuda.synchronize()
+                    ref2 = ab.attention_block_backward_reference(g, x, ln_s, ln_b, sa[3], sa[5], *r1[1:], Hl, causal,
+                                                                 add_g=False)
+                    errs["B2"] = max(errs["B2"], check_close("B2 shard dx", r2[0], ref2[0], elem, where))
+                    rels = [rel_norm(a, r) for a, r in zip(r2[1:], ref2[1:5])]
+                    if max(rels) > norm:
+                        raise AssertionError(f"B2 shard sums disagree at {where}: {rels}")
+                    p3.append(r3)
+                    p1.append(r1)
+                    p2.append(r2)
+                # The shards summed as the TP wrapper sums them, against the
+                # unsharded kernel.
+                sum3 = ((x.float() + sum(p3)) + bout.float()).to(dtype)
+                sum1 = ((x.float() + sum(r[0] for r in p1)) + bout.float()).to(dtype)
+                dx = (g.float() + sum(r[0].float() for r in p2)).to(dtype)
+                sums = {"B3": check_close("B3 shard sum", sum3, full3, TOL[dtype], where),
+                        "B1": check_close("B1 shard sum", sum1, full1[0], TOL[dtype], where),
+                        "B2": check_close("B2 shard sum dx", dx, full2[0], elem, where)}
+                sum_rels = [rel_norm(sum(r[1] for r in p2), full2[1]), rel_norm(sum(r[2] for r in p2), full2[2]),
+                            rel_norm(torch.cat([r[3] for r in p2], dim=-1), full2[3]),
+                            rel_norm(torch.cat([r[4] for r in p2], dim=-1), full2[4])]
+                if max(sum_rels) > norm:
+                    raise AssertionError(f"B2 shard sums against the unsharded kernel at {where}: {sum_rels}")
+                sa = shard_weights(args, n, 0)
+                lse0 = p1[0]
+                times = {
+                    "B3": (cuda_ms(lambda: ab._fwd_kernel_call(*sa, Hl, causal, train=False, partial=True)),
+                           cuda_ms(lambda: ab.attention_block_inference_reference(*sa, Hl, causal, partial=True),
+                                   iters=5, warmup=1),
+                           cuda_ms(lambda: ab._fwd_kernel_call(*args, H, causal, train=False))),
+                    "B1": (cuda_ms(lambda: ab._fwd_kernel_call(*sa, Hl, causal, train=True, partial=True)),
+                           cuda_ms(lambda: ab.attention_block_reference(*sa, Hl, causal, partial=True), iters=5,
+                                   warmup=1),
+                           cuda_ms(lambda: ab._fwd_kernel_call(*args, H, causal, train=True))),
+                    "B2": (cuda_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, sa[3], sa[5], *lse0[2:], Hl, causal,
+                                                               add_g=False)),
+                           cuda_ms(lambda: ab.attention_block_backward_reference(
+                               g, x, ln_s, ln_b, sa[3], sa[5], *lse0[1:], Hl, causal, add_g=False), iters=5,
+                               warmup=1),
+                           cuda_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *full1[2:], H, causal))),
+                }
+            for kernel, kind in (("B3", "infer"), ("B1", "fwd"), ("B2", "bwd")):
+                ms, plain_ms, whole_ms = times[kernel]
+                bound, by = shard_bound_ms(B, L, D, Dv, causal, dtype, peaks, kind)
+                case = dict(common, max_abs_err=errs[kernel], sum_max_abs_err=sums[kernel], ms=ms, plain_ms=plain_ms,
+                            unsharded_ms=whole_ms, bound_ms=bound, bound_by=by, launches_per_case=n)
+                out[kernel].append(case)
+                log(f"{kernel} shard", json.dumps(case))
+            del full1, full2, full3, p1, p2, p3
+    refused = []
+    for label, B, L, D, H, causal, n in SHARD_REFUSED:
+        args = shard_weights(block_inputs(B, L, D, torch.bfloat16, seed=3), n, 0)
+        for kernel, call in (("B3/B1", lambda: ab._fwd_kernel_call(*args, H // n, causal, train=True, partial=True)),
+                             ("B2", lambda: ab._bwd_kernel_call(args[0], *args[:3], args[3], args[5], args[0][..., :D // n],
+                                                                args[0][..., :D // n], args[0][..., :D // n],
+                                                                torch.zeros(B, L, H // n, device="cuda"), H // n,
+                                                                causal, add_g=False))):
+            before = counts()
+            try:
+                call()
+            except ValueError as e:
+                if f"Dv={D // n}" not in str(e):
+                    raise AssertionError(f"{kernel} refused Dv={D // n} without naming it: {e}") from e
+                if counts() != before:
+                    raise AssertionError(f"{kernel} launched on a refused shape")
+                refused.append(f"{label} Dv={D // n} {kernel}")
+                continue
+            raise AssertionError(f"{kernel} took Dv={D // n}, which it cannot tile")
+    log(f"shard kernels: refused {refused}")
+    out["refused"] = refused
+    return out
+
+
+def gloo_cuda_collectives() -> dict:
+    """Which collectives this torch build's gloo takes for CUDA tensors, on a
+    one-rank gloo group in this process.  ``parallel/comm.py`` hands gloo
+    its CUDA tensors as they lie, so the one-card runs need every one."""
+    import torch.distributed as dist
+
+    res = {}
+    store = dist.HashStore()
+    pg = dist.ProcessGroupGloo(store, 0, 1) if hasattr(dist, "ProcessGroupGloo") else None
+    if pg is None:
+        return {"probe": "no ProcessGroupGloo"}
+    t = torch.ones(4, device="cuda")
+    ops = {
+        "all_reduce": lambda: pg.allreduce([t]).wait(),
+        "broadcast": lambda: pg.broadcast([t]).wait(),
+        "all_gather": lambda: pg.allgather([[torch.empty_like(t)]], [t]).wait(),
+        "reduce_scatter": lambda: pg.reduce_scatter([torch.empty_like(t)], [[t]]).wait(),
+    }
+    for name, fn in ops.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            res[name] = True
+        except Exception as e:  # recorded, then refused below with every answer
+            res[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    if any(v is not True for v in res.values()):
+        raise AssertionError(f"gloo does not take CUDA tensors for every collective the port calls: {res}")
+    return res
+
+
+# The multi-rank trainer runs: ViT-B/16 at full width, bf16, bf16 moments,
+# batch 256 of the input phase's corpus, PARALLEL_STEPS steps a run from the
+# seed-0 weights at PARALLEL_LR from the first step (no warm-up, so every
+# step moves the model), the global gradient norm logged, saved at the end
+# (a step checkpoint); FSDP also stopped after PARALLEL_STOP steps and
+# resumed to PARALLEL_STEPS.  PARALLEL_FAULT is data parallelism with the
+# gradient sum over ranks skipped: each rank steps on its own rows' share,
+# which every bound below must refuse.
+PARALLEL_STEPS, PARALLEL_STOP = 4, 2
+PARALLEL_LR = "1e-4"
+PARALLEL_LAYOUTS = {"dp": (), "tp": ("--mesh_model", "2"), "fsdp": ("--fsdp",)}
+PARALLEL_FAULT = "dp_no_grad_sum"
+# Against the one-process run, from the spread of sound runs on one H100
+# (PERF.md's phase 12 findings: the largest, TP's, beside the planted
+# fault's); the fault must exceed each.
+PARALLEL_LOSS_TOL = 5e-3  # per-step loss, relative (TP 5.05e-4; fault 0.129)
+PARALLEL_GRAD_NORM_TOL = 5e-2  # per-step global gradient norm, relative (TP 8.17e-3; fault 3.85)
+PARALLEL_PARAM_TOL = 0.3  # |p - p_single| / |p_single - p_init| over every parameter (TP 0.094; fault 1.14)
+
+
+def parallel_argv(tsv: str, root: str, name: str, steps: int, workers: int) -> list:
+    return ["--ft_data", tsv, "--batch-size", str(INPUT_BATCH), "--data_backend", "native", "--workers",
+            str(workers), "--model", MODEL, "--seed", "0", "--epochs", "1", "--lr", PARALLEL_LR,
+            "--warmup_length", "0", "--log_grad_norm", "--adam_moment_dtype", "bfloat16", "--max_steps",
+            str(steps), "--save", os.path.join(root, name), "--exp_name", name]
+
+
+def _planted(name: str, fn):
+    """``fn()``, with the gradient sum over ranks skipped if ``name`` is
+    the planted fault's run."""
+    from flyp_tpu_torch.parallel import comm
+
+    if name != PARALLEL_FAULT:
+        return fn()
+    real = comm.all_reduce_flat
+    comm.all_reduce_flat = lambda tensors, group, *a, **k: [t.clone() for t in tensors]
+    try:
+        return fn()
+    finally:
+        comm.all_reduce_flat = real
+
+
+def _rank_counts(out_dir: str, rank: int, name: str, fn):
+    """Run ``fn`` (a trainer run) with every count at 0 and each step's
+    start stamped (after a synchronise); write this rank's launches, the
+    run's return value and its step intervals."""
+    from flyp_tpu_torch.training import flyp
+
+    stamps = []
+    real = flyp.make_train_step
+
+    def make_step(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def stamped(*a, **k):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            return step(*a, **k)
+        return stamped
+
+    flyp.make_train_step = make_step
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = fn()
+        torch.cuda.synchronize()
+    finally:
+        flyp.make_train_step = real
+    with open(os.path.join(out_dir, f"{name}.rank{rank}.json"), "w") as f:
+        json.dump({"counts": counts(), "ret": res, "run_s": time.perf_counter() - t0,
+                   "step_intervals_ms": [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]}, f)
+    return res
+
+
+def _tp_head(out_dir: str, rank: int, ckpt: str):
+    """The epoch-end head of a TP run: the zero-shot head of ``ckpt`` built
+    by the model sharded over a model axis of 2 (B3 on each rank's heads,
+    one launch a text block) against the head of the whole model (B3
+    whole); the least cosine of a class's row."""
+    from flyp_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from flyp_tpu_torch.parallel.tp import shard_params
+
+    cfg = SimpleNamespace(model=MODEL, clip_load=ckpt, compute_dtype="bfloat16", seed=0)
+    whole = get_zeroshot_classifier(build_clip_model(cfg, device="cuda"), CLASSNAMES, simple_template)
+    model = build_clip_model(cfg, device="cuda")
+    shard_params(create_mesh(MeshConfig(model=2)), model)
+    reset_counts()
+    head = get_zeroshot_classifier(model, CLASSNAMES, simple_template)
+    torch.cuda.synchronize()
+    got, ref = head.weight.float().cpu(), whole.weight.float().cpu()
+    cos = torch.nn.functional.cosine_similarity(got, ref, dim=1)
+    with open(os.path.join(out_dir, f"tp_head.rank{rank}.json"), "w") as f:
+        json.dump({"counts": counts(), "min_cos": float(cos.min())}, f)
+
+
+def parallel_gloo_rank(rank: int, world: int, port: int, runs: list, out_dir: str, cwd: str):
+    """One rank of the one-card runs: a gloo group, both ranks on card 0,
+    each run of ``runs`` through cli/main.py in turn."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from flyp_tpu_torch.cli import main as cli_main
+
+    os.chdir(cwd)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        use_impl("auto")
+        for name, argv in runs:
+            ret = _rank_counts(out_dir, rank, name, lambda: _planted(
+                name, lambda: cli_main.main(cli_main.parse_main_arguments(argv))))
+            if name == "tp":
+                _tp_head(out_dir, rank, ret)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_metrics(cwd: str, name: str) -> tuple:
+    """The per-step losses and global gradient norms a run's rank 0 logged
+    (metrics.jsonl)."""
+    base = os.path.join(cwd, "expt_logs", name)
+    (key,) = os.listdir(base)
+    with open(os.path.join(base, key, "metrics.jsonl")) as f:
+        steps = [r for r in map(json.loads, f) if "ID FLYP Loss" in r]
+    return [r["ID FLYP Loss"] for r in steps], [r["Gradient Norm"] for r in steps]
+
+
+def param_distance(path: str, ref: dict, init: dict) -> float:
+    """|p - p_ref| / |p_ref - p_init| over every parameter of the checkpoint
+    at ``path`` (fp32 norms): how far a run ended from the reference, as a
+    share of how far the reference moved."""
+    from flyp_tpu_torch.utils import checkpoint
+
+    got = checkpoint.load_tensors(path)
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"{path}: parameter names differ from the one-process run's")
+    off = sum(float((got[k].double() - ref[k].double()).pow(2).sum()) for k in ref)
+    moved = sum(float((ref[k].double() - init[k].double()).pow(2).sum()) for k in ref)
+    return math.sqrt(off / moved)
+
+
+def _rel(got: list, want: list) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def phase_parallel(card: str, peaks, kernels: bool = True) -> dict:
+    """Phase 12: the shard kernels (unless ``kernels`` is False), then the
+    trainer across ranks."""
+    import torch.multiprocessing as mp
+
+    from flyp_tpu_torch.utils import checkpoint
+
+    import gc
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "kernels": phase_parallel_kernels(peaks) if kernels else None}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gloo_cuda_collectives"] = gloo_cuda_collectives()
+    log(f"parallel: gloo takes CUDA tensors for {out['gloo_cuda_collectives']}")
+    cards = torch.cuda.device_count()
+    world = min(cards, 4) if cards >= 2 else 2
+    backend = "nccl" if cards >= 2 else "gloo"
+    cwd = os.getcwd()
+    _, layers_v, layers_t = model_shape()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        os.makedirs(os.path.join(root, "train"))
+        tsv, _, _ = write_corpus(os.path.join(root, "train"), 0)
+        log(f"parallel: corpus in {time.perf_counter() - t0:.1f} s")
+        runs_dir = os.path.join(root, "runs")
+        os.makedirs(runs_dir)
+        workers = max(1, (os.cpu_count() or 2) // world)
+        # The reference: one process through torchrun, over nccl (world 1).
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        ref_argv = parallel_argv(tsv, root, "single", PARALLEL_STEPS, INPUT_WORKERS)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+                        "--master_port", str(_free_port()), os.path.abspath(__file__), "--parallel-rank", runs_dir,
+                        "single", json.dumps(ref_argv)], cwd=runs_dir, env=env, check=True, timeout=400)
+        out["single_s"] = time.perf_counter() - t0
+        ref, ref_norms = run_metrics(runs_dir, "single")
+        with open(os.path.join(runs_dir, "single.rank0.json")) as f:
+            single = json.load(f)
+        want = {k: 0 for k in single["counts"]}
+        want.update(B1=(layers_v + layers_t) * PARALLEL_STEPS, B2=(layers_v + layers_t) * PARALLEL_STEPS)
+        if single["counts"] != want:
+            raise AssertionError(f"parallel single: launches {single['counts']}, expected {want}")
+        out["single_step_ms"] = sorted(single["step_intervals_ms"])[len(single["step_intervals_ms"]) // 2]
+        log(f"parallel: world 1 over nccl (torchrun): losses {ref}, gradient norms {ref_norms} in "
+            f"{out['single_s']:.1f} s")
+        ran = [{"world": 1, "backend": "nccl", "layout": "single process"}]
+        runs = []
+        for name, flags in PARALLEL_LAYOUTS.items():
+            runs.append((name, [*parallel_argv(tsv, root, name, PARALLEL_STEPS, workers), *flags]))
+        runs.append(("fsdp_stop", [*parallel_argv(tsv, root, "fsdp_resume", PARALLEL_STOP, workers), "--fsdp"]))
+        runs.append(("fsdp_resume", [*parallel_argv(tsv, root, "fsdp_resume", PARALLEL_STEPS - PARALLEL_STOP,
+                                                     workers), "--fsdp"]))
+        runs.append((PARALLEL_FAULT, parallel_argv(tsv, root, PARALLEL_FAULT, PARALLEL_STEPS, workers)))
+        t0 = time.perf_counter()
+        if backend == "nccl":
+            for name, argv in runs:
+                subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", str(world),
+                                "--master_port", str(_free_port()), os.path.abspath(__file__),
+                                "--parallel-rank", runs_dir, name, json.dumps(argv)],
+                               cwd=runs_dir, env=env, check=True, timeout=300)
+        else:
+            mp.start_processes(parallel_gloo_rank, args=(world, _free_port(), runs, runs_dir, runs_dir),
+                               nprocs=world, join=True, start_method="spawn")
+        out["runs_s"] = time.perf_counter() - t0
+        results = {}
+        for name, _ in runs:
+            per_rank = []
+            for r in range(world):
+                with open(os.path.join(runs_dir, f"{name}.rank{r}.json")) as f:
+                    per_rank.append(json.load(f))
+            results[name] = per_rank
+        per_step = layers_v + layers_t
+        out["step_ms"] = {name: [sorted(r["step_intervals_ms"])[len(r["step_intervals_ms"]) // 2]
+                                 for r in results[name] if r["step_intervals_ms"]] for name, _ in runs}
+        out["run_s"] = {name: [r["run_s"] for r in results[name]] for name, _ in runs}
+        log(f"parallel: median ms between step starts {out['step_ms']}; run seconds {out['run_s']}")
+        for name, _ in runs:
+            steps = PARALLEL_STOP if name == "fsdp_stop" else (
+                PARALLEL_STEPS - PARALLEL_STOP if name == "fsdp_resume" else PARALLEL_STEPS)
+            for r, res in enumerate(results[name]):
+                c = res["counts"]
+                # Each rank launches B1 and B2 once a block a step (a TP
+                # rank on its heads), and nothing else.
+                want = {k: 0 for k in c}
+                want.update(B1=per_step * steps, B2=per_step * steps)
+                if c != want:
+                    raise AssertionError(f"parallel {name} rank {r}: launches {c}, expected {want}")
+        # Each run against the one-process run: per-step losses and global
+        # gradient norms, and the final parameters as a share of the
+        # reference's own movement from the seed-0 weights (built on the
+        # CPU, as the trainer builds them before moving them to its card).
+        ref_params = checkpoint.load_tensors(results_path(root, "single"))
+        init = {k: v.detach() for k, v in build_clip_model(
+            SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="bfloat16", seed=0),
+            device="cpu").named_parameters()}
+        moved_rms = math.sqrt(sum(float((ref_params[k].double() - init[k].double()).pow(2).sum())
+                                  for k in ref_params) / sum(v.numel() for v in ref_params.values()))
+        # Adam moves a parameter by about the learning rate a step: a far
+        # larger movement means another starting point than the trainer's.
+        if not 0 < moved_rms < PARALLEL_STEPS * float(PARALLEL_LR):
+            raise AssertionError(f"parallel: the one-process run moved its parameters by {moved_rms:.3g} rms in "
+                                 f"{PARALLEL_STEPS} steps at lr {PARALLEL_LR}")
+        out["single_losses"], out["single_grad_norms"], out["single_moved_rms"] = ref, ref_norms, moved_rms
+        checks = {}
+        for name in [*PARALLEL_LAYOUTS, PARALLEL_FAULT]:
+            losses, norms = run_metrics(runs_dir, name)
+            if len(losses) != len(ref) or len(norms) != len(ref_norms):
+                raise AssertionError(f"parallel {name}: {len(losses)} steps logged, expected {len(ref)}")
+            checks[name] = {"losses": losses, "grad_norms": norms, "loss_rel_err": _rel(losses, ref),
+                            "grad_norm_rel_err": _rel(norms, ref_norms),
+                            "param_distance": param_distance(results_path(root, name), ref_params, init)}
+            c = checks[name]
+            log(f"parallel: {name} over {backend}, world {world}: losses {losses} (rel err "
+                f"{max(c['loss_rel_err']):.3g}), gradient norms {norms} (rel err {max(c['grad_norm_rel_err']):.3g}), "
+                f"parameters {c['param_distance']:.4g} of the one-process run's movement ({moved_rms:.3g} rms)")
+        out["checks"] = checks
+        for name in PARALLEL_LAYOUTS:
+            c = checks[name]
+            if (max(c["loss_rel_err"]) > PARALLEL_LOSS_TOL or max(c["grad_norm_rel_err"]) > PARALLEL_GRAD_NORM_TOL
+                    or c["param_distance"] > PARALLEL_PARAM_TOL):
+                raise AssertionError(f"parallel {name} against the one-process run: {c} (bounds: loss "
+                                     f"{PARALLEL_LOSS_TOL}, gradient norm {PARALLEL_GRAD_NORM_TOL}, parameters "
+                                     f"{PARALLEL_PARAM_TOL})")
+            ran.append({"world": world, "backend": backend, "layout": name})
+        c = checks[PARALLEL_FAULT]
+        if (max(c["loss_rel_err"]) <= PARALLEL_LOSS_TOL or max(c["grad_norm_rel_err"]) <= PARALLEL_GRAD_NORM_TOL
+                or c["param_distance"] <= PARALLEL_PARAM_TOL):
+            raise AssertionError(f"parallel: the planted fault ({PARALLEL_FAULT}) passes a bound: {c}")
+        log(f"parallel: the planted fault ({PARALLEL_FAULT}) fails every bound: loss rel err "
+            f"{max(c['loss_rel_err']):.3g} > {PARALLEL_LOSS_TOL}, gradient norm rel err "
+            f"{max(c['grad_norm_rel_err']):.3g} > {PARALLEL_GRAD_NORM_TOL}, parameters {c['param_distance']:.4g} > "
+            f"{PARALLEL_PARAM_TOL}")
+        # The TP run's head: B3 on each rank's heads, one launch a text block.
+        _, _, layers_t = model_shape()
+        heads = []
+        for r in range(world):
+            with open(os.path.join(runs_dir, f"tp_head.rank{r}.json")) as f:
+                heads.append(json.load(f))
+            want = {k: 0 for k in heads[-1]["counts"]}
+            want["B3"] = layers_t
+            if heads[-1]["counts"] != want or heads[-1]["min_cos"] < 0.99:
+                raise AssertionError(f"parallel tp head rank {r}: {heads[-1]} (expected launches {want}, cosine "
+                                     ">= 0.99)")
+        out["tp_head"] = heads
+        log(f"parallel: the TP run's zero-shot head on 2 model ranks: least cosine "
+            f"{min(h['min_cos'] for h in heads):.6f} to the whole model's, B3 {layers_t} a rank")
+        # Checkpoints: whole shapes, written once, the same layout resuming
+        # bit for bit.
+        single_ckpt = results_path(root, "single")
+        shapes = {k: tuple(v.shape) for k, v in checkpoint.load_tensors(single_ckpt).items()}
+        for name in PARALLEL_LAYOUTS:
+            got = {k: tuple(v.shape) for k, v in checkpoint.load_tensors(results_path(root, name)).items()}
+            if got != shapes:
+                raise AssertionError(f"parallel {name}: the checkpoint's shapes are not the whole model's")
+        out["fsdp_resume_bytes"] = checkpoint_equal(results_path(root, "fsdp"), results_path(root, "fsdp_resume"),
+                                                    "parallel fsdp resume")
+        out["ran"] = ran
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"parallel: ran {ran}; FSDP resumed bit-equal; phase took {out['phase_s']:.1f} s on {card}")
+    return out
+
+
+def results_path(root: str, name: str) -> str:
+    """The step checkpoint a run ended with (``checkpoint_0_step_{n-1}``)."""
+    base = os.path.join(root, name, name)
+    (key,) = os.listdir(base)
+    return os.path.join(base, key, f"checkpoint_0_step_{PARALLEL_STEPS - 1}")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_rank_main(out_dir: str, name: str, argv_json: str) -> int:
+    """One rank of a multi-card run under torchrun (``--parallel-rank``)."""
+    from flyp_tpu_torch.cli import main as cli_main
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    use_impl("auto")
+    rank = int(os.environ["RANK"])
+    if name == "tp":
+        # The group outlives the run here, for the head built after it.
+        local = int(os.environ["LOCAL_RANK"])
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", device_id=torch.device("cuda", local))
+    try:
+        ret = _rank_counts(out_dir, rank, name, lambda: _planted(
+            name, lambda: cli_main.main(cli_main.parse_main_arguments(json.loads(argv_json)))))
+        if name == "tp":
+            _tp_head(out_dir, rank, ret)
+    finally:
+        if name == "tp":
+            dist.destroy_process_group()
+    return 0
+
+
 def main() -> int:
+    if "--parallel-rank" in sys.argv[1:]:
+        i = sys.argv.index("--parallel-rank")
+        return parallel_rank_main(*sys.argv[i + 1:i + 4])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -2966,6 +3537,10 @@ def main() -> int:
         use_impl("auto")
         log(json.dumps({"card": card, "resnet": phase_resnet(card)}))
         return 0
+    if "--parallel" in sys.argv[1:] or "--parallel-trainer" in sys.argv[1:]:
+        use_impl("auto")
+        log(json.dumps({"card": card, "parallel": phase_parallel(card, peaks, "--parallel" in sys.argv[1:])}))
+        return 0
 
     # The default route ("auto", the fused block) for the phases before the
     # route phase, whatever the environment says.
@@ -2988,6 +3563,9 @@ def main() -> int:
     evaluation = phase_evaluation(card)
     trainer = phase_trainer(card)
     resnet = phase_resnet(card)
+    use_impl("auto")
+    parallel = phase_parallel(card, peaks)
+    shard_cases = parallel["kernels"]
 
     def line(name, source, replaces, launches, cases, pick=None):
         # B1-B6 are reported at the main path's vision shape, T1-T4 at the
@@ -2995,7 +3573,8 @@ def main() -> int:
         # what one PyTorch call computes (library_ms); no single call computes
         # B1-B4, so their library_ms is null and a composite yardstick stands
         # beside.
-        c = next(c for c in cases if (pick(c) if pick else (c["B"], c["L"], c["dtype"]) == MAIN_SHAPE))
+        c = next(c for c in cases if (pick(c) if pick else (c["B"], c["L"], c["dtype"]) == MAIN_SHAPE
+                                                        and "shards" not in c))
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
                 **{k: c[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
                 "library_ms": c.get("library_ms"), "composite_ms": c.get("composite_ms"),
@@ -3014,11 +3593,11 @@ def main() -> int:
 
     kernels = [
         line("attention_block_inference", "flyp_tpu_torch/csrc/attention_block.cu",
-             "flyp_tpu/ops/attention_block.py:303", serving["launches"], cases),
+             "flyp_tpu/ops/attention_block.py:303", serving["launches"], cases + shard_cases["B3"]),
         line("attention_block_train_forward", "flyp_tpu_torch/csrc/attention_block.cu",
-             "flyp_tpu/ops/attention_block.py:118", route("pallas_block", "B1"), fwd_cases),
+             "flyp_tpu/ops/attention_block.py:118", route("pallas_block", "B1"), fwd_cases + shard_cases["B1"]),
         line("attention_block_train_backward", "flyp_tpu_torch/csrc/attention_block_bwd.cu",
-             "flyp_tpu/ops/attention_block.py:185", route("pallas_block", "B2"), bwd_cases),
+             "flyp_tpu/ops/attention_block.py:185", route("pallas_block", "B2"), bwd_cases + shard_cases["B2"]),
         line("mlp_block_forward", "flyp_tpu_torch/csrc/mlp_block.cu", "flyp_tpu/ops/mlp_block.py:45",
              route("pallas_block_mlp", "B4"), impl_cases["B4"]),
         line("fused_qkv_attention_forward", "flyp_tpu_torch/csrc/attention.cu",
@@ -3049,6 +3628,7 @@ def main() -> int:
     log(json.dumps({"card": card, "evaluation": evaluation}))
     log(json.dumps({"card": card, "trainer": trainer}))
     log(json.dumps({"card": card, "resnet": resnet}))
+    log(json.dumps({"card": card, "parallel": {k: v for k, v in parallel.items() if k != "kernels"}}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

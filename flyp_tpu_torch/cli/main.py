@@ -10,6 +10,16 @@ default, or ``cpu``)::
         --batch-size 256 --epochs 10 --data_backend native --workers 6 \\
         --save checkpoints --exp_name flyp
 
+Across ranks it runs under ``torchrun`` (one process a card; the mesh
+comes from ``--mesh_data``, ``--mesh_model``, ``--mesh_replica`` and
+``--fsdp``)::
+
+    torchrun --nproc_per_node 2 -m flyp_tpu_torch.cli.main ... --mesh_model 2
+
+Under torchrun (``WORLD_SIZE`` in the environment) each process joins the process
+group (``nccl`` under ``--device cuda``, on card ``LOCAL_RANK``; ``gloo``
+under ``--device cpu``) and leaves it on exit.
+
 Run directories are keyed ``<exp_name>/_BS{bs}_WD{wd}_LR{lr}_run{n}`` under
 ``--save`` (checkpoints) and ``expt_logs/`` (log, stats TSVs, metrics).
 ``--ce_ablation`` and ``--progress_validation`` are ROADMAP item A11.
@@ -20,6 +30,8 @@ from __future__ import annotations
 import argparse
 import os
 from typing import List, Optional
+
+import torch
 
 from flyp_tpu_torch.config import ExperimentConfig, parse_arguments
 from flyp_tpu_torch.utils.logging import get_logger
@@ -35,8 +47,44 @@ def parse_main_arguments(argv: Optional[List[str]] = None) -> ExperimentConfig:
     return cfg
 
 
+def init_distributed(cfg) -> bool:
+    """Join the process group when launched by torchrun (``WORLD_SIZE`` in
+    the environment, one process included): ``nccl`` with ``cfg.device`` set to
+    ``cuda:LOCAL_RANK``, or ``gloo`` for ``--device cpu``.  A rank that
+    finds no card under ``--device cuda`` raises.  Returns whether it
+    joined."""
+    import torch.distributed as dist
+
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    cpu = torch.device(cfg.device).type == "cpu"
+    if not cpu:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        if not torch.cuda.is_available() or local >= torch.cuda.device_count():
+            raise RuntimeError(f"rank {os.environ.get('RANK')} (LOCAL_RANK {local}) finds no CUDA device under "
+                               "--device cuda; pass --device cpu to train on the CPU")
+        torch.cuda.set_device(local)
+        cfg.device = f"cuda:{local}"
+    if cpu:
+        dist.init_process_group("gloo")
+    else:
+        dist.init_process_group("nccl", device_id=torch.device(cfg.device))
+    return True
+
+
 def main(cfg=None):
     cfg = cfg or parse_main_arguments()
+    joined = init_distributed(cfg)
+    try:
+        return _main(cfg)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(cfg):
     for flag, trainer in (("ce_ablation", "the CE-ablation trainer"),
                           ("progress_validation", "the progress-validation trainer")):
         if getattr(cfg, flag):

@@ -48,6 +48,16 @@
 // (relative to the scaled scores).  It also moves one rounding point, as
 // _fwd_kernel does: the unnormalised e = exp(s - m) is cast for e @ v and
 // the fp32 product is divided by l, o_h = T((T(e) @ v_h) / l).
+//
+// Head-group tensor parallelism runs the same launches on one shard of the
+// heads (entry flyp_attention_block_fwd_shard; the JAX kernels' shard
+// semantics, flyp_tpu/ops/attention_block.py::_partitioned): Wqkv is
+// [3, D, Dv] and Wout [Dv, D] with Dv = 64 H_local, so the QKV GEMM has
+// N = 3 towers of Dv columns, attention runs H_local heads over rows of
+// Dv, and the out-projection contracts over K = Dv.  With `partial` the
+// out-projection's epilogue drops the bias and the residual and writes the
+// fp32 product, which the caller sums over the shards before adding x and
+// bout once.  Dv must be a multiple of 128 (the GEMMs' tile width).
 
 #include "attention.cuh"
 #include "gemm_sm90.cuh"
@@ -56,63 +66,74 @@ namespace {
 
 using namespace flyp;
 
-// q|k|v [3, M, D] = y @ Wqkv[t] + bqkv[t] (fp32): three towers.
-GemmArgs qkv_args(const float* y, const float* wqkv, const float* bqkv, float* qkv, int M, int D) {
-  GemmArgs a = gemm_args(y, wqkv, qkv, M, D, D, D, D);
-  a.b_z = (long long)D * D;
+// q|k|v [3, M, Dv] = y @ Wqkv[t] + bqkv[t] (fp32): three towers.
+GemmArgs qkv_args(const float* y, const float* wqkv, const float* bqkv, float* qkv, int M, int D, int Dv) {
+  GemmArgs a = gemm_args(y, wqkv, qkv, M, Dv, D, D, Dv);
+  a.b_z = (long long)D * Dv;
   a.bias = bqkv;
   return a;
 }
 
-// out = x + o @ Wout + bout (fp32).
-GemmArgs out_args(const float* o, const float* wout, const float* bout, const float* x, float* out, int M, int D) {
-  GemmArgs a = gemm_args(o, wout, out, M, D, D, D, D);
+// out = x + o @ Wout + bout (fp32); o [M, Dv], Wout [Dv, D].
+GemmArgs out_args(const float* o, const float* wout, const float* bout, const float* x, float* out, int M, int D,
+                  int Dv) {
+  GemmArgs a = gemm_args(o, wout, out, M, D, Dv, Dv, D);
   a.bias = bout;
   a.resid = x;
   return a;
 }
 
-cudaError_t qkv_gemm(const float* y, const float* wqkv, const float* bqkv, float* qkv, int M, int D,
+cudaError_t qkv_gemm(const float* y, const float* wqkv, const float* bqkv, float* qkv, int M, int D, int Dv,
                      cudaStream_t st) {
-  return launch_gemm<false, false, kOpBias>(qkv_args(y, wqkv, bqkv, qkv, M, D), 3, st);
+  return launch_gemm<false, false, kOpBias>(qkv_args(y, wqkv, bqkv, qkv, M, D, Dv), 3, st);
 }
-cudaError_t qkv_gemm(const bf16* y, const bf16* wqkv, const float* bqkv, bf16* qkv, int M, int D, cudaStream_t st) {
-  return sm90::qkv(y, wqkv, bqkv, qkv, M, D, st);
+cudaError_t qkv_gemm(const bf16* y, const bf16* wqkv, const float* bqkv, bf16* qkv, int M, int D, int Dv,
+                     cudaStream_t st) {
+  return sm90::qkv(y, wqkv, bqkv, qkv, M, D, Dv, st);
 }
 cudaError_t out_gemm(const float* o, const float* wout, const float* bout, const float* x, float* out, int M, int D,
-                     cudaStream_t st) {
-  return launch_gemm<false, false, kOpBias | kOpResid>(out_args(o, wout, bout, x, out, M, D), 1, st);
+                     int Dv, cudaStream_t st) {
+  return launch_gemm<false, false, kOpBias | kOpResid>(out_args(o, wout, bout, x, out, M, D, Dv), 1, st);
 }
 cudaError_t out_gemm(const bf16* o, const bf16* wout, const float* bout, const bf16* x, bf16* out, int M, int D,
-                     cudaStream_t st) {
-  return sm90::out_proj(o, wout, bout, x, out, M, D, st);
+                     int Dv, cudaStream_t st) {
+  return sm90::out_proj(o, wout, bout, x, out, M, D, Dv, st);
+}
+// The partial out-projection of a head shard: fp32 o @ Wout, no epilogue.
+cudaError_t out_gemm_partial(const float* o, const float* wout, float* out, int M, int D, int Dv, cudaStream_t st) {
+  return launch_gemm<false, false, kOpNone>(gemm_args(o, wout, out, M, D, Dv, Dv, D), 1, st);
+}
+cudaError_t out_gemm_partial(const bf16* o, const bf16* wout, float* out, int M, int D, int Dv, cudaStream_t st) {
+  return sm90::out_proj_partial(o, wout, out, M, D, Dv, st);
 }
 
 // lse == nullptr: the inference forward; otherwise the training forward.
-// y: [B, L, D] scratch of the compute type.
+// y: [B, L, D] scratch of the compute type; qkv [3, B, L, Dv], o [B, L, Dv].
+// partial: out is fp32 [B, L, D], o @ Wout alone.
 template <typename T>
 cudaError_t run(const T* x, const float* g, const float* beta, const T* wqkv, const float* bqkv, const T* wout,
-                const float* bout, T* out, T* qkv, T* o, T* y, float* lse, int B, int L, int D, int H, int causal,
-                cudaStream_t stream) {
+                const float* bout, void* out, T* qkv, T* o, T* y, float* lse, int B, int L, int D, int Dv, int H,
+                int causal, int partial, cudaStream_t stream) {
   const int M = B * L;
   cudaError_t err = ln_forward(x, g, beta, y, M, D, stream);
   if (err != cudaSuccess) return err;
-  err = qkv_gemm(y, wqkv, bqkv, qkv, M, D, stream);
+  err = qkv_gemm(y, wqkv, bqkv, qkv, M, D, Dv, stream);
   if (err != cudaSuccess) return err;
-  const size_t MD = (size_t)M * D;
-  AttnArgs a = attn_args(qkv, qkv + MD, qkv + 2 * MD, (long long)L * D, D, L, causal);
+  const size_t MDv = (size_t)M * Dv;
+  AttnArgs a = attn_args(qkv, qkv + MDv, qkv + 2 * MDv, (long long)L * Dv, Dv, L, causal);
   a.o = o;
   a.stats = lse;
   err = lse != nullptr ? attention_forward<T, true, true>(a, B, H, stream)
                        : attention_forward<T, true, false>(a, B, H, stream);
   if (err != cudaSuccess) return err;
-  return out_gemm(o, wout, bout, x, out, M, D, stream);
+  if (partial) return out_gemm_partial(o, wout, static_cast<float*>(out), M, D, Dv, stream);
+  return out_gemm(o, wout, bout, x, static_cast<T*>(out), M, D, Dv, stream);
 }
 
 int launch(const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* bqkv,
            const void* wout, const void* bout, void* out, void* qkv, void* o, void* y, float* lse, int B, int L,
-           int D, int H, int causal, int dtype, void* stream) {
-  if (D != H * kHeadDim || D % kBN != 0) return (int)cudaErrorInvalidValue;
+           int D, int Dv, int H, int causal, int partial, int dtype, void* stream) {
+  if (Dv != H * kHeadDim || D % kBN != 0 || Dv % kBN != 0 || Dv > D) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(ln_scale);
   const float* beta = static_cast<const float*>(ln_bias);
@@ -121,14 +142,14 @@ int launch(const void* x, const void* ln_scale, const void* ln_bias, const void*
   if (dtype == 0) {
     using T = float;
     return (int)run(static_cast<const T*>(x), g, beta, static_cast<const T*>(wqkv), bq, static_cast<const T*>(wout),
-                    bo, static_cast<T*>(out), static_cast<T*>(qkv), static_cast<T*>(o), static_cast<T*>(y), lse, B, L,
-                    D, H, causal, s);
+                    bo, out, static_cast<T*>(qkv), static_cast<T*>(o), static_cast<T*>(y), lse, B, L, D, Dv, H,
+                    causal, partial, s);
   }
   if (dtype == 1) {
     using T = bf16;
     return (int)run(static_cast<const T*>(x), g, beta, static_cast<const T*>(wqkv), bq, static_cast<const T*>(wout),
-                    bo, static_cast<T*>(out), static_cast<T*>(qkv), static_cast<T*>(o), static_cast<T*>(y), lse, B, L,
-                    D, H, causal, s);
+                    bo, out, static_cast<T*>(qkv), static_cast<T*>(o), static_cast<T*>(y), lse, B, L, D, Dv, H,
+                    causal, partial, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -144,7 +165,7 @@ int flyp_attention_block_fwd(const void* x, const void* ln_scale, const void* ln
                              void* qkv_scratch, void* o_scratch, void* y_scratch, int B, int L, int D, int H,
                              int causal, int dtype, void* stream) {
   return launch(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, out, qkv_scratch, o_scratch, y_scratch, nullptr, B, L,
-                D, H, causal, dtype, stream);
+                D, D, H, causal, 0, dtype, stream);
 }
 
 // The training forward: as flyp_attention_block_fwd, and q|k|v ([3, B, L, D]
@@ -155,7 +176,19 @@ int flyp_attention_block_fwd_train(const void* x, const void* ln_scale, const vo
                                    int dtype, void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
   return launch(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, out, qkv, o, y_scratch, static_cast<float*>(lse), B,
-                L, D, H, causal, dtype, stream);
+                L, D, D, H, causal, 0, dtype, stream);
+}
+
+// One head shard of either forward (lse == null: the inference forward):
+// wqkv [3, D, Dv], bqkv [3, Dv], wout [Dv, D] with Dv = 64 H; qkv [3, B, L,
+// Dv] and o [B, L, Dv].  partial = 1: out is fp32 [B, L, D], o @ Wout with
+// neither bout nor x; else out = T(x + o @ Wout + bout) of the compute type.
+int flyp_attention_block_fwd_shard(const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv,
+                                   const void* bqkv, const void* wout, const void* bout, void* out, void* qkv,
+                                   void* o, void* y_scratch, void* lse, int B, int L, int D, int Dv, int H,
+                                   int causal, int partial, int dtype, void* stream) {
+  return launch(x, ln_scale, ln_bias, wqkv, bqkv, wout, bout, out, qkv, o, y_scratch, static_cast<float*>(lse), B,
+                L, D, Dv, H, causal, partial, dtype, stream);
 }
 
 const char* flyp_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -54,6 +54,15 @@
 // there: TMA into a ring of shared-memory stages, wgmma on the tensor cores,
 // fp32 accumulate); fp32 runs them on common.cuh's FMA tiles on the CUDA
 // cores, since the tensor cores would round fp32 operands to TF32.
+//
+// Head-group tensor parallelism runs the same launches on one shard of the
+// heads (entry flyp_attention_block_bwd_shard; the JAX kernel's shard
+// semantics): q, k, v are [B, L, Dv], Wqkv [3, D, Dv] and Wout [Dv, D] with
+// Dv = 64 H_local, so do is [M, Dv], dWqkv [3, D, Dv] and dbqkv [3, Dv], and
+// dY contracts over Dv.  dY, and so dscale, dbias and dx, are then the
+// shard's part, linear in dY: with add_g = 0 the LN backward writes
+// T(dx_ln) without + g, for the caller to sum over the shards and add g
+// once.  Dv must be a multiple of 128.
 
 #include "attention.cuh"
 #include "gemm_sm90.cuh"
@@ -69,9 +78,11 @@ constexpr int kMaxCols = 32;  // columns per lane: D <= 1024
 
 // dx = T(rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) + g) with
 // dxhat = dY * scale, for rows [blockIdx.x * rows, +rows); one warp per row.
+// kAddG = false leaves + g out (a head shard's part); a template argument,
+// so the whole block's kernel holds no branch for it.
 // The block's column sums of dY * xhat and dY go to partial[blockIdx.x] as
 // [2, D] (dscale, dbias), summed over the block's warps in a fixed order.
-template <typename T>
+template <typename T, bool kAddG>
 __global__ void __launch_bounds__(kThreads)
 ln_backward_kernel(const T* __restrict__ x, const T* __restrict__ gout, const float* __restrict__ dY,
                    const float* __restrict__ scale, T* __restrict__ dx, float* __restrict__ partial, int M, int D,
@@ -119,7 +130,7 @@ ln_backward_kernel(const T* __restrict__ x, const T* __restrict__ gout, const fl
         const float xhat = __fmul_rn(__fsub_rn(to_f(xr[k]), mean), rstd);
         const float dxhat = __fmul_rn(dyr[k], scale[k]);
         const float v = __fmul_rn(rstd, __fsub_rn(__fsub_rn(dxhat, m1), __fmul_rn(xhat, m2)));
-        dx[(size_t)m * D + k] = from_f<T>(__fadd_rn(v, to_f(gout[(size_t)m * D + k])));
+        dx[(size_t)m * D + k] = from_f<T>(kAddG ? __fadd_rn(v, to_f(gout[(size_t)m * D + k])) : v);
       }
     }
   }
@@ -160,33 +171,34 @@ colsum_partial_kernel(const T* __restrict__ src, float* __restrict__ partial, in
 // The three GEMMs: fp32 on common.cuh's FMA tiles, bf16 on gemm_sm90.cuh
 // (G3, G4, G5).  dWqkv's row chunks are gemm_sm90.cuh's fixed split for
 // both types.
-cudaError_t grad_out_gemm(const float* g, const float* wout, float* dout, int M, int D, cudaStream_t st) {
-  return launch_gemm<false, true, kOpNone>(gemm_args(g, wout, dout, M, D, D, D, D), 1, st);
+// Dv: the head shard's width (Dv = D for the whole block).
+cudaError_t grad_out_gemm(const float* g, const float* wout, float* dout, int M, int D, int Dv, cudaStream_t st) {
+  return launch_gemm<false, true, kOpNone>(gemm_args(g, wout, dout, M, Dv, D, D, D), 1, st);
 }
-cudaError_t grad_out_gemm(const bf16* g, const bf16* wout, bf16* dout, int M, int D, cudaStream_t st) {
-  return sm90::grad_out(g, wout, dout, M, D, st);
+cudaError_t grad_out_gemm(const bf16* g, const bf16* wout, bf16* dout, int M, int D, int Dv, cudaStream_t st) {
+  return sm90::grad_out(g, wout, dout, M, D, Dv, st);
 }
-cudaError_t weight_grad_gemm(const float* y, const float* d, float* partial, float* dw, int M, int D,
+cudaError_t weight_grad_gemm(const float* y, const float* d, float* partial, float* dw, int M, int D, int Dv,
                              cudaStream_t st) {
-  GemmArgs g = gemm_args(y, d, partial, D, D, M, D, D);
-  g.b_z = (long long)M * D;
-  g.k_chunk = sm90::weight_grad_chunk(M, D);
+  GemmArgs g = gemm_args(y, d, partial, D, Dv, M, D, Dv);
+  g.b_z = (long long)M * Dv;
+  g.k_chunk = sm90::weight_grad_chunk(M, D, Dv);
   g.splits = (M + g.k_chunk - 1) / g.k_chunk;
   const cudaError_t err = launch_gemm<true, false, kOpNone>(g, 3, st);
   if (err != cudaSuccess) return err;
-  return reduce_partials(partial, g.splits, 3LL * D * D, dw, st);
+  return reduce_partials(partial, g.splits, 3LL * D * Dv, dw, st);
 }
-cudaError_t weight_grad_gemm(const bf16* y, const bf16* d, float* partial, float* dw, int M, int D,
+cudaError_t weight_grad_gemm(const bf16* y, const bf16* d, float* partial, float* dw, int M, int D, int Dv,
                              cudaStream_t st) {
-  return sm90::weight_grad(y, d, partial, dw, M, D, st);
+  return sm90::weight_grad(y, d, partial, dw, M, D, Dv, st);
 }
-cudaError_t input_grad_gemm(const float* d, const float* wqkv, float* dY, int M, int D, cudaStream_t st) {
-  GemmArgs g = gemm_args(d, wqkv, dY, M, D, D, D, D);
-  g.nseg = 3; g.a_seg = (long long)M * D; g.b_seg = (long long)D * D;
+cudaError_t input_grad_gemm(const float* d, const float* wqkv, float* dY, int M, int D, int Dv, cudaStream_t st) {
+  GemmArgs g = gemm_args(d, wqkv, dY, M, D, Dv, Dv, Dv);
+  g.nseg = 3; g.a_seg = (long long)M * Dv; g.b_seg = (long long)D * Dv;
   return launch_gemm<false, true, kOpNone>(g, 1, st);
 }
-cudaError_t input_grad_gemm(const bf16* d, const bf16* wqkv, float* dY, int M, int D, cudaStream_t st) {
-  return sm90::input_grad(d, wqkv, dY, M, D, st);
+cudaError_t input_grad_gemm(const bf16* d, const bf16* wqkv, float* dY, int M, int D, int Dv, cudaStream_t st) {
+  return sm90::input_grad(d, wqkv, dY, M, D, Dv, st);
 }
 
 template <typename T>
@@ -199,9 +211,9 @@ struct Bwd {
 
   static int ln_rows() { return 64; }
 
-  static size_t carve(Scratch* s, char* base, int B, int L, int D, int H) {
+  static size_t carve(Scratch* s, char* base, int B, int L, int D, int Dv, int H) {
     const size_t M = (size_t)B * L;
-    const int splits = sm90::weight_grad_splits((int)M, D);
+    const int splits = sm90::weight_grad_splits((int)M, D, Dv);
     const int c_rows = 256, c_chunks = (int)((M + c_rows - 1) / c_rows);
     const int ln_blocks = (int)((M + ln_rows() - 1) / ln_rows());
     size_t off = 0;
@@ -211,12 +223,12 @@ struct Bwd {
       return p;
     };
     char* y = take(M * D * sizeof(T));
-    char* dout = take(M * D * sizeof(T));
-    char* d = take(3 * M * D * sizeof(T));
+    char* dout = take(M * Dv * sizeof(T));
+    char* d = take(3 * M * Dv * sizeof(T));
     char* delta = take(M * H * sizeof(float));
     char* dY = take(M * D * sizeof(float));
-    char* pw = take((size_t)splits * 3 * D * D * sizeof(float));
-    char* pb = take((size_t)c_chunks * 3 * D * sizeof(float));
+    char* pw = take((size_t)splits * 3 * D * Dv * sizeof(float));
+    char* pb = take((size_t)c_chunks * 3 * Dv * sizeof(float));
     char* pln = take((size_t)ln_blocks * 2 * D * sizeof(float));
     if (s != nullptr) {
       s->y = reinterpret_cast<T*>(y);
@@ -233,10 +245,10 @@ struct Bwd {
 
   static cudaError_t run(const T* x, const T* gout, const T* q, const T* k, const T* v, const float* lse,
                          const float* ln_scale, const float* ln_bias, const T* wqkv, const T* wout, T* dx,
-                         float* dwqkv, float* dbqkv, float* dln, void* workspace, int B, int L, int D, int H,
-                         int causal, cudaStream_t st) {
+                         float* dwqkv, float* dbqkv, float* dln, void* workspace, int B, int L, int D, int Dv,
+                         int H, int causal, int add_g, cudaStream_t st) {
     Scratch s;
-    carve(&s, static_cast<char*>(workspace), B, L, D, H);
+    carve(&s, static_cast<char*>(workspace), B, L, D, Dv, H);
     const int M = B * L;
     cudaError_t err;
 #define FLYP_CHECK(expr)          \
@@ -249,33 +261,38 @@ struct Bwd {
     FLYP_CHECK(ln_forward(x, ln_scale, ln_bias, s.y, M, D, st));
 
     // 2. do = T(g @ Wout^T).
-    FLYP_CHECK(grad_out_gemm(gout, wout, s.dout, M, D, st));
+    FLYP_CHECK(grad_out_gemm(gout, wout, s.dout, M, D, Dv, st));
 
     // 3, 4. Attention backward (attention.cuh), pass (a) then pass (b).
-    AttnArgs a = attn_args(q, k, v, (long long)L * D, D, L, causal);
+    AttnArgs a = attn_args(q, k, v, (long long)L * Dv, Dv, L, causal);
     a.dout = s.dout;
     a.stats = const_cast<float*>(lse);  // read only, in the attention block's scheme
     a.delta = s.delta;
-    a.dq = s.d; a.dk = s.d + (size_t)M * D; a.dv = s.d + 2 * (size_t)M * D;
-    a.out_b = (long long)L * D; a.out_r = D;
+    a.dq = s.d; a.dk = s.d + (size_t)M * Dv; a.dv = s.d + 2 * (size_t)M * Dv;
+    a.out_b = (long long)L * Dv; a.out_r = Dv;
     FLYP_CHECK((attention_backward<T, true>(a, B, H, st)));
 
     // 5. dbqkv[t] = colsum(d_t).
     const int c_rows = 256, c_chunks = (M + c_rows - 1) / c_rows;
-    colsum_partial_kernel<T><<<dim3((D + kThreads - 1) / kThreads, c_chunks, 3), kThreads, 0, st>>>(
-        s.d, s.part_b, M, D, c_rows);
+    colsum_partial_kernel<T><<<dim3((Dv + kThreads - 1) / kThreads, c_chunks, 3), kThreads, 0, st>>>(
+        s.d, s.part_b, M, Dv, c_rows);
     FLYP_CHECK(cudaGetLastError());
-    FLYP_CHECK(reduce_partials(s.part_b, c_chunks, 3LL * D, dbqkv, st));
+    FLYP_CHECK(reduce_partials(s.part_b, c_chunks, 3LL * Dv, dbqkv, st));
 
     // 6. dWqkv[t] = y^T d_t, split over rows, then the partials' sum.
-    FLYP_CHECK(weight_grad_gemm(s.y, s.d, s.part_w, dwqkv, M, D, st));
+    FLYP_CHECK(weight_grad_gemm(s.y, s.d, s.part_w, dwqkv, M, D, Dv, st));
 
     // 7. dY = sum_t d_t Wqkv[t]^T.
-    FLYP_CHECK(input_grad_gemm(s.d, wqkv, s.dY, M, D, st));
+    FLYP_CHECK(input_grad_gemm(s.d, wqkv, s.dY, M, D, Dv, st));
 
     // 8. LN backward, then dscale/dbias from the per-block partials.
     const int ln_blocks = (M + ln_rows() - 1) / ln_rows();
-    ln_backward_kernel<T><<<ln_blocks, kThreads, 0, st>>>(x, gout, s.dY, ln_scale, dx, s.part_ln, M, D, ln_rows());
+    if (add_g)
+      ln_backward_kernel<T, true><<<ln_blocks, kThreads, 0, st>>>(x, gout, s.dY, ln_scale, dx, s.part_ln, M, D,
+                                                                   ln_rows());
+    else
+      ln_backward_kernel<T, false><<<ln_blocks, kThreads, 0, st>>>(x, gout, s.dY, ln_scale, dx, s.part_ln, M, D,
+                                                                    ln_rows());
     FLYP_CHECK(cudaGetLastError());
     FLYP_CHECK(reduce_partials(s.part_ln, ln_blocks, 2LL * D, dln, st));
 #undef FLYP_CHECK
@@ -283,8 +300,43 @@ struct Bwd {
   }
 };
 
-bool shapes_ok(int L, int D, int H) {
-  return D == H * kHeadDim && D % kBN == 0 && D <= 32 * kMaxCols && L >= 1 && L <= kMaxL;
+bool shapes_ok(int L, int D, int Dv, int H) {
+  return Dv == H * kHeadDim && D % kBN == 0 && Dv % kBN == 0 && Dv <= D && D <= 32 * kMaxCols && L >= 1 &&
+         L <= kMaxL;
+}
+
+template <typename T>
+int run_bwd(const void* x, const void* gout, const void* q, const void* k, const void* v, const void* lse,
+            const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wout, void* dx, void* dwqkv,
+            void* dbqkv, void* dln, void* workspace, int B, int L, int D, int Dv, int H, int causal, int add_g,
+            void* stream) {
+  return (int)Bwd<T>::run(static_cast<const T*>(x), static_cast<const T*>(gout), static_cast<const T*>(q),
+                          static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(lse),
+                          static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
+                          static_cast<const T*>(wqkv), static_cast<const T*>(wout), static_cast<T*>(dx),
+                          static_cast<float*>(dwqkv), static_cast<float*>(dbqkv), static_cast<float*>(dln), workspace,
+                          B, L, D, Dv, H, causal, add_g, static_cast<cudaStream_t>(stream));
+}
+
+long long workspace_bytes(int B, int L, int D, int Dv, int H, int dtype) {
+  if (!shapes_ok(L, D, Dv, H)) return -1;
+  if (dtype == 0) return (long long)Bwd<float>::carve(nullptr, nullptr, B, L, D, Dv, H);
+  if (dtype == 1) return (long long)Bwd<bf16>::carve(nullptr, nullptr, B, L, D, Dv, H);
+  return -1;
+}
+
+int launch_bwd(const void* x, const void* gout, const void* q, const void* k, const void* v, const void* lse,
+               const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wout, void* dx, void* dwqkv,
+               void* dbqkv, void* dln, void* workspace, int B, int L, int D, int Dv, int H, int causal, int add_g,
+               int dtype, void* stream) {
+  if (!shapes_ok(L, D, Dv, H)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return run_bwd<float>(x, gout, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, workspace, B,
+                          L, D, Dv, H, causal, add_g, stream);
+  if (dtype == 1)
+    return run_bwd<bf16>(x, gout, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, workspace, B,
+                         L, D, Dv, H, causal, add_g, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -294,10 +346,7 @@ extern "C" {
 // Bytes of device workspace flyp_attention_block_bwd needs (dtype: 0 =
 // float32, 1 = bfloat16), or -1 for shapes the kernels do not take.
 long long flyp_attention_block_bwd_workspace(int B, int L, int D, int H, int dtype) {
-  if (!shapes_ok(L, D, H)) return -1;
-  if (dtype == 0) return (long long)Bwd<float>::carve(nullptr, nullptr, B, L, D, H);
-  if (dtype == 1) return (long long)Bwd<bf16>::carve(nullptr, nullptr, B, L, D, H);
-  return -1;
+  return workspace_bytes(B, L, D, D, H, dtype);
 }
 
 // The training backward.  x, gout, q, k, v, dx: [B, L, D] in the compute
@@ -308,29 +357,26 @@ int flyp_attention_block_bwd(const void* x, const void* gout, const void* q, con
                              const void* lse, const void* ln_scale, const void* ln_bias, const void* wqkv,
                              const void* wout, void* dx, void* dwqkv, void* dbqkv, void* dln, void* workspace,
                              int B, int L, int D, int H, int causal, int dtype, void* stream) {
-  if (!shapes_ok(L, D, H)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* lse_f = static_cast<const float*>(lse);
-  const float* g = static_cast<const float*>(ln_scale);
-  const float* beta = static_cast<const float*>(ln_bias);
-  float* dw = static_cast<float*>(dwqkv);
-  float* db = static_cast<float*>(dbqkv);
-  float* dl = static_cast<float*>(dln);
-  if (dtype == 0) {
-    using T = float;
-    return (int)Bwd<T>::run(static_cast<const T*>(x), static_cast<const T*>(gout), static_cast<const T*>(q),
-                            static_cast<const T*>(k), static_cast<const T*>(v), lse_f, g, beta,
-                            static_cast<const T*>(wqkv), static_cast<const T*>(wout), static_cast<T*>(dx), dw, db,
-                            dl, workspace, B, L, D, H, causal, s);
-  }
-  if (dtype == 1) {
-    using T = bf16;
-    return (int)Bwd<T>::run(static_cast<const T*>(x), static_cast<const T*>(gout), static_cast<const T*>(q),
-                            static_cast<const T*>(k), static_cast<const T*>(v), lse_f, g, beta,
-                            static_cast<const T*>(wqkv), static_cast<const T*>(wout), static_cast<T*>(dx), dw, db,
-                            dl, workspace, B, L, D, H, causal, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return launch_bwd(x, gout, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, workspace, B, L, D,
+                    D, H, causal, 1, dtype, stream);
+}
+
+// The workspace of flyp_attention_block_bwd_shard, or -1.
+long long flyp_attention_block_bwd_shard_workspace(int B, int L, int D, int Dv, int H, int dtype) {
+  return workspace_bytes(B, L, D, Dv, H, dtype);
+}
+
+// One head shard of the backward: q, k, v [B, L, Dv] with Dv = 64 H, wqkv
+// [3, D, Dv], wout [Dv, D]; outputs dwqkv [3, D, Dv], dbqkv [3, Dv] and the
+// shard's part of dln [2, D] and of dx [B, L, D], which with add_g = 0 is
+// T(dx_ln) without + gout.
+int flyp_attention_block_bwd_shard(const void* x, const void* gout, const void* q, const void* k, const void* v,
+                                   const void* lse, const void* ln_scale, const void* ln_bias, const void* wqkv,
+                                   const void* wout, void* dx, void* dwqkv, void* dbqkv, void* dln, void* workspace,
+                                   int B, int L, int D, int Dv, int H, int causal, int add_g, int dtype,
+                                   void* stream) {
+  return launch_bwd(x, gout, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, workspace, B, L, D,
+                    Dv, H, causal, add_g, dtype, stream);
 }
 
 const char* flyp_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

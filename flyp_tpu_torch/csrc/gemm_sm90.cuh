@@ -733,39 +733,61 @@ cudaError_t launch(const Product& p, cudaStream_t st) {
                             : launch_tile<128, kAMN, kBMN, kOps, TOut, kRagged, TIn>(p, st);
 }
 
-// G1: qkv[t] = T(y @ Wqkv[t] + bqkv[t]); y [M, D], Wqkv [3, D, D] held
-// [K, N], qkv [3, M, D].
-inline cudaError_t qkv(const bf16* y, const bf16* wqkv, const float* bqkv, bf16* out, int M, int D,
+// Each product of the attention block takes a head shard's width Dv (the
+// heads of one rank under tensor parallelism: Wqkv [3, D, Dv], Wout [Dv,
+// D]); the overloads without Dv are the whole block's, Dv = D.
+
+// G1: qkv[t] = T(y @ Wqkv[t] + bqkv[t]); y [M, D], Wqkv [3, D, Dv] held
+// [K, N], qkv [3, M, Dv].
+inline cudaError_t qkv(const bf16* y, const bf16* wqkv, const float* bqkv, bf16* out, int M, int D, int Dv,
                        cudaStream_t st) {
-  Product p = product(y, wqkv, out, M, D, D);
+  Product p = product(y, wqkv, out, M, Dv, D);
   p.towers = 3; p.b_z = 3; p.b_tower = 1;
   p.bias = bqkv;
   return launch<false, true, kOpBias, bf16>(p, st);
 }
+inline cudaError_t qkv(const bf16* y, const bf16* wqkv, const float* bqkv, bf16* out, int M, int D,
+                       cudaStream_t st) {
+  return qkv(y, wqkv, bqkv, out, M, D, D, st);
+}
 
-// G2: out = T(x + o @ Wout + bout); Wout [D, D] held [K, N].
+// G2: out = T(x + o @ Wout + bout); o [M, Dv], Wout [Dv, D] held [K, N].
 inline cudaError_t out_proj(const bf16* o, const bf16* wout, const float* bout, const bf16* x, bf16* out, int M,
-                            int D, cudaStream_t st) {
-  Product p = product(o, wout, out, M, D, D);
+                            int D, int Dv, cudaStream_t st) {
+  Product p = product(o, wout, out, M, D, Dv);
   p.bias = bout;
   p.resid = x;
   return launch<false, true, kOpBias | kOpResid, bf16>(p, st);
 }
+inline cudaError_t out_proj(const bf16* o, const bf16* wout, const float* bout, const bf16* x, bf16* out, int M,
+                            int D, cudaStream_t st) {
+  return out_proj(o, wout, bout, x, out, M, D, D, st);
+}
 
-// G3: do = T(g @ Wout^T); Wout held [N, K].
+// G2 of a head shard (partial): out = o @ Wout in fp32, no bias, no
+// residual; the shards' sum gets them once.
+inline cudaError_t out_proj_partial(const bf16* o, const bf16* wout, float* out, int M, int D, int Dv,
+                                    cudaStream_t st) {
+  return launch<false, true, kOpNone, float>(product(o, wout, out, M, D, Dv), st);
+}
+
+// G3: do = T(g @ Wout^T); g [M, D], Wout [Dv, D] held [N, K], do [M, Dv].
+inline cudaError_t grad_out(const bf16* g, const bf16* wout, bf16* out, int M, int D, int Dv, cudaStream_t st) {
+  return launch<false, false, kOpNone, bf16>(product(g, wout, out, M, Dv, D), st);
+}
 inline cudaError_t grad_out(const bf16* g, const bf16* wout, bf16* out, int M, int D, cudaStream_t st) {
-  return launch<false, false, kOpNone, bf16>(product(g, wout, out, M, D, D), st);
+  return grad_out(g, wout, out, M, D, D, st);
 }
 
 // G4's row chunks: a fixed function of (M, D), never of the card or the
 // run, so the partials and their fixed-order sum repeat bit for bit.  The
 // split count s <= 16 least in ceil(t s / 132) / s, the waves of t s tiles
-// over one block on each of 132 SMs per unit of work (t = 3 (D / 128) (D /
+// over one block on each of 132 SMs per unit of work (t = 3 (D / 128) (Dv /
 // tile width) output tiles); chunks of ceil(M / s) rows rounded up to the
 // k-tile, at least 256.
-inline int weight_grad_chunk(int M, int D) {
-  const int wide = tile_n(D) == 256;
-  const int tiles = 3 * (D / kBM) * (D / (wide ? 256 : 128));
+inline int weight_grad_chunk(int M, int D, int Dv) {
+  const int wide = tile_n(Dv) == 256;
+  const int tiles = 3 * (D / kBM) * (Dv / (wide ? 256 : 128));
   const int resident = 132;
   int best = 1;
   double best_cost = 1e9;
@@ -780,31 +802,40 @@ inline int weight_grad_chunk(int M, int D) {
   constexpr int kBK = kTileK<bf16>;
   return std::max(256, (chunk + kBK - 1) / kBK * kBK);
 }
-inline int weight_grad_splits(int M, int D) {
-  const int chunk = weight_grad_chunk(M, D);
+inline int weight_grad_chunk(int M, int D) { return weight_grad_chunk(M, D, D); }
+inline int weight_grad_splits(int M, int D, int Dv) {
+  const int chunk = weight_grad_chunk(M, D, Dv);
   return (M + chunk - 1) / chunk;
 }
+inline int weight_grad_splits(int M, int D) { return weight_grad_splits(M, D, D); }
 
-// G4: dw[t] = y^T d_t (fp32 [3, D, D]); y [M, D] and d [3, M, D] held with
+// G4: dw[t] = y^T d_t (fp32 [3, D, Dv]); y [M, D] and d [3, M, Dv] held with
 // the contraction (rows) outermost, so both operands are MN-major.  The
-// partials [splits, 3, D, D] are summed in order into dw.
-inline cudaError_t weight_grad(const bf16* y, const bf16* d, float* partial, float* dw, int M, int D,
+// partials [splits, 3, D, Dv] are summed in order into dw.
+inline cudaError_t weight_grad(const bf16* y, const bf16* d, float* partial, float* dw, int M, int D, int Dv,
                                cudaStream_t st) {
-  Product p = product(y, d, partial, D, D, M);
+  Product p = product(y, d, partial, D, Dv, M);
   p.towers = 3; p.b_z = 3; p.b_tower = 1;
-  p.k_chunk = weight_grad_chunk(M, D);
+  p.k_chunk = weight_grad_chunk(M, D, Dv);
   p.splits = (M + p.k_chunk - 1) / p.k_chunk;
   const cudaError_t err = launch<true, true, kOpNone, float>(p, st);
   if (err != cudaSuccess) return err;
-  return reduce_partials(partial, p.splits, 3LL * D * D, dw, st);
+  return reduce_partials(partial, p.splits, 3LL * D * Dv, dw, st);
+}
+inline cudaError_t weight_grad(const bf16* y, const bf16* d, float* partial, float* dw, int M, int D,
+                               cudaStream_t st) {
+  return weight_grad(y, d, partial, dw, M, D, D, st);
 }
 
-// G5: dY = sum_t d_t Wqkv[t]^T (fp32 [M, D]); d [3, M, D] and Wqkv[t] held
-// [N, K] are three segments of one contraction.
-inline cudaError_t input_grad(const bf16* d, const bf16* wqkv, float* dY, int M, int D, cudaStream_t st) {
-  Product p = product(d, wqkv, dY, M, D, D);
+// G5: dY = sum_t d_t Wqkv[t]^T (fp32 [M, D]); d [3, M, Dv] and Wqkv[t]
+// [D, Dv] held [N, K] are three segments of one contraction over Dv.
+inline cudaError_t input_grad(const bf16* d, const bf16* wqkv, float* dY, int M, int D, int Dv, cudaStream_t st) {
+  Product p = product(d, wqkv, dY, M, D, Dv);
   p.nseg = 3; p.a_z = 3; p.a_seg = 1; p.b_z = 3; p.b_seg = 1;
   return launch<false, false, kOpNone, float>(p, st);
+}
+inline cudaError_t input_grad(const bf16* d, const bf16* wqkv, float* dY, int M, int D, cudaStream_t st) {
+  return input_grad(d, wqkv, dY, M, D, D, st);
 }
 
 // B4's fc: h_pre = T(y @ W1 + b1); y [M, D], W1 [D, Hd] held [K, N].  G1's

@@ -20,6 +20,7 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from flyp_tpu_torch.parallel.comm import max_int
 from flyp_tpu_torch.parallel.multihost import process_count, resolve_process
 from flyp_tpu_torch.tokenizer import shrink_context
 
@@ -198,15 +199,18 @@ def prefetch_to_device(iterator, device, size: int = 2, image_dtype: Optional[to
     only after its last copy's event has completed.  On the CPU the same
     function returns plain CPU tensors.
 
-    One process only: assembling a global batch from per-process slices
-    (the JAX package's ``global_batch_from_local`` and its token-width
-    all-gather) waits for ROADMAP A9.
+    With several processes each one stages its own rows (the rows of the
+    global batch its mesh position computes on, ``parallel/mesh.py::
+    shard_batch``), and ``tokens`` get one width across them: each
+    process's ``shrink_context`` bucket can differ, so the widest is taken
+    over all ranks (an all-reduce MAX of a CPU tensor over
+    ``parallel/comm.py::host_group``, one a batch, in the same order on
+    every rank; no rank waits for its device) and narrower ones are padded
+    with zeros, the pad id (the tower pools at the EOT, so the tail changes
+    nothing), as ``flyp_tpu/data/loader.py`` does.
     """
     device = torch.device(device)
-    if process_count() > 1:
-        raise NotImplementedError(
-            "prefetch_to_device feeds one process: assembling a global batch from per-process slices waits "
-            "for ROADMAP.md, item A9 (multi-process parallelism)")
+    synced = process_count() > 1
     cuda = device.type == "cuda"
     ring = [_Slot() for _ in range(size + 1)] if cuda else None
     copy_stream = torch.cuda.Stream(device) if cuda else None
@@ -219,6 +223,10 @@ def prefetch_to_device(iterator, device, size: int = 2, image_dtype: Optional[to
             if isinstance(v, np.ndarray) and v.dtype.kind not in "USO":
                 if k == "tokens":
                     v = shrink_context(v)
+                    if synced:
+                        width = max_int(v.shape[1])
+                        if width > v.shape[1]:
+                            v = np.pad(v, ((0, 0), (0, width - v.shape[1])))
                 t = torch.from_numpy(np.ascontiguousarray(v))
                 host[k] = (t, image_dtype if image_dtype is not None and t.is_floating_point() else t.dtype)
             else:

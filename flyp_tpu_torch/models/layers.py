@@ -21,6 +21,21 @@ follow the JAX param tree under every impl (``ln_1.scale``,
 ``attn.qkv_kernel [3, D, D]``, ``mlp.fc_kernel [D, 4D]``...), so carrying
 weights across is a rename and a checkpoint loads under any impl.
 
+Head-group tensor parallelism (``parallel/tp.py::shard_params``) gives a
+block a model-axis process group (``ResidualBlock.tp_group``) and replaces
+its ``attn`` and ``mlp`` weights by this rank's shard, as the JAX package's
+``_spec_for`` shards them: ``qkv_kernel [3, D, Dv]``, ``qkv_bias [3, Dv]``
+and ``out_kernel [Dv, D]`` hold ``Dv / 64`` whole heads; ``fc`` is column
+parallel, ``proj`` row parallel.  The residual stream stays whole on every
+rank.  On ``pallas_block`` the attention sub-block runs the per-shard
+kernels through ``ops/attention_block.py::tp_attention_block``; on ``xla``
+the plain attention runs over the local heads; either way the
+out-projection's partial sum is all-reduced over the model axis before
+``+ out_bias``.  The MLP is Megatron's: the identity forward with an
+all-reduce backward at its entry, one all-reduce after ``proj``, then
+``+ proj_bias``.  The routes that run other kernels (``pallas_block_mlp``,
+``pallas_qkv``, ``pallas``) are ROADMAP A9b under TP and raise.
+
 ``remat`` (``--remat``) recomputes activations in the backward
 (``torch.utils.checkpoint``) as the JAX ``remat`` policy does: under the
 fused routes only the MLP sub-block is recomputed (JAX saves the fused
@@ -38,7 +53,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from flyp_tpu_torch.ops.attention import _default_impl, multi_head_attention
-from flyp_tpu_torch.ops.attention_block import attention_block, attention_block_inference
+from flyp_tpu_torch.ops.attention_block import attention_block, attention_block_inference, tp_attention_block
 from flyp_tpu_torch.ops.fused_qkv_attention import fused_qkv_attention
 from flyp_tpu_torch.ops.mlp_block import mlp_block
 
@@ -112,18 +127,28 @@ class MultiHeadAttention(nn.Module):
             self.qkv_bias.zero_()
             self.out_bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """With ``tp_group`` the weights are a head shard (``Dv < D``
+        columns of each tower): the plain attention over the local heads,
+        and the out-projection's partial products summed over the group."""
         B, L, D = x.shape
+        Dv = self.qkv_kernel.shape[-1]
+        hd = D // self.heads
         dtype = x.dtype
-        # One [B*L, D] @ [D, 3D] product: JAX's [B, L, 3, D] held as [B, L, 3D].
-        w = self.qkv_kernel.permute(1, 0, 2).reshape(D, 3 * D)
-        qkv = _matmul(x, w) + self.qkv_bias.reshape(3 * D).to(dtype)
+        # One [B*L, D] @ [D, 3Dv] product: JAX's [B, L, 3, Dv] held as [B, L, 3Dv].
+        w = self.qkv_kernel.permute(1, 0, 2).reshape(D, 3 * Dv)
+        qkv = _matmul(x, w) + self.qkv_bias.reshape(3 * Dv).to(dtype)
         if _default_impl() == "pallas_qkv":
             o = fused_qkv_attention(qkv, self.heads, self.causal)
         else:
-            q, k, v = (qkv[..., t * D:(t + 1) * D].reshape(B, L, self.heads, D // self.heads) for t in range(3))
-            o = multi_head_attention(q, k, v, self.causal).reshape(B, L, D)
-        return _matmul(o, self.out_kernel) + self.out_bias.to(dtype)
+            q, k, v = (qkv[..., t * Dv:(t + 1) * Dv].reshape(B, L, Dv // hd, hd) for t in range(3))
+            o = multi_head_attention(q, k, v, self.causal).reshape(B, L, Dv)
+        proj = _matmul(o, self.out_kernel)
+        if tp_group is not None:
+            from flyp_tpu_torch.parallel.comm import reduce_from_group
+
+            proj = reduce_from_group(proj, tp_group)
+        return proj + self.out_bias.to(dtype)
 
 
 class MLP(nn.Module):
@@ -146,10 +171,18 @@ class MLP(nn.Module):
             self.fc_bias.zero_()
             self.proj_bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp_group=None) -> torch.Tensor:
+        """With ``tp_group`` ``fc`` holds a column shard and ``proj`` the
+        matching row shard: the partial products are summed over the group
+        before ``+ proj_bias``."""
         dtype = x.dtype
         h = quick_gelu(_matmul(x, self.fc_kernel) + self.fc_bias.to(dtype))
-        return _matmul(h, self.proj_kernel) + self.proj_bias.to(dtype)
+        proj = _matmul(h, self.proj_kernel)
+        if tp_group is not None:
+            from flyp_tpu_torch.parallel.comm import reduce_from_group
+
+            proj = reduce_from_group(proj, tp_group)
+        return proj + self.proj_bias.to(dtype)
 
 
 class ResidualBlock(nn.Module):
@@ -159,7 +192,11 @@ class ResidualBlock(nn.Module):
     the attention op (JAX's ``train`` argument): the training op keeps the
     forward's residuals for the backward; the inference op does not.  With
     ``remat`` a forward that records gradients recomputes the MLP sub-block
-    (fused routes) or the whole block (other routes) in the backward."""
+    (fused routes) or the whole block (other routes) in the backward.
+    ``tp_group`` (set by ``parallel/tp.py``) makes it a tensor-parallel
+    block over that model-axis group (module docstring)."""
+
+    tp_group = None
 
     def __init__(self, width: int, heads: int, causal: bool = False, remat: bool = False):
         super().__init__()
@@ -171,8 +208,28 @@ class ResidualBlock(nn.Module):
         self.ln_2 = LayerNormFp32(width)
         self.mlp = MLP(width)
 
+    def _tp_route(self) -> str:
+        impl = _default_impl()
+        if impl in ("pallas_block_mlp", "pallas_qkv", "pallas"):
+            raise NotImplementedError(
+                f"FLYP_ATTENTION_IMPL={impl} under tensor parallelism (--mesh_model > 1) is ROADMAP.md, item A9b: "
+                "the JAX package gathers the shards and runs the whole kernel there; use pallas_block or xla")
+        return impl
+
     def attention(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` plus the attention sub-block."""
+        group = self.tp_group
+        if group is not None:
+            from flyp_tpu_torch.parallel.comm import copy_to_group, group_size
+
+            a = self.attn
+            if self._tp_route() == "pallas_block":
+                heads = self.heads // group_size(group)
+                return tp_attention_block(
+                    x, self.ln_1.scale, self.ln_1.bias, a.qkv_kernel, a.qkv_bias, a.out_kernel, a.out_bias,
+                    heads, self.causal, group=group, train=self.training,
+                )
+            return x + a(copy_to_group(self.ln_1(x), group), tp_group=group)
         if _default_impl() in ("pallas_block", "pallas_block_mlp"):
             a = self.attn
             block_fn = attention_block if self.training else attention_block_inference
@@ -184,6 +241,12 @@ class ResidualBlock(nn.Module):
 
     def feed_forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` plus the MLP sub-block."""
+        group = self.tp_group
+        if group is not None:
+            from flyp_tpu_torch.parallel.comm import copy_to_group
+
+            self._tp_route()
+            return x + self.mlp(copy_to_group(self.ln_2(x), group), tp_group=group)
         if _default_impl() == "pallas_block_mlp":
             m = self.mlp
             return mlp_block(x, self.ln_2.scale, self.ln_2.bias, m.fc_kernel, m.fc_bias, m.proj_kernel, m.proj_bias)

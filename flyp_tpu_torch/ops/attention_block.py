@@ -24,6 +24,19 @@ call's duration); in bf16 every product runs on ``csrc/gemm_sm90.cuh``
 (``ops/gemm_sm90.py`` exposes each alone).  The backward takes rows of up
 to 1024 keys.
 
+Head-group tensor parallelism (``parallel/tp.py``) runs the same kernels on
+one shard of the heads, as the JAX package's ``_partitioned`` lowering
+does: ``qkv_kernel [3, D, Dv]``, ``qkv_bias [3, Dv]`` and ``out_kernel [Dv,
+D]`` hold ``heads`` local heads (``Dv = 64 heads``, less than ``D``).  In
+``partial`` mode the forwards return the fp32 out-projection of the shard's
+heads without ``+ x + bout``; with ``add_g=False`` the backward's ``dx`` is
+the shard's LayerNorm backward without ``+ g``, and its ``dscale``/``dbias``
+are the shard's part.  :func:`tp_attention_block` sums the parts over the
+model axis and adds the residual once (module ``parallel/comm.py``).  On the
+card a shard's width must be a multiple of 128: ``Dv`` = 192 (ViT-B/16's
+vision tower, ViT-L/14's text tower at ``--mesh_model 4``) is refused with
+a ``ValueError`` naming the shape.
+
 A tensor on the CPU takes the plain PyTorch versions
 (:func:`attention_block_inference_reference`,
 :func:`attention_block_reference`, :func:`attention_block_backward_reference`),
@@ -87,43 +100,51 @@ def _scores(qs, k, heads, causal):
 
 
 def _project(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, heads):
-    """(q, k, v, T(q * scale)) in the compute type."""
+    """(q, k, v, T(q * scale)) in the compute type, each ``[B, L, Dv]``."""
     dtype = x.dtype
     _, _, y32 = _layer_norm(x.float(), ln_scale, ln_bias)
     y = y32.to(dtype).float()
     w = qkv_kernel.to(dtype).float()
     b = qkv_bias.float()
     q, k, v = ((torch.matmul(y, w[t]) + b[t]).to(dtype) for t in range(3))
-    qs = (q.float() * (x.shape[-1] // heads) ** -0.5).to(dtype)
+    qs = (q.float() * (qkv_kernel.shape[-1] // heads) ** -0.5).to(dtype)
     return q, k, v, qs
 
 
-def _out_proj(x, o, out_kernel, out_bias):
+def _out_proj(x, o, out_kernel, out_bias, partial=False):
+    """``T(x + o Wout + bout)``, or with ``partial`` the fp32 ``o Wout``."""
     proj = torch.matmul(o.float(), out_kernel.to(x.dtype).float())
+    if partial:
+        return proj
     return ((x.float() + proj) + out_bias.float()).to(x.dtype)
 
 
 def attention_block_inference_reference(
-    x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int, causal: bool = False
+    x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int, causal: bool = False,
+    partial: bool = False,
 ):
     """Plain version of the inference kernel (B3).  Rounds the LN output,
     q/k/v, ``q * head_dim**-0.5``, the normalised probabilities, the
-    attention output and the block output: ``o = T(T(softmax(s)) @ v)``."""
+    attention output and the block output: ``o = T(T(softmax(s)) @ v)``.
+    ``heads`` counts the heads of ``qkv_kernel [3, D, Dv]``; ``partial``
+    returns the fp32 out-projection alone (module docstring)."""
     dtype = x.dtype
     _, k, v, qs = _project(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, heads)
     p = torch.softmax(_scores(qs, k, heads, causal), dim=-1).to(dtype)
     o = _heads_last(torch.matmul(p.float(), _heads_first(v, heads)).to(dtype))
-    return _out_proj(x, o, out_kernel, out_bias)
+    return _out_proj(x, o, out_kernel, out_bias, partial)
 
 
 def attention_block_reference(
-    x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int, causal: bool = False
+    x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int, causal: bool = False,
+    partial: bool = False,
 ):
     """Plain version of the training forward (B1) -> ``(out, o, q, k, v,
     lse)``.  As ``_fwd_kernel`` rounds: the unnormalised ``e = exp(s - m)``
     is cast for ``e @ v`` and the fp32 product divided by ``l``,
     ``o = T((T(e) @ v) / l)``; ``lse = m + log(l)`` ``[B, L, H]`` fp32,
-    relative to the scaled scores."""
+    relative to the scaled scores.  ``partial`` as in the inference
+    version."""
     dtype = x.dtype
     q, k, v, qs = _project(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, heads)
     s = _scores(qs, k, heads, causal)
@@ -132,21 +153,25 @@ def attention_block_reference(
     l = e.sum(dim=-1, keepdim=True)
     lse = (m + torch.log(l)).squeeze(-1).transpose(1, 2).contiguous()
     o = _heads_last((torch.matmul(e.to(dtype).float(), _heads_first(v, heads)) / l).to(dtype))
-    return _out_proj(x, o, out_kernel, out_bias), o, q, k, v, lse
+    return _out_proj(x, o, out_kernel, out_bias, partial), o, q, k, v, lse
 
 
 def attention_block_backward_reference(
-    g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads: int, causal: bool = False
+    g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads: int, causal: bool = False,
+    add_g: bool = True,
 ):
     """Plain version of the training backward (B2, and the out-projection
     grads beside it) -> ``(dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout)``;
     ``dx`` in ``x.dtype``, the rest fp32.  Rounds where ``_bwd_kernel``
     rounds: ``do = T(g Wout^T)``, ``T(p)`` in ``dv`` only,
     ``ds = T(p (dp - rowsum(p dp)))``, and dq/dk/dv before the weight, bias
-    and LN grads, which run in fp32 with ``dx`` rounded last."""
+    and LN grads, which run in fp32 with ``dx`` rounded last.  With
+    ``add_g=False`` (a head shard's part) ``dx`` is the LayerNorm backward
+    alone, rounded, without ``+ g``."""
     dtype = x.dtype
     B, L, D = x.shape
-    hd = D // heads
+    Dv = qkv_kernel.shape[-1]
+    hd = Dv // heads
     scale = hd ** -0.5
     xhat, rstd, y32 = _layer_norm(x.float(), ln_scale, ln_bias)
     y = y32.to(dtype).float().reshape(B * L, D)
@@ -164,11 +189,11 @@ def attention_block_backward_reference(
     dk = torch.matmul(ds.transpose(-1, -2), _heads_first(qs, heads)).to(dtype)
 
     w = qkv_kernel.to(dtype).float()
-    dwqkv = torch.empty(3, D, D, dtype=torch.float32, device=x.device)
-    dbqkv = torch.empty(3, D, dtype=torch.float32, device=x.device)
+    dwqkv = torch.empty(3, D, Dv, dtype=torch.float32, device=x.device)
+    dbqkv = torch.empty(3, Dv, dtype=torch.float32, device=x.device)
     dY = torch.zeros(B * L, D, dtype=torch.float32, device=x.device)
     for t, d_t in enumerate((dq, dk, dv)):
-        d_t = _heads_last(d_t).float().reshape(B * L, D)
+        d_t = _heads_last(d_t).float().reshape(B * L, Dv)
         dwqkv[t] = torch.matmul(y.T, d_t)
         dbqkv[t] = d_t.sum(dim=0)
         dY = dY + torch.matmul(d_t, w[t].T)
@@ -178,9 +203,10 @@ def attention_block_backward_reference(
     dxhat = dY * ln_scale.float()
     m1 = dxhat.mean(dim=-1, keepdim=True)
     m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
-    dx = (rstd * (dxhat - m1 - xhat * m2) + g32).to(dtype)
+    dx = rstd * (dxhat - m1 - xhat * m2)
+    dx = (dx + g32 if add_g else dx).to(dtype)
 
-    dwout = torch.matmul(o.float().reshape(B * L, D).T, g32.reshape(B * L, D))
+    dwout = torch.matmul(o.float().reshape(B * L, Dv).T, g32.reshape(B * L, D))
     dbout = g32.sum(dim=(0, 1))
     return dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout
 
@@ -196,6 +222,10 @@ def _fwd_lib() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # The head-shard entry: lse may be null (the inference forward); ints
+    # B, L, D, Dv, H, causal, partial, dtype.
+    lib.flyp_attention_block_fwd_shard.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.flyp_attention_block_fwd_shard.restype = ctypes.c_int
     return lib
 
 
@@ -206,6 +236,11 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.flyp_attention_block_bwd_workspace.restype = ctypes.c_longlong
     lib.flyp_attention_block_bwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.flyp_attention_block_bwd.restype = ctypes.c_int
+    lib.flyp_attention_block_bwd_shard_workspace.argtypes = [ctypes.c_int] * 6
+    lib.flyp_attention_block_bwd_shard_workspace.restype = ctypes.c_longlong
+    # ints B, L, D, Dv, H, causal, add_g, dtype.
+    lib.flyp_attention_block_bwd_shard.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.flyp_attention_block_bwd_shard.restype = ctypes.c_int
     return lib
 
 
@@ -213,15 +248,17 @@ def _check_inputs(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bi
     if x.dim() != 3:
         raise ValueError(f"x must be [B, L, D], got shape {tuple(x.shape)}")
     B, L, D = x.shape
+    Dv = qkv_kernel.shape[-1]
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention-block kernel takes float32 or bfloat16, got {x.dtype}")
-    if D != heads * _HEAD_DIM or D % 128:
-        raise ValueError(f"the attention-block kernel needs head_dim 64 and D % 128 == 0; got D={D}, heads={heads}")
+    if Dv != heads * _HEAD_DIM or D % 128 or Dv % 128:
+        raise ValueError(f"the attention-block kernel needs head_dim 64 and D, Dv multiples of 128; got D={D}, "
+                         f"Dv={Dv} (qkv_kernel {tuple(qkv_kernel.shape)}), heads={heads}")
     if B * L == 0:
         raise ValueError("empty input")
     shapes = {
-        "ln_scale": (ln_scale, (D,)), "ln_bias": (ln_bias, (D,)), "qkv_kernel": (qkv_kernel, (3, D, D)),
-        "qkv_bias": (qkv_bias, (3, D)), "out_kernel": (out_kernel, (D, D)), "out_bias": (out_bias, (D,)),
+        "ln_scale": (ln_scale, (D,)), "ln_bias": (ln_bias, (D,)), "qkv_kernel": (qkv_kernel, (3, D, Dv)),
+        "qkv_bias": (qkv_bias, (3, Dv)), "out_kernel": (out_kernel, (Dv, D)), "out_bias": (out_bias, (D,)),
     }
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
@@ -234,25 +271,32 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _fwd_kernel_call(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal, train):
-    """B3 (``train=False``) -> out, or B1 -> (out, o, q, k, v, lse)."""
+def _fwd_kernel_call(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal, train,
+                     partial=False):
+    """B3 (``train=False``) -> out, or B1 -> (out, o, q, k, v, lse); with
+    ``partial`` ``out`` is the fp32 out-projection alone."""
     _check_inputs(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads)
     B, L, D = x.shape
+    Dv = qkv_kernel.shape[-1]
     dtype = x.dtype
     x = x.contiguous()
     f32 = [t.detach().to(torch.float32).contiguous() for t in (ln_scale, ln_bias, qkv_bias, out_bias)]
     wqkv = qkv_kernel.detach().to(dtype).contiguous()
     wout = out_kernel.detach().to(dtype).contiguous()
-    out = torch.empty_like(x)
-    qkv = torch.empty((3, B, L, D), dtype=dtype, device=x.device)
-    o = torch.empty((B, L, D), dtype=dtype, device=x.device)
+    out = torch.empty((B, L, D), dtype=torch.float32 if partial else dtype, device=x.device)
+    qkv = torch.empty((3, B, L, Dv), dtype=dtype, device=x.device)
+    o = torch.empty((B, L, Dv), dtype=dtype, device=x.device)
     y = torch.empty((B, L, D), dtype=dtype, device=x.device)  # LN(x), written once per row
     lse = torch.empty((B, L, heads), dtype=torch.float32, device=x.device) if train else None
     lib = _fwd_lib()
     ptrs = [x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), wqkv.data_ptr(), f32[2].data_ptr(),
             wout.data_ptr(), f32[3].data_ptr(), out.data_ptr(), qkv.data_ptr(), o.data_ptr(), y.data_ptr()]
     with torch.cuda.device(x.device):
-        if train:
+        if Dv != D or partial:
+            code = lib.flyp_attention_block_fwd_shard(
+                *ptrs, lse.data_ptr() if train else None, B, L, D, Dv, heads, int(bool(causal)), int(bool(partial)),
+                _DTYPE_CODES[dtype], _stream(x.device))
+        elif train:
             code = lib.flyp_attention_block_fwd_train(*ptrs, lse.data_ptr(), B, L, D, heads, int(bool(causal)),
                                                       _DTYPE_CODES[dtype], _stream(x.device))
         else:
@@ -266,32 +310,45 @@ def _fwd_kernel_call(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out
     return out, o, qkv[0], qkv[1], qkv[2], lse
 
 
-def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, lse, heads, causal):
-    """B2 -> (dx, dscale, dbias, dwqkv, dbqkv)."""
+def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, lse, heads, causal, add_g=True):
+    """B2 -> (dx, dscale, dbias, dwqkv, dbqkv); ``add_g=False`` leaves
+    ``+ g`` out of ``dx`` (a head shard's part)."""
     B, L, D = x.shape
+    Dv = qkv_kernel.shape[-1]
     dtype = x.dtype
     if L > _MAX_TRAIN_LEN:
         raise ValueError(f"the attention-block backward kernel takes L <= {_MAX_TRAIN_LEN}, got L={L}")
+    if Dv != heads * _HEAD_DIM or D % 128 or Dv % 128:
+        raise ValueError(f"the attention-block backward kernel needs head_dim 64 and D, Dv multiples of 128; got "
+                         f"D={D}, Dv={Dv} (qkv_kernel {tuple(qkv_kernel.shape)}), heads={heads}")
+    shard = Dv != D or not add_g
     lib = _bwd_lib()
-    nbytes = lib.flyp_attention_block_bwd_workspace(B, L, D, heads, _DTYPE_CODES[dtype])
+    if shard:
+        nbytes = lib.flyp_attention_block_bwd_shard_workspace(B, L, D, Dv, heads, _DTYPE_CODES[dtype])
+    else:
+        nbytes = lib.flyp_attention_block_bwd_workspace(B, L, D, heads, _DTYPE_CODES[dtype])
     if nbytes < 0:
-        raise ValueError(f"the attention-block backward kernel does not take B={B} L={L} D={D} heads={heads}")
+        raise ValueError(f"the attention-block backward kernel does not take B={B} L={L} D={D} Dv={Dv} "
+                         f"heads={heads}")
     dev = x.device
     tensors = [t.contiguous() for t in (x, g.to(dtype), q, k, v, lse)]
     ln = [t.detach().to(torch.float32).contiguous() for t in (ln_scale, ln_bias)]
     wqkv = qkv_kernel.detach().to(dtype).contiguous()
     wout = out_kernel.detach().to(dtype).contiguous()
     dx = torch.empty_like(tensors[0])
-    dwqkv = torch.empty((3, D, D), dtype=torch.float32, device=dev)
-    dbqkv = torch.empty((3, D), dtype=torch.float32, device=dev)
+    dwqkv = torch.empty((3, D, Dv), dtype=torch.float32, device=dev)
+    dbqkv = torch.empty((3, Dv), dtype=torch.float32, device=dev)
     dln = torch.empty((2, D), dtype=torch.float32, device=dev)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    ptrs = [*(t.data_ptr() for t in tensors), ln[0].data_ptr(), ln[1].data_ptr(), wqkv.data_ptr(), wout.data_ptr(),
+            dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dln.data_ptr(), workspace.data_ptr()]
     with torch.cuda.device(dev):
-        code = lib.flyp_attention_block_bwd(
-            *(t.data_ptr() for t in tensors), ln[0].data_ptr(), ln[1].data_ptr(), wqkv.data_ptr(), wout.data_ptr(),
-            dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dln.data_ptr(), workspace.data_ptr(),
-            B, L, D, heads, int(bool(causal)), _DTYPE_CODES[dtype], _stream(dev),
-        )
+        if shard:
+            code = lib.flyp_attention_block_bwd_shard(*ptrs, B, L, D, Dv, heads, int(bool(causal)), int(bool(add_g)),
+                                                      _DTYPE_CODES[dtype], _stream(dev))
+        else:
+            code = lib.flyp_attention_block_bwd(*ptrs, B, L, D, heads, int(bool(causal)), _DTYPE_CODES[dtype],
+                                                _stream(dev))
     _kernels.check(lib, code, "attention-block backward kernel launch")
     attention_block.bwd_launches += 1
     return dx, dln[0], dln[1], dwqkv, dbqkv
@@ -306,20 +363,20 @@ def _device_route(x, op: str) -> bool:
     raise RuntimeError(f"{op} runs on cuda or cpu tensors, got {x.device}")
 
 
-def _train_forward(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal):
+def _train_forward(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal, partial=False):
     args = (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal)
     if _device_route(x, "attention_block"):
-        return _fwd_kernel_call(*args, train=True)
-    return attention_block_reference(*args)
+        return _fwd_kernel_call(*args, train=True, partial=partial)
+    return attention_block_reference(*args, partial=partial)
 
 
-def _train_backward(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads, causal):
+def _train_backward(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads, causal, add_g=True):
     """(dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout)."""
     if not _device_route(x, "attention_block"):
         return attention_block_backward_reference(
-            g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads, causal)
+            g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads, causal, add_g=add_g)
     dx, dscale, dbias, dwqkv, dbqkv = _bwd_kernel_call(
-        g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, lse, heads, causal)
+        g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, lse, heads, causal, add_g=add_g)
     # The out-projection grads are plain fp32 products over the saved o, as
     # the JAX package leaves them to XLA.
     g32 = g.float().reshape(-1, g.shape[-1])
@@ -398,6 +455,70 @@ def attention_block_inference(
     (B1) and then the training backward (B2)."""
     return _AttentionBlockInference.apply(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads,
                                           causal)
+
+
+class _TPAttentionBlock(torch.autograd.Function):
+    """The sub-block over one head shard, summed over the model axis: the
+    counterpart of ``_partitioned``'s TP lowering, with its rounding points.
+    Forward: the shard's fp32 out-projection (B1, or B3 when ``train`` is
+    False), its sum over ``group``, then ``T(x + proj + bout)``.  Backward:
+    the shard's ``T(dx_ln)`` (B2, ``add_g=False``) summed over ``group``,
+    then ``T(g + dx_ln)``; ``dscale``/``dbias`` summed over ``group``;
+    ``dWqkv``, ``dbqkv`` and ``dWout`` stay the shard's, ``dbout`` is whole
+    on every rank.  The batch axes are the train step's to reduce."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal, group, train):
+        from flyp_tpu_torch.parallel.comm import all_reduce_
+
+        args = (x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal)
+        ctx.heads, ctx.causal, ctx.group, ctx.train = heads, causal, group, train
+        ctx.dtypes = tuple(t.dtype for t in args[:7])
+        if train:
+            partial, o, q, k, v, lse = _train_forward(*args, partial=True)
+            ctx.save_for_backward(x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse)
+        else:
+            if any(ctx.needs_input_grad[:7]):
+                ctx.save_for_backward(*args[:7])
+            if _device_route(x, "attention_block_inference"):
+                partial = _fwd_kernel_call(*args, train=False, partial=True)
+            else:
+                partial = attention_block_inference_reference(*args, partial=True)
+        proj = all_reduce_(partial, group)
+        return ((x.float() + proj) + out_bias.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        from flyp_tpu_torch.parallel.comm import all_reduce_
+
+        if ctx.train:
+            x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse = ctx.saved_tensors
+        else:
+            # The residuals were never kept: re-run the shard's training
+            # forward first, as the inference op does.
+            x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias = ctx.saved_tensors
+            _, o, q, k, v, lse = _train_forward(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias,
+                                                ctx.heads, ctx.causal, partial=True)
+        dx_ln, dscale, dbias, dwqkv, dbqkv, dwout, dbout = _train_backward(
+            g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, ctx.heads, ctx.causal, add_g=False)
+        dx_ln = all_reduce_(dx_ln, ctx.group)
+        dx = (g.float() + dx_ln.float()).to(x.dtype)
+        dln = all_reduce_(torch.stack([dscale, dbias]), ctx.group)
+        grads = (dx, dln[0], dln[1], dwqkv, dbqkv, dwout, dbout)
+        return (*(gr.to(dt) for gr, dt in zip(grads, ctx.dtypes)), None, None, None, None)
+
+
+def tp_attention_block(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads: int,
+                       causal: bool = False, group=None, train: bool = True):
+    """The attention sub-block under head-group tensor parallelism: this
+    rank holds ``heads`` heads, ``qkv_kernel [3, D, Dv]``, ``qkv_bias [3,
+    Dv]``, ``out_kernel [Dv, D]``; ``x``, the LN params and ``out_bias`` are
+    whole.  ``group`` is the model axis's process group.  ``train`` picks
+    the training kernels (B1 and B2), else the inference forward (B3) with a
+    backward that re-runs B1.  Returns ``T(x + sum_shards(o Wout) + bout)``
+    on every rank of the group."""
+    return _TPAttentionBlock.apply(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal,
+                                   group, train)
 
 
 # Kernel launches since the counts were last reset (one per call on CUDA).

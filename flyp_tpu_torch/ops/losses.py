@@ -1,10 +1,12 @@
 """Contrastive (InfoNCE) loss, plus the three supervised variants of CLIP's
 reference loss.
 
-Counterpart of ``flyp_tpu/ops/losses.py::clip_loss`` for one process: the
-logit matrix spans the batch it is given.  The gathered multi-process form
-(``axis_name``/``local_loss`` in the JAX package) comes with multi-process
-training (ROADMAP.md, item A9).
+Counterpart of ``flyp_tpu/ops/losses.py::clip_loss``.  Without ``group``
+the logit matrix spans the batch it is given.  With ``group`` (the process
+group of the mesh's batch axes, the JAX package's ``axis_name``) each rank
+passes its own rows and the features are all-gathered with a
+differentiable gather (``parallel/comm.py::gather_rows``, whose backward
+reduce-scatters the gradient), so the logits span the global batch.
 
 The default variant returns per-item losses (the curriculum machinery
 consumes them); the supervised variants return a scalar, as upstream does.
@@ -36,6 +38,8 @@ def clip_loss(
     *,
     ignore: bool = False,
     google_sup_loss: bool = False,
+    group=None,
+    local_loss: bool = False,
 ) -> torch.Tensor:
     """Bidirectional contrastive loss over L2-normalised features.
 
@@ -49,18 +53,53 @@ def clip_loss(
         denominator that excludes its own term.
       With labels and neither flag: soft-label cross entropy over the
       normalised label-equality matrix.
+      group: the batch axes' process group; the features (and labels) are
+        gathered over it in group-rank order.
+      local_loss: with ``group``, only this rank's rows ``[B_local,
+        B_global]`` of the logits, labelled ``arange(B_local) + B_local *
+        rank``.  The supervised variants ignore it: they need the whole
+        label-equality matrix and return the same scalar on every rank.
 
     Returns:
-      ``[B]`` per-item losses for the default variant; a scalar for the
-      supervised variants.  Everything is computed in fp32.
+      ``[B]`` (``[B_global]`` with ``group``, ``[B_local]`` with
+      ``local_loss``) per-item losses for the default variant; a scalar for
+      the supervised variants.  Everything is computed in fp32.
+
+    A training step over a group backpropagates each rank's share of the
+    global-batch mean (its own rows' per-item losses over ``B_global``, or
+    a supervised scalar over the group size) and sums the gradients over
+    the group: the gather's backward then gives every rank the gradient of
+    the global mean for its features, and ``logit_scale``'s gradient sums to
+    the global one.
     """
     if ignore and google_sup_loss:
         raise ValueError("please specify only one of ignore and google_sup_loss")
     img = image_features.float()
     txt = text_features.float()
     scale = logit_scale.float()
-    logits_per_image = scale * img @ txt.T
-    logits_per_text = logits_per_image.T
+    local_b = img.shape[0]
+    rank = 0
+    # Supervised variants ignore local_loss: rectangular logits would
+    # mis-index the label-equality matrix.
+    local_loss = local_loss and ground_labels is None
+    if group is not None:
+        from flyp_tpu_torch.parallel.comm import gather_rows, group_rank
+
+        rank = group_rank(group)
+        all_img, all_txt = gather_rows(img, group), gather_rows(txt, group)
+        if local_loss:
+            logits_per_image = scale * img @ all_txt.T  # [B_local, B_global]
+            logits_per_text = scale * txt @ all_img.T
+        else:
+            logits_per_image = scale * all_img @ all_txt.T  # [B_global, B_global]
+            logits_per_text = logits_per_image.T
+        if ground_labels is not None:
+            from flyp_tpu_torch.parallel.comm import all_gather
+
+            ground_labels = all_gather(ground_labels, group)
+    else:
+        logits_per_image = scale * img @ txt.T
+        logits_per_text = logits_per_image.T
     n = logits_per_image.shape[0]
 
     if ground_labels is not None:
@@ -88,5 +127,8 @@ def clip_loss(
         soft = equal / equal.sum(dim=1, keepdim=True)
         return (_soft_ce(logits_per_image, soft).mean() + _soft_ce(logits_per_text, soft).mean()) / 2.0
 
-    labels = torch.arange(n, device=logits_per_image.device)
+    if group is not None and local_loss:
+        labels = torch.arange(local_b, device=logits_per_image.device) + local_b * rank
+    else:
+        labels = torch.arange(n, device=logits_per_image.device)
     return (_log_softmax_diag_ce(logits_per_image, labels) + _log_softmax_diag_ce(logits_per_text, labels)) / 2.0

@@ -1,7 +1,7 @@
 """The FLYP trainer: contrastive fine-tuning with a zero-shot evaluation
 after every epoch.
 
-Counterpart of ``flyp_tpu/training/flyp.py`` on one process:
+Counterpart of ``flyp_tpu/training/flyp.py``:
 
 * the train step (``training/train_step.py``: both towers, the global-batch
   InfoNCE, AdamW; ``--grad_cache_chunks N`` its chunked form,
@@ -23,8 +23,18 @@ Counterpart of ``flyp_tpu/training/flyp.py`` on one process:
   uninterrupted run's trajectory bit for bit.
 
 The TSV files are written as pandas writes them (the port reads and writes
-them without pandas).  Multi-process runs (a mesh, FSDP, tensor
-parallelism) are ROADMAP item A9.
+them without pandas).
+
+Several processes (``cli/main.py`` under ``torchrun``, one rank a device)
+train one model on a mesh (``parallel/mesh.py``, from ``--mesh_data``,
+``--mesh_model`` and ``--mesh_replica``, the data axis capped to divide the
+batch): the batch splits over the data (and replica) axis, each input group
+loading its rows (``parallel/multihost.py``); ``--mesh_model > 1`` shards
+the transformer blocks head-group-wise (``parallel/tp.py``), else
+``--fsdp`` shards parameters and moments over the data axis
+(``parallel/fsdp.py``), else every rank holds the whole state.  Every rank
+evaluates the whole eval sets (replicated loaders) and calls the checkpoint
+saves, which gather the shards; rank 0 alone writes files.
 """
 
 from __future__ import annotations
@@ -44,7 +54,9 @@ from flyp_tpu_torch.data.registry import get_classnames_for
 from flyp_tpu_torch.evaluation.classifier import Classifier
 from flyp_tpu_torch.evaluation.evaluator import evaluate
 from flyp_tpu_torch.evaluation.zeroshot import get_zeroshot_classifier
-from flyp_tpu_torch.parallel.multihost import is_primary, process_count
+from flyp_tpu_torch.parallel.mesh import MeshConfig, batch_axes, create_mesh_for_batch
+from flyp_tpu_torch.parallel.multihost import (configure_input_sharding, is_primary, process_count,
+                                               reset_input_sharding)
 from flyp_tpu_torch.templates import get_template
 from flyp_tpu_torch.training.curriculum import choose_guidance_by_progress, init_guidance_setting, seq_curri_guid
 from flyp_tpu_torch.training.data import check_resumable, device_iter, train_loader
@@ -282,12 +294,52 @@ def _prune_step_checkpoints(save_dir: str, keep: int = 2) -> None:
         shutil.rmtree(path, ignore_errors=True)
 
 
-def _refuse_multi_process(cfg) -> None:
-    if (process_count() > 1 or cfg.mesh_data > 1 or cfg.mesh_model > 1 or getattr(cfg, "mesh_replica", 1) > 1
-            or cfg.fsdp):
-        raise NotImplementedError(
-            "the trainer runs on one process and one device; meshes, FSDP and tensor parallelism are "
-            "ROADMAP.md, item A9 (multi-process parallelism)")
+def build_mesh(cfg):
+    """The trainer's mesh: ``--mesh_data``/``--mesh_model``/``--mesh_replica``
+    over the ranks, the data axis capped to divide the batch.  Every rank
+    must be in it: a rank the cap leaves out would have no work and would
+    hang the others' collectives."""
+    mesh = create_mesh_for_batch(MeshConfig(cfg.mesh_data, cfg.mesh_model, getattr(cfg, "mesh_replica", 1)),
+                                 cfg.batch_size)
+    if mesh.size != process_count():
+        raise ValueError(f"the mesh {mesh} for batch_size {cfg.batch_size} covers {mesh.size} of "
+                         f"{process_count()} ranks; launch {mesh.size} processes or change the batch or the mesh")
+    return mesh
+
+
+def place_state(cfg, mesh, state):
+    """Place a fresh ``TrainState`` on ``mesh`` as the JAX trainer does:
+    tensor-parallel when the model axis is larger than 1, else FSDP with
+    ``--fsdp``, else whole on every rank."""
+    if mesh.shape["model"] > 1:
+        from flyp_tpu_torch.parallel.tp import shard_train_state
+
+        return shard_train_state(mesh, state)
+    if cfg.fsdp:
+        from flyp_tpu_torch.parallel.fsdp import shard_train_state_fsdp
+
+        return shard_train_state_fsdp(mesh, state)
+    state.mesh = mesh
+    return state
+
+
+def _gather_rows(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The global batch's rows of a per-rank tensor (``--cluster loss``'s
+    per-item losses and image ids), in batch order, on every rank."""
+    from flyp_tpu_torch.parallel.comm import all_gather
+
+    return all_gather(t.reshape(-1), mesh.group(batch_axes(mesh)))
+
+
+def _saves_committed() -> None:
+    """Wait for this process's pending checkpoint commit, then (several
+    ranks) for every rank's: rank 0 writes, and no rank returns a
+    checkpoint path before the checkpoint is on disk."""
+    wait_for_saves()
+    if process_count() > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
 
 
 def _host_blob(last_perform, explore_rng, loss_pairs, progress_ma) -> dict:
@@ -302,8 +354,9 @@ def _host_blob(last_perform, explore_rng, loss_pairs, progress_ma) -> dict:
 def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
     """Run FLYP fine-tuning; returns the last checkpoint path (if saving).
 
-    ``model`` defaults to ``build_clip_model(cfg, device=cfg.device)``."""
-    _refuse_multi_process(cfg)
+    ``model`` defaults to ``build_clip_model(cfg, device=cfg.device)``.
+    With several ranks every one calls it (module docstring)."""
+    mesh = build_mesh(cfg)
     log_dir = cfg.log_dir or os.path.join("expt_logs", cfg.exp_name or "flyp", cfg.run_key())
     os.makedirs(log_dir, exist_ok=True)
     logger = logger or get_logger(log_dir)
@@ -318,7 +371,17 @@ def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
         model = build_clip_model(cfg, device=cfg.device)
     device = model.device
     image_size = model.config.vision.image_size
+    logger.info(f"Mesh: {mesh}")
+    # The input grid follows the mesh (on a TP mesh a model group loads the
+    # same rows); it is unpinned on every way out.
+    configure_input_sharding(mesh)
+    try:
+        return _train(cfg, logger, model, print_every, log_dir, sink, primary, device, image_size, mesh)
+    finally:
+        reset_input_sharding()
 
+
+def _train(cfg, logger, model, print_every, log_dir, sink, primary, device, image_size, mesh):
     list_classes = _cont_finetune_classes(cfg, logger) if cfg.cont_finetune else None
 
     guid = init_guidance_setting(cfg, logger, list_classes=list_classes)
@@ -356,11 +419,22 @@ def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
 
     schedule = make_scheduler(cfg.scheduler, cfg.lr, cfg.warmup_length, cfg.epochs, num_batches, cfg.min_lr)
     optimizer = make_optimizer(schedule, cfg.wd, cfg.adam_moment_dtype)
-    state = create_train_state(model, optimizer)
+    state = place_state(cfg, mesh, create_train_state(model, optimizer))
+    multi = mesh.size > 1
 
     def build_step(optimizer):
         return make_train_step(model, optimizer, log_grad_norm=cfg.log_grad_norm,
-                               freeze_encoder=cfg.freeze_encoder, grad_cache_chunks=cfg.grad_cache_chunks)
+                               freeze_encoder=cfg.freeze_encoder, grad_cache_chunks=cfg.grad_cache_chunks,
+                               mesh=mesh if multi else None)
+
+    def whole_model():
+        """The model with its whole parameters (FSDP gathers its shards):
+        what the head, the evaluation and the progress probes read."""
+        if state.shards is not None:
+            from flyp_tpu_torch.parallel.fsdp import materialize
+
+            materialize(state)
+        return model
 
     step_fn = build_step(optimizer)
 
@@ -493,7 +567,12 @@ def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
                 parts = [m["loss"], m["learning_rate"]] + ([m["grad_norm"]] if "grad_norm" in m else [])
                 parts = [p.reshape(1).double() for p in parts]
                 if img_ids is not None:
-                    parts += [m["per_item_loss"].reshape(-1).double(), img_ids.reshape(-1).double()]
+                    per_item, ids = m["per_item_loss"].reshape(-1).double(), img_ids.reshape(-1).double()
+                    if multi:
+                        # Each rank holds its rows: the global batch's, in
+                        # order, on every rank (a collective).
+                        per_item, ids = _gather_rows(per_item, mesh), _gather_rows(ids, mesh)
+                    parts += [per_item, ids]
                 host = torch.cat(parts).cpu().tolist()
                 loss_val, lr = host[0], host[1]
                 if not np.isfinite(loss_val):
@@ -542,7 +621,7 @@ def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
                                     )
                             else:
                                 res_progress, _, last_perform, _ = progress_eval(
-                                    cfg, model, last_perform, epoch, logger
+                                    cfg, whole_model(), last_perform, epoch, logger
                                 )
                                 cur_guidance_id, cur_guidance = choose_guidance_by_progress(
                                     res_progress, list_guidance, cfg.explore, explore_rng
@@ -603,12 +682,12 @@ def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
                         model_path = step_path
                 if hit_budget:
                     logger.info(f"max_steps={cfg.max_steps} reached at epoch {epoch} step {i}; exiting")
-                    wait_for_saves()
+                    _saves_committed()
                     return model_path
 
                 if cfg.ma_progress and (num_batches - i) % 100 == 0:
                     logger.info(f"Running progress evaluation for moving average with i={i}")
-                    _, _, _, cur_stats = progress_eval(cfg, model, last_perform, epoch, logger)
+                    _, _, _, cur_stats = progress_eval(cfg, whole_model(), last_perform, epoch, logger)
                     for g, value in cur_stats.items():
                         progress_ma.setdefault(g, []).append(value)
 
@@ -632,7 +711,7 @@ def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
 
             if cfg.progress_train:
                 logger.info("Progress evaluation on training data ...")
-                dict_best_guid = progress_eval_train(cfg, model, epoch, logger, progress_ma)
+                dict_best_guid = progress_eval_train(cfg, whole_model(), epoch, logger, progress_ma)
                 dict_best_guid["Epoch"] = epoch
                 if primary:
                     with open(os.path.join(log_dir, f"best_guid{epoch}.pkl"), "wb") as f:
@@ -644,12 +723,13 @@ def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
                     new_pairs = [[p[0], p[1], int(label)] for p, label in zip(loss_pairs, labels)]
                     with open(os.path.join(log_dir, f"group_guid{epoch}.pkl"), "wb") as f:
                         pickle.dump(new_pairs, f)
-                wait_for_saves()
+                _saves_committed()
                 return model_path  # the reference exits here
 
             if cfg.progress_eval:
                 logger.info("Progress evaluation ...")
-                _, str_progress, last_perform, _ = progress_eval(cfg, model, last_perform, epoch, logger, progress_ma)
+                _, str_progress, last_perform, _ = progress_eval(cfg, whole_model(), last_perform, epoch, logger,
+                                                                 progress_ma)
                 str_progress["Epoch"] = epoch
                 if primary:
                     _write_tsv(os.path.join(log_dir, f"progress{epoch}.tsv"), list(str_progress),
@@ -659,7 +739,7 @@ def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
 
             if cfg.eval_datasets:
                 logger.info("Formal evaluation ...")
-                head = build_zeroshot_head(cfg, model)
+                head = build_zeroshot_head(cfg, whole_model())
                 clf = Classifier(model, head, batch_size=cfg.batch_size)
                 evaluate(clf, cfg, epoch_stats, logger)
             else:
@@ -685,5 +765,5 @@ def flyp_train(cfg, logger=None, model=None, print_every: int = 100):
         # raising ones included.
         prof.close()
         sink.close()
-    wait_for_saves()
+    _saves_committed()
     return model_path

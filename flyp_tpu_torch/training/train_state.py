@@ -13,6 +13,16 @@ parameters (and a ModifiedResNet's BatchNorm running statistics, JAX's
 where they lie, with ``torch._foreach_*`` ops on the parameters' device.
 The count and the rate stay on that device too, so a step never waits on the
 host.
+
+On a mesh (``parallel/``) the state says where its tensors rest: ``mesh``,
+and ``layout`` ``{name: (axis, dim)}`` for every parameter that is split
+along ``dim`` over the mesh axis ``axis``.  Under tensor parallelism
+(``parallel/tp.py::shard_train_state``) the model's parameters are this
+rank's shards and the moments follow them.  Under FSDP
+(``parallel/fsdp.py::shard_train_state_fsdp``) ``shards`` holds this rank's
+piece of every parameter, the moments follow the shards, and the model's
+whole parameters exist only between ``materialize`` and ``release``.  The
+step, the count and the scalars replicate.
 """
 
 from __future__ import annotations
@@ -113,10 +123,20 @@ class TrainState:
     step: int
     model: CLIPModel
     opt_state: AdamWState
+    mesh: Optional[object] = None
+    layout: Dict[str, tuple] = dataclasses.field(default_factory=dict)
+    shards: Optional[List[torch.Tensor]] = None  # FSDP: this rank's piece of each parameter
+    full_shapes: Dict[str, tuple] = dataclasses.field(default_factory=dict)  # FSDP: each parameter's shape
+    materialized: bool = True  # FSDP: the model holds the whole parameters
 
     @property
     def params(self) -> List[torch.Tensor]:
         return list(self.model.parameters())
+
+    @property
+    def update_targets(self) -> List[torch.Tensor]:
+        """What the optimizer updates: the FSDP shards, else the parameters."""
+        return self.shards if self.shards is not None else self.params
 
     @property
     def batch_stats(self) -> Optional[Dict[str, torch.Tensor]]:

@@ -1,13 +1,21 @@
 """The FLYP train step: both towers forward, the contrastive loss, backward
 and an AdamW update.
 
-Counterpart of ``flyp_tpu/training/train_step.py`` for one device.  The
-update semantics are the reference's: per-item loss -> mean -> backward ->
+Counterpart of ``flyp_tpu/training/train_step.py``.  The update semantics are the reference's: per-item loss -> mean -> backward ->
 AdamW step -> scheduler step (folded into the schedule).  The step runs the
 model in training mode whatever its mode (the JAX step's ``train=True``;
 every transformer block runs the attention-block training kernels, forward
 B1 and backward B2, on the card) and restores its mode afterwards.  The step launches work and returns: its
 metrics stay on the device until the caller fetches them.
+
+On a mesh (``parallel/mesh.py``) each rank runs its rows of the global
+batch; the contrastive loss gathers the features over the batch axes
+(``ops/losses.py``), each rank backpropagates its share of the global mean,
+and the gradients are summed over the batch axes in a few flat buckets
+(reduce-scattered to the shards under FSDP).  The model axis needs no
+reduction here: the tensor-parallel blocks sum their partial products and
+LayerNorm gradients themselves, so a replicated parameter's gradient is
+whole on every rank, and a sharded one's is its shard's.
 """
 
 from __future__ import annotations
@@ -27,6 +35,23 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([t.float() for t in tensors])))
 
 
+def sharded_global_norm(state: TrainState, grads) -> torch.Tensor:
+    """The global gradient norm of a state on a mesh: a sharded parameter's
+    squares summed over the axis it is split along, every tensor counted
+    once."""
+    from flyp_tpu_torch.parallel.comm import all_reduce_, sum_of_squares
+
+    if not state.layout:
+        return global_norm(grads)
+    names = [name for name, _ in state.model.named_parameters()]
+    device = grads[0].device
+    total = sum_of_squares([g for n, g in zip(names, grads) if n not in state.layout], device)
+    for axis in sorted({a for a, _ in state.layout.values()}):
+        part = sum_of_squares([g for n, g in zip(names, grads) if state.layout.get(n, (None,))[0] == axis], device)
+        total = total + all_reduce_(part, state.mesh.group(axis))
+    return torch.sqrt(total)
+
+
 def frozen_mask(model: CLIPModel, freeze_encoder: bool) -> List[bool]:
     """Per parameter, in ``model.parameters()`` order: True for the image
     tower's when it is frozen."""
@@ -37,13 +62,13 @@ def apply_gradients(state: TrainState, grads, optimizer: AdamW, frozen: Sequence
                     per_item: torch.Tensor, log_grad_norm: bool):
     """The update tail of the direct and the chunked step: the AdamW update
     (frozen parameters keep their values), the step count and the metrics."""
-    lr = optimizer.update(state.params, grads, state.opt_state, frozen=frozen)
+    lr = optimizer.update(state.update_targets, grads, state.opt_state, frozen=frozen)
     state.step += 1
     metrics: Dict[str, torch.Tensor] = {
         "loss": loss.detach(), "per_item_loss": per_item.detach(), "learning_rate": lr,
     }
     if log_grad_norm:
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = sharded_global_norm(state, grads)
     return state, metrics
 
 
@@ -57,6 +82,7 @@ def make_train_step(
     log_grad_norm: bool = False,
     freeze_encoder: bool = False,
     grad_cache_chunks: int = 1,
+    mesh=None,
 ) -> Callable:
     """Build ``step_fn(state, images, tokens[, ground_labels]) -> (state,
     metrics)``.
@@ -77,9 +103,21 @@ def make_train_step(
     supervised loss variants (:func:`clip_loss`).  ``grad_cache_chunks >
     1`` builds the chunked step of ``training/grad_cache.py``: the same
     objective through that many microbatches.
+
+    ``mesh``: the step of one rank of a multi-rank mesh (module docstring);
+    ``images`` and ``tokens`` are then this rank's rows of the global batch
+    (``parallel/mesh.py::shard_batch``), ``loss`` is the global batch's and
+    ``per_item_loss`` this rank's rows' (the supervised variants: the
+    global scalar).  The state must have been placed on the same mesh (TP,
+    FSDP or replicated).  The chunked step on a mesh and a ModifiedResNet
+    whose batch is split (its BatchNorm would see a shard's statistics, not
+    the global batch's) are ROADMAP A9b and raise.
     """
     if grad_cache_chunks < 1:
         raise ValueError(f"grad_cache_chunks must be >= 1, got {grad_cache_chunks}")
+    multi = mesh is not None and mesh.size > 1
+    if multi and grad_cache_chunks > 1:
+        raise NotImplementedError("the chunked (GradCache) step on a mesh of several ranks is ROADMAP.md, item A9b")
     if grad_cache_chunks > 1:
         from flyp_tpu_torch.training.grad_cache import make_chunked_train_step
 
@@ -87,23 +125,56 @@ def make_train_step(
             model, optimizer, chunks=grad_cache_chunks, ignore=ignore, google_sup_loss=google_sup_loss,
             use_ground_labels=use_ground_labels, log_grad_norm=log_grad_norm, freeze_encoder=freeze_encoder,
         )
+    from flyp_tpu_torch.parallel import comm, fsdp
+    from flyp_tpu_torch.parallel.mesh import REPLICA_AXIS, batch_axes
+
+    group = replica = None
+    n_batch = 1
+    if multi:
+        n_batch, group = mesh.axis_size(batch_axes(mesh)), mesh.group(batch_axes(mesh))
+        replica = mesh.group(REPLICA_AXIS) if REPLICA_AXIS in mesh.axis_names else None
+        if n_batch > 1 and not model.config.vision.is_vit:
+            raise NotImplementedError(
+                "a ModifiedResNet image tower with the batch split over ranks is ROADMAP.md, item A9b: its "
+                "BatchNorm would normalise by a shard's statistics where the JAX package's sees the global batch")
     frozen = frozen_mask(model, freeze_encoder)
 
     def step_fn(state: TrainState, images: torch.Tensor, tokens: torch.Tensor, ground_labels=None):
         if state.model is not model:
             raise ValueError("the state holds another model than the one this step was built for")
+        if multi and state.mesh is not mesh:
+            raise ValueError("the state was placed on another mesh than the one this step was built for")
+        is_fsdp = state.shards is not None
+        if is_fsdp:
+            fsdp.materialize(state)
         params = state.params
         with pinned_mode(model, train=True):  # the JAX step's train=True, whatever the model's mode
             img_f, txt_f, scale = model(images, tokens)
             per_item = clip_loss(
                 img_f, txt_f, scale, ground_labels if use_ground_labels else None,
-                ignore=ignore, google_sup_loss=google_sup_loss,
+                ignore=ignore, google_sup_loss=google_sup_loss, group=group, local_loss=multi,
             )
-            loss = per_item.mean()
+            if per_item.dim() == 0:
+                # A supervised scalar, the same on every rank: each backpropagates 1/n of it.
+                objective, loss = per_item / n_batch, per_item
+            elif not multi:
+                objective = loss = per_item.mean()
+            else:
+                # This rank's rows' share of the global mean.
+                b_global = per_item.shape[0] * n_batch
+                objective = per_item.sum() / b_global
+                loss = comm.all_reduce_(per_item.detach().sum(), group) / b_global
             trained = [p for p, f in zip(params, frozen) if not f]
-            it = iter(torch.autograd.grad(loss, trained))
+            it = iter(torch.autograd.grad(objective, trained))
         grads = [torch.zeros_like(p) if f else next(it) for p, f in zip(params, frozen)]
-        return apply_gradients(state, grads, optimizer, frozen, loss=loss, per_item=per_item,
-                               log_grad_norm=log_grad_norm)
+        if is_fsdp:
+            grads = fsdp.reduce_scatter_grads(state, grads, replica_group=replica)
+        elif multi:
+            grads = comm.all_reduce_flat(grads, group)
+        out = apply_gradients(state, grads, optimizer, frozen, loss=loss, per_item=per_item,
+                              log_grad_norm=log_grad_norm)
+        if is_fsdp:
+            fsdp.release(state)
+        return out
 
     return step_fn

@@ -23,6 +23,14 @@ place.  ``async_save=True`` stages a host copy of every tensor (a copy even on
 the CPU, where the next step updates the parameters and moments in place)
 and commits on a background thread; the next save, every restore and
 :func:`wait_for_saves` wait for that commit first.
+
+On a mesh (``parallel/``) a save is collective: every rank calls
+:func:`save_checkpoint`, the tensor-parallel and FSDP shards are gathered
+to their full shapes (the counterpart of the JAX trainer's
+``_global_host_state``), and rank 0 alone writes, so a checkpoint's files
+are those of a single-process run.  A restore reads the full tensors on
+every rank and cuts them to the running layout (``TrainState.layout``), so
+the same layout resumes bit for bit.
 """
 
 from __future__ import annotations
@@ -195,6 +203,53 @@ def load_tensors(path: str, name: str = PARAMS_FILE, mmap: bool = False) -> Dict
     return torch.load(os.path.join(path, name), map_location="cpu", weights_only=True, mmap=mmap)
 
 
+def _layout(state) -> dict:
+    """``state.layout``; a state without one (a single process) holds whole
+    tensors."""
+    return getattr(state, "layout", None) or {}
+
+
+def _shards(state):
+    return getattr(state, "shards", None)
+
+
+def _full_shape(state, name: str, local_shape) -> tuple:
+    """The whole shape of parameter ``name`` whose piece on this rank has
+    ``local_shape``."""
+    if name not in _layout(state):
+        return tuple(local_shape)
+    if _shards(state) is not None:
+        return tuple(state.full_shapes[name])
+    axis, dim = state.layout[name]
+    shape = list(local_shape)
+    shape[dim] *= state.mesh.shape[axis]
+    return tuple(shape)
+
+
+def _local_sources(state):
+    """(name, parameter piece, mu, nu) on this rank, in parameter order."""
+    named = list(state.model.named_parameters())
+    opt = state.opt_state
+    pieces = _shards(state) if _shards(state) is not None else [p for _, p in named]
+    return [(name, piece, m, v) for (name, _), piece, m, v in zip(named, pieces, opt.mu, opt.nu)]
+
+
+def gather_state(state) -> tuple:
+    """``(params, mu, nu)``: name -> the whole tensor on this rank's device,
+    the shards of a mesh layout gathered over their axes.  Collective on a
+    mesh: every rank calls it."""
+    from flyp_tpu_torch.parallel.comm import all_gather
+
+    params, mu, nu = {}, {}, {}
+    for name, piece, m, v in _local_sources(state):
+        if name in _layout(state):
+            axis, dim = state.layout[name]
+            group = state.mesh.group(axis)
+            piece, m, v = (all_gather(t.detach(), group, dim=dim) for t in (piece, m, v))
+        params[name], mu[name], nu[name] = piece.detach(), m, v
+    return params, mu, nu
+
+
 def save_checkpoint(
     path: str,
     state,
@@ -209,17 +264,22 @@ def save_checkpoint(
     ``mid`` marks a mid-epoch (step) checkpoint, restored with
     ``restore_checkpoint(..., mid=True)``; ``host`` adds the trainer's host
     state.  ``async_save=True`` returns once every tensor is copied to the
-    host, and commits on a background thread."""
+    host, and commits on a background thread.  On a mesh every rank calls
+    it (the shards are gathered) and rank 0 alone writes."""
+    from flyp_tpu_torch.parallel.multihost import is_primary
+
     path = os.path.abspath(path)
     wait_for_saves()  # commits land in order; the previous one is on disk first
-    named = dict(state.model.named_parameters())
+    params, mu, nu = gather_state(state)
+    if not is_primary():
+        return path
     opt = state.opt_state
     opt_tensors = {"count": _host_copy(opt.count)}
-    for (name, _), m, v in zip(named.items(), opt.mu, opt.nu):
-        opt_tensors[f"mu/{name}"] = _host_copy(m)
-        opt_tensors[f"nu/{name}"] = _host_copy(v)
+    for name in params:
+        opt_tensors[f"mu/{name}"] = _host_copy(mu[name])
+        opt_tensors[f"nu/{name}"] = _host_copy(nu[name])
     files = {
-        PARAMS_FILE: {k: _host_copy(t) for k, t in named.items()},
+        PARAMS_FILE: {k: _host_copy(t) for k, t in params.items()},
         OPT_FILE: opt_tensors,
         STATS_FILE: {k: _host_copy(t) for k, t in state.model.named_buffers()},
     }
@@ -252,7 +312,8 @@ def _check_names(path: str, what: str, saved: Mapping[str, torch.Tensor], want: 
 def restore_checkpoint(path: str, state, mid: bool = False, host: bool = False):
     """Restore the checkpoint at ``path`` into ``state`` in place (the
     parameters and running statistics into its model, the moments and count
-    into its AdamW state, each keeping its device and dtype).
+    into its AdamW state, each keeping its device and dtype).  On a mesh
+    each rank takes its pieces of the whole tensors (``state.layout``).
 
     Returns ``(state, cursor)``, or ``(state, cursor, step_cursor)`` with
     ``mid=True``; ``host=True`` appends the decoded host state, or None when
@@ -266,23 +327,36 @@ def restore_checkpoint(path: str, state, mid: bool = False, host: bool = False):
         raise ValueError(f"{path!r} is an epoch checkpoint; it has no mid-epoch cursor")
     model = state.model
     params, stats = load_tensors(path), load_tensors(path, STATS_FILE)
-    named = dict(model.named_parameters())
-    _check_names(path, "parameter", params, named)
+    sources = _local_sources(state)
+    full = {name: torch.empty(_full_shape(state, name, piece.shape), device="meta") for name, piece, _, _ in sources}
+    _check_names(path, "parameter", params, full)
     _check_names(path, "running statistics", stats, dict(model.named_buffers()))
     opt_saved = load_tensors(path, OPT_FILE)
-    opt = state.opt_state
-    for (name, _), m, v in zip(named.items(), opt.mu, opt.nu):
+    for name, _, m, v in sources:
         for kind, dst in (("mu", m), ("nu", v)):
             src = opt_saved.get(f"{kind}/{name}")
-            if src is None or src.shape != dst.shape or src.dtype != dst.dtype:
+            if src is None or tuple(src.shape) != tuple(full[name].shape) or src.dtype != dst.dtype:
                 got = None if src is None else (tuple(src.shape), src.dtype)
                 raise ValueError(f"checkpoint at {path}: moment {kind}/{name} is {got}, the optimizer holds "
-                                 f"{(tuple(dst.shape), dst.dtype)}")
-    model.load_state_dict({**params, **stats}, strict=True)
-    for (name, _), m, v in zip(named.items(), opt.mu, opt.nu):
-        m.copy_(opt_saved[f"mu/{name}"])
-        v.copy_(opt_saved[f"nu/{name}"])
-    opt.count.copy_(opt_saved["count"])
+                                 f"{(tuple(full[name].shape), dst.dtype)}")
+
+    def piece_of(name, t):
+        if name not in _layout(state):
+            return t
+        from flyp_tpu_torch.parallel.tp import take_shard
+
+        axis, dim = state.layout[name]
+        return take_shard(t, dim, state.mesh.shape[axis], state.mesh.coords()[axis])
+
+    for name, piece, m, v in sources:
+        piece.data.copy_(piece_of(name, params[name]))
+        m.copy_(piece_of(name, opt_saved[f"mu/{name}"]))
+        v.copy_(piece_of(name, opt_saved[f"nu/{name}"]))
+    for name, buf in model.named_buffers():
+        buf.copy_(stats[name])
+    if _shards(state) is not None:
+        state.materialized = False  # the model's whole parameters are stale
+    state.opt_state.count.copy_(opt_saved["count"])
     state.step = int(meta["step"])
     out = [state, CurriculumCursor.from_dict(meta["cursor"])]
     if mid:

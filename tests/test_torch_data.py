@@ -449,11 +449,28 @@ def test_prefetch_on_cpu_matches_jax(corpus):
 
 
 def test_prefetch_refuses_several_processes(monkeypatch):
+    """With several processes the token width is synchronised: each rank's
+    shrink_context bucket goes through an all-reduce MAX (here a simulated
+    second rank whose bucket is 48 wide) and narrower tokens are padded with
+    zeros; the values before the pad are the rank's own, and a rank whose
+    bucket is the widest keeps its width."""
     from flyp_tpu_torch.data import loader as mod
 
+    tokens = np.zeros((2, 77), np.int32)
+    tokens[:, 0] = 49406
+    tokens[0, 1:5] = [10, 11, 12, 49407]
+    tokens[1, 1:3] = [13, 49407]
+    widths = []
     monkeypatch.setattr(mod, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A9"):
-        next(mod.prefetch_to_device(iter([{"x": np.zeros(2)}]), "cpu"))
+    monkeypatch.setattr(mod, "max_int", lambda w: widths.append(w) or max(w, 48))
+    (out,) = list(mod.prefetch_to_device(iter([{"tokens": tokens, "x": np.zeros(2)}]), "cpu"))
+    own = widths[0]
+    assert own < 48 and out["tokens"].shape == (2, 48)
+    np.testing.assert_array_equal(out["tokens"][:, :own].numpy(), tokens[:, :own])
+    assert not out["tokens"][:, own:].any()
+    monkeypatch.setattr(mod, "max_int", lambda w: w)
+    (out,) = list(mod.prefetch_to_device(iter([{"tokens": tokens}]), "cpu"))
+    assert out["tokens"].shape == (2, own)
 
 
 # ------------------------------------------------------- native library ----
