@@ -147,10 +147,15 @@ Phases, each of which raises on failure:
    on head shards (``partial`` / ``add_g=False``; Dv = D / n at n = 2 and
    4 for ViT-B/16 and ViT-L/14, fp32 and bf16) against their plain
    versions, and the sum over the n shard launches (plus ``x + bout``, or
-   ``g``) against the unsharded kernel, timed beside both; the shard widths
-   the kernels cannot tile (Dv = 192) refused by name; that this torch
-   build's gloo takes CUDA tensors for every collective the port calls;
-   then ``cli/main.py`` trained for 4 steps at batch 256 from the seed-0
+   ``g``) against the unsharded kernel, timed beside both (Dv = 192, 3
+   heads, among them: the GEMMs' 64-column tiles); G1-G5 at Dv = 192 and
+   320 against their plain versions, the exact product and (G3)
+   ``torch.mm``; that this torch build's gloo takes CUDA tensors for every
+   collective the port calls; a full-width ViT-B/16 vision block (B = 256,
+   bf16) tensor-parallel over 2 gloo ranks of the card on ``pallas_qkv``,
+   ``pallas`` and ``pallas_block_mlp`` and over 4 on ``pallas_block`` (Dv =
+   192), its output and every gradient against the same block whole, each
+   rank's launches exact; then ``cli/main.py`` trained for 4 steps at batch 256 from the seed-0
    weights at a learning rate of 1e-4 with no warm-up: once as one process
    under torchrun over ``nccl`` (world 1), then across ranks with data
    parallelism, tensor parallelism (``--mesh_model 2``) and FSDP, over
@@ -162,7 +167,13 @@ Phases, each of which raises on failure:
    whole model's shapes, an FSDP run stopped after 2 steps and resumed
    ending bit-equal to the uninterrupted one, and a planted fault (a data-
    parallel run whose gradient sum is skipped) failing each of the three
-   bounds.  Its numbers go to a ``"parallel"`` line.
+   bounds; and RN50 the same way, directly and with ``--grad_cache_chunks
+   2``, in one process and data-parallel, its running statistics bit-equal
+   on every rank and near the one-process run's, with a planted fault
+   (BatchNorm on each rank's own rows) failing a check.  Phases 10 and 11's
+   trainers run at 4 ViT layers a tower and an RN50 of one bottleneck a
+   stage (full width; TRAINER_DEPTH, RN_TRAINER_DEPTH).  Its numbers go to
+   a ``"parallel"`` line.
 
 The products' numbers are a JSON line of their own (``"gemm"``), the input
 pipeline's, the evaluation's, the trainer's and phase 11's too (``"input"``,
@@ -174,6 +185,8 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -201,7 +214,7 @@ from flyp_tpu_torch.ops import mlp_block as mb  # noqa: E402
 from flyp_tpu_torch.ops.losses import clip_loss  # noqa: E402
 from flyp_tpu_torch.serving import ClipServer  # noqa: E402
 from flyp_tpu_torch.templates import simple_template  # noqa: E402
-from flyp_tpu_torch.testing import check_gemm, check_gemm_product  # noqa: E402
+from flyp_tpu_torch.testing import check_gemm, check_gemm_product, check_rounded_product  # noqa: E402
 from flyp_tpu_torch.tokenizer import shrink_context  # noqa: E402
 from flyp_tpu_torch.tools import int8_matmul_probe as tip  # noqa: E402
 from flyp_tpu_torch.tools import mfu_levers as tml  # noqa: E402
@@ -487,11 +500,11 @@ GEMM_SHAPES = [("vision", 256 * 197, 768), ("text", 256 * 32, 512), ("text L=77"
 GEMM_REFUSED = [(512, 200, "D=200"), (512, 64, "D=64")]
 
 
-def gemm_bound_ms(name, M, D, peaks):
+def gemm_bound_ms(name, M, D, peaks, Dv=None):
     """(ms, "operations" | "bytes"): max(2MNK / bf16 peak, bytes / bandwidth),
     each input read once and each output written once."""
-    t_ops = gs.product_flops(name, M, D) / peaks[torch.bfloat16]
-    t_bytes = gs.product_bytes(name, M, D) / peaks["bytes"]
+    t_ops = gs.product_flops(name, M, D, Dv) / peaks[torch.bfloat16]
+    t_bytes = gs.product_bytes(name, M, D, Dv) / peaks["bytes"]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -521,32 +534,43 @@ def gemm_library_call(name, ops):
     return lambda: torch.mm(dc, wc, **f32)
 
 
+def gemm_case(name, label, M, D, peaks, Dv=None) -> dict:
+    """Product ``name`` at ``M`` rows, width ``D`` and shard width ``Dv``:
+    its output poisoned with NaN before the launch and checked (testing.py's
+    check_gemm_product), a second launch bit-equal to the first, timed
+    beside the plain version, torch.mm and the card's bound.  G3, which has
+    no epilogue, is also held to torch.mm's bf16 product by the same
+    rounding rule."""
+    op, plain, _ = gs.PRODUCTS[name]
+    where = (name, label, M, D, Dv)
+    ops = gs.product_operands(name, M, D, "cuda", seed=M + D, Dv=Dv)
+    shape, dtype = gs.product_output(name, M, D, Dv)
+    got = op(*ops, out=torch.full(shape, float("nan"), dtype=dtype, device="cuda"))
+    torch.cuda.synchronize()
+    errs = check_gemm_product(name, got, ops, where)
+    if not torch.equal(got, op(*ops)):
+        raise AssertionError(f"{name} differs between two launches at {where}")
+    library = gemm_library_call(name, ops)
+    if name == "G3":
+        errs["vs_torch_mm"] = check_rounded_product(name, got, library(), [(ops[0], ops[1].t())], where)["max_abs"]
+    ms = cuda_ms(lambda: op(*ops))
+    plain_ms = cuda_ms(lambda: plain(*ops))
+    library_ms = cuda_ms(library)
+    bound, by = gemm_bound_ms(name, M, D, peaks, Dv)
+    case = dict(product=name, shape=label, M=M, D=D, Dv=D if Dv is None else Dv,
+                max_abs_err=errs["max_abs_vs_plain"], errs=errs, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound, bound_by=by, tflops=gs.product_flops(name, M, D, Dv) / ms / 1e9)
+    log("gemm", json.dumps(case))
+    return case
+
+
 def phase_gemm(peaks) -> list:
     """G1-G5 alone at GEMM_SHAPES: each output poisoned with NaN before the
     launch and checked (testing.py's check_gemm_product), a second launch
     bit-equal to the first, timed beside the plain version, torch.mm and
     the card's bound; then shapes the kernel cannot tile must raise
     ValueError naming D."""
-    cases = []
-    for label, M, D in GEMM_SHAPES:
-        for name, (op, plain, _) in gs.PRODUCTS.items():
-            where = (name, label, M, D)
-            ops = gs.product_operands(name, M, D, "cuda", seed=M + D)
-            shape, dtype = gs.product_output(name, M, D)
-            got = op(*ops, out=torch.full(shape, float("nan"), dtype=dtype, device="cuda"))
-            torch.cuda.synchronize()
-            errs = check_gemm_product(name, got, ops, where)
-            if not torch.equal(got, op(*ops)):
-                raise AssertionError(f"{name} differs between two launches at {where}")
-            ms = cuda_ms(lambda: op(*ops))
-            plain_ms = cuda_ms(lambda: plain(*ops))
-            library_ms = cuda_ms(gemm_library_call(name, ops))
-            bound, by = gemm_bound_ms(name, M, D, peaks)
-            cases.append(dict(product=name, shape=label, M=M, D=D, max_abs_err=errs["max_abs_vs_plain"], errs=errs,
-                              ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound, bound_by=by,
-                              tflops=gs.product_flops(name, M, D) / ms / 1e9))
-            log("gemm", json.dumps(cases[-1]))
-            del ops, got
+    cases = [gemm_case(name, label, M, D, peaks) for label, M, D in GEMM_SHAPES for name in gs.PRODUCTS]
     for M, D, dim in GEMM_REFUSED:
         y = torch.zeros(M, D, dtype=torch.bfloat16, device="cuda")
         w = torch.zeros(3, D, D, dtype=torch.bfloat16, device="cuda")
@@ -789,6 +813,32 @@ def model_shape():
     return c.vision.image_size, c.vision.layers, c.text.layers
 
 
+# The depth of the trainer paths (phase 10's ViT-B/16, phase 11's RN50
+# trainer), cut to keep the script within its time limit: full width, every
+# resume, bit-equality and launch check kept.
+TRAINER_DEPTH = {MODEL: dict(vision_layers=4, text_layers=4)}
+RN_TRAINER_DEPTH = dict(resnet_layers=(1, 1, 1, 1), text_layers=4)
+
+
+@contextlib.contextmanager
+def cut_depth(name: str, vision_layers=None, text_layers=None, resnet_layers=None):
+    """``MODEL_CONFIGS[name]`` with fewer layers for the body (the factory
+    and ``model_shape`` read it there); the widths stay."""
+    real = MODEL_CONFIGS[name]
+    vision, text = real.vision, real.text
+    if vision_layers is not None:
+        vision = dataclasses.replace(vision, layers=vision_layers)
+    if resnet_layers is not None:
+        vision = dataclasses.replace(vision, resnet_layers=tuple(resnet_layers))
+    if text_layers is not None:
+        text = dataclasses.replace(text, layers=text_layers)
+    MODEL_CONFIGS[name] = dataclasses.replace(real, vision=vision, text=text)
+    try:
+        yield MODEL_CONFIGS[name]
+    finally:
+        MODEL_CONFIGS[name] = real
+
+
 def step_check(cfg: dict, images, tokens, where: str) -> dict:
     """One step's loss and gradients at B=4, full width: the card (kernels)
     against the CPU (plain versions), fp32; bf16 on the card against the
@@ -1014,7 +1064,6 @@ def host_digests(batch: dict) -> dict:
 def loader_rate(cfg, px: int, workers: int, batches: int = 6) -> dict:
     """The loader alone at ``workers`` threads: one batch to fill the
     window, then ``batches`` timed."""
-    import dataclasses
 
     from flyp_tpu_torch.training.data import train_loader
 
@@ -1390,7 +1439,6 @@ def phase_evaluation(card: str, seed: int = 0) -> dict:
     ``cli/zeroshot_eval.main`` three times over the seeded corpus, B3's
     launches exact, every metric recomputed, the features and the head
     against the CPU, and the feature cache."""
-    import contextlib
     import io
 
     from flyp_tpu_torch.cli import zeroshot_eval
@@ -1767,7 +1815,6 @@ def phase_trainer(card: str, seed: int = 0) -> dict:
                 "--data-location", root, "--batch-size", str(INPUT_BATCH), "--workers", str(INPUT_WORKERS),
                 "--save", os.path.join(root, "head")])
             cfg.log_dir = os.path.join(root, "logs", "zeroshot")
-            import contextlib
             import io
 
             with contextlib.redirect_stdout(io.StringIO()):
@@ -2050,7 +2097,6 @@ def rn_trainer(card: str, layers_t: int, seed: int = 0) -> dict:
     --save_every_n_steps 3`` and resumed to the end; the checkpoints
     bit-equal (params, moments, running statistics, meta); the checkpoint
     reloaded through ``cli/zeroshot_eval``."""
-    import contextlib
     import io
 
     from flyp_tpu_torch.cli import main as cli_main
@@ -2204,7 +2250,8 @@ def phase_resnet(card: str) -> dict:
 
     out["chunked_rn"] = rn_chunked_check(images, tokens, layers_t)
     out["chunked_vit"] = vit_chunked(card)
-    out["trainer"] = rn_trainer(card, layers_t)
+    with cut_depth(RN_MODEL, **RN_TRAINER_DEPTH) as cut:
+        out["trainer"] = rn_trainer(card, cut.text.layers)
     with tempfile.TemporaryDirectory() as tmp:
         out["serving"] = rn_serving(tmp, card, layers_t)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -2784,7 +2831,6 @@ def adamw_cases(peaks) -> list:
 def run_tool(where: str, fn, **expected) -> dict:
     """Run a ported tool's path with every count at 0 just before it; its
     printed lines and every kernel's launches, exactly ``expected``."""
-    import contextlib
     import io
 
     buf = io.StringIO()
@@ -2948,9 +2994,13 @@ def attention_times() -> dict:
 # (label, B, L, D, H, causal, shards n, dtypes): the shard widths Dv = D / n
 # that ViT-B/16 and ViT-L/14 give at --mesh_model 2 and 4, at the training
 # main path's batch for ViT-B/16 (256; L = 197 vision, 32 text) and a
-# smaller one for ViT-L/14 (vision L = 257).  Dv = 192 is refused (it is
-# not a multiple of the GEMMs' 128-column tile).
+# smaller one for ViT-L/14 (vision L = 257).  Dv = 192 (3 heads: ViT-B/16's
+# vision tower and ViT-L/14's text tower at 4 shards) runs the GEMMs'
+# 64-column tiles.
 SHARD_CASES = [
+    ("ViT-B/16 vision", 256, 197, 768, 12, False, 4, (torch.bfloat16,)),
+    ("ViT-B/16 vision", 16, 197, 768, 12, False, 4, (torch.float32,)),
+    ("ViT-L/14 text", 256, 32, 768, 12, True, 4, (torch.bfloat16,)),
     ("ViT-B/16 vision", 256, 197, 768, 12, False, 2, (torch.bfloat16,)),
     ("ViT-B/16 vision", 16, 197, 768, 12, False, 2, (torch.float32,)),
     ("ViT-B/16 text", 256, 32, 512, 8, True, 2, (torch.bfloat16,)),
@@ -2960,7 +3010,10 @@ SHARD_CASES = [
     ("ViT-L/14 vision", 32, 257, 1024, 16, False, 4, (torch.bfloat16,)),
     ("ViT-L/14 text", 256, 32, 768, 12, True, 2, (torch.bfloat16,)),
 ]
-SHARD_REFUSED = [("ViT-B/16 vision", 8, 197, 768, 12, False, 4), ("ViT-L/14 text", 8, 32, 768, 12, True, 4)]
+# (label, M, D, Dv): the products whose columns a head shard of 3 or 5 heads
+# makes an odd multiple of 64 (G1, G3, G4; G2 and G5 contract over Dv).
+GEMM_SHARD_SHAPES = [("ViT-B/16 vision Dv 192", 256 * 197, 768, 192), ("ViT-L/14 text Dv 192", 256 * 32, 768, 192),
+                     ("ViT-L/14 vision Dv 320", 32 * 257, 1024, 320)]
 
 
 def shard_bound_ms(B, L, D, Dv, causal, dtype, peaks, kind):
@@ -3081,28 +3134,149 @@ def phase_parallel_kernels(peaks) -> dict:
                 out[kernel].append(case)
                 log(f"{kernel} shard", json.dumps(case))
             del full1, full2, full3, p1, p2, p3
-    refused = []
-    for label, B, L, D, H, causal, n in SHARD_REFUSED:
-        args = shard_weights(block_inputs(B, L, D, torch.bfloat16, seed=3), n, 0)
-        for kernel, call in (("B3/B1", lambda: ab._fwd_kernel_call(*args, H // n, causal, train=True, partial=True)),
-                             ("B2", lambda: ab._bwd_kernel_call(args[0], *args[:3], args[3], args[5], args[0][..., :D // n],
-                                                                args[0][..., :D // n], args[0][..., :D // n],
-                                                                torch.zeros(B, L, H // n, device="cuda"), H // n,
-                                                                causal, add_g=False))):
-            before = counts()
-            try:
-                call()
-            except ValueError as e:
-                if f"Dv={D // n}" not in str(e):
-                    raise AssertionError(f"{kernel} refused Dv={D // n} without naming it: {e}") from e
-                if counts() != before:
-                    raise AssertionError(f"{kernel} launched on a refused shape")
-                refused.append(f"{label} Dv={D // n} {kernel}")
-                continue
-            raise AssertionError(f"{kernel} took Dv={D // n}, which it cannot tile")
-    log(f"shard kernels: refused {refused}")
-    out["refused"] = refused
+    out["gemm"] = [gemm_case(name, label, M, D, peaks, Dv) for label, M, D, Dv in GEMM_SHARD_SHAPES
+                   for name in gs.PRODUCTS]
+    torch.cuda.empty_cache()
     return out
+
+
+# The TP blocks of phase 12: a full-width ViT-B/16 vision block in bf16,
+# tensor-parallel on each opt-in route over 2 ranks, and on the default
+# fused route over 4 (Dv = 192), held to the same block whole on one rank.
+# Each rank launches per block forward and backward exactly what the whole
+# block launches: B5 or B6 on its local heads, B1/B2 on its head shard, and
+# B4 whole on the gathered MLP weights.
+TP_BLOCK = (256, 197, 768, 12)  # B, L, D, heads
+TP_BLOCK_ROUTES = (("pallas_qkv", 2), ("pallas", 2), ("pallas_block_mlp", 2), ("pallas_block", 4))
+TP_BLOCK_LAUNCHES = {"pallas_qkv": {"B5_fwd": 1, "B5_bwd": 1}, "pallas": {"B6_fwd": 1, "B6_bwd": 1},
+                     "pallas_block_mlp": {"B1": 1, "B2": 1, "B4": 1}, "pallas_block": {"B1": 1, "B2": 1}}
+TP_BLOCK_WORLD = 4
+
+
+def tp_block_case(seed: int = 0):
+    """The seeded block (its own initialisers, biases and LN parameters
+    then moved off their constants so every gradient is exercised) in
+    training mode on the card, and its bf16 input and cotangent."""
+    from flyp_tpu_torch.models.layers import ResidualBlock
+
+    B, L, D, H = TP_BLOCK
+    gen = torch.Generator().manual_seed(seed)
+    block = ResidualBlock(D, H)
+    with torch.no_grad():
+        for m in block.modules():
+            if hasattr(m, "reset_parameters") and m is not block:
+                m.reset_parameters(gen)
+        for name, p in block.named_parameters():
+            if p.dim() == 1:
+                p.add_(0.1 * torch.randn(p.shape, generator=gen))
+    block = block.cuda().train()
+    x = torch.randn(B, L, D, generator=gen).to(torch.bfloat16).cuda()
+    cot = torch.randn(B, L, D, generator=gen).to(torch.bfloat16).cuda()
+    return block, x, cot
+
+
+def tp_block_grads(block, x, cot):
+    """Output and the grads of x and of every parameter, on the host."""
+    x = x.clone().requires_grad_(True)
+    names = [n for n, _ in block.named_parameters()]
+    out = block(x)
+    grads = torch.autograd.grad(out, [x, *block.parameters()], cot)
+    torch.cuda.synchronize()
+    return out.detach().cpu(), {"x": grads[0].cpu(), **{n: g.cpu() for n, g in zip(names, grads[1:])}}
+
+
+def tp_blocks_rank(rank: int, world: int, port: int, out_dir: str):
+    """One rank of the TP blocks: each route of TP_BLOCK_ROUTES on a
+    (model = n, data = world / n) mesh of one gloo group on card 0 (the
+    data axis repeats the block); the ranks at data 0 write their output,
+    grads, layout and launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from flyp_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from flyp_tpu_torch.parallel.tp import shard_params
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        for impl, n in TP_BLOCK_ROUTES:
+            use_impl(impl)
+            mesh = create_mesh(MeshConfig(model=n, data=world // n))
+            block, x, cot = tp_block_case()
+            layout = shard_params(mesh, block)
+            reset_counts()
+            t0 = time.perf_counter()
+            out, grads = tp_block_grads(block, x, cot)
+            run_s = time.perf_counter() - t0
+            launched = counts()
+            if mesh.coords()["data"] == 0:
+                torch.save({"out": out, "grads": grads, "layout": layout, "counts": launched, "run_s": run_s},
+                           os.path.join(out_dir, f"tp_block_{impl}.rank{mesh.coords()['model']}.pt"))
+            del block, x, cot, out, grads
+            dist.barrier()
+    finally:
+        use_impl("auto")
+        dist.destroy_process_group()
+
+
+def phase_tp_blocks(root: str) -> dict:
+    """The TP blocks (TP_BLOCK_ROUTES) on TP_BLOCK_WORLD gloo ranks of one
+    card, each held to the same block whole in this process on the same
+    route: the output, x's gradient and every parameter's gradient (the
+    shards' joined along their sharded dim) within a relative norm of 1e-2
+    (the phase's bf16 rule for sums: a TP rank rounds its partial products
+    before they are summed, so single elements of the output differ from
+    the whole block's by a few bf16 ulps where the block's products cancel
+    the residual); every rank's launches the whole block's, exactly."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(root, "tp_blocks")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    mp.start_processes(tp_blocks_rank, args=(TP_BLOCK_WORLD, _free_port(), out_dir), nprocs=TP_BLOCK_WORLD,
+                       join=True, start_method="spawn")
+    res = {"ranks_s": time.perf_counter() - t0, "routes": {}}
+    for impl, n in TP_BLOCK_ROUTES:
+        use_impl(impl)
+        block, x, cot = tp_block_case()
+        reset_counts()
+        want_out, want = tp_block_grads(block, x, cot)
+        whole = counts()
+        del block, x, cot
+        expected = {k: 0 for k in whole}
+        expected.update(TP_BLOCK_LAUNCHES[impl])
+        if whole != expected:
+            raise AssertionError(f"TP block {impl}: the whole block launched {whole}, expected {expected}")
+        shards = [torch.load(os.path.join(out_dir, f"tp_block_{impl}.rank{i}.pt")) for i in range(n)]
+        where = ("TP block", impl, n, TP_BLOCK)
+        for i, sh in enumerate(shards):
+            if sh["counts"] != expected:
+                raise AssertionError(f"TP block {impl} rank {i}: launches {sh['counts']}, expected {expected}")
+        layout = shards[0]["layout"]
+        errs = {"out": float((shards[0]["out"].float() - want_out.float()).abs().max()),
+                "x": float((shards[0]["grads"]["x"].float() - want["x"].float()).abs().max())}
+        if not all(bool(torch.isfinite(t).all()) for t in (shards[0]["out"], shards[0]["grads"]["x"])):
+            raise AssertionError(f"TP block {impl}: non-finite output or dx at {where}")
+        rels = {"out": rel_norm(shards[0]["out"], want_out)}
+        for name, ref in want.items():
+            got = (torch.cat([sh["grads"][name] for sh in shards], dim=layout[name][1]) if name in layout
+                   else shards[0]["grads"][name])
+            rels[name] = rel_norm(got, ref)
+        worst = max(rels, key=rels.get)
+        if rels[worst] > BWD_TOL[torch.bfloat16][1]:
+            raise AssertionError(f"TP block {impl}: {worst} at relative norm {rels[worst]} from the whole "
+                                 f"block's (bound {BWD_TOL[torch.bfloat16][1]}): {rels}")
+        res["routes"][impl] = {"shards": n, "launches_per_rank": shards[0]["counts"], "max_abs_err": errs,
+                               "rel_norm": rels, "sharded": sorted(layout),
+                               "rank_fwd_bwd_s": [sh["run_s"] for sh in shards]}
+        log(f"TP block {impl} over {n} ranks: output at {rels['out']:.3g} of the whole block's norm (max abs "
+            f"{errs['out']:.4g}), dx max abs {errs['x']:.4g}, worst {worst} at {rels[worst]:.3g}; launches a rank "
+            f"{ {k: v for k, v in shards[0]['counts'].items() if v} }")
+    use_impl("auto")
+    return res
 
 
 def gloo_cuda_collectives() -> dict:
@@ -3155,18 +3329,60 @@ PARALLEL_GRAD_NORM_TOL = 5e-2  # per-step global gradient norm, relative (TP 8.1
 PARALLEL_PARAM_TOL = 0.3  # |p - p_single| / |p_single - p_init| over every parameter (TP 0.094; fault 1.14)
 
 
-def parallel_argv(tsv: str, root: str, name: str, steps: int, workers: int) -> list:
+# RN50 across ranks: the same command at --model RN50, directly and with
+# --grad_cache_chunks 2, in one process and as data parallelism; the
+# planted fault normalises each rank's rows by their own statistics (the
+# BatchNorm all-reduces skipped).  Against the one-process run of the same
+# command as the ViT runs are, and the running statistics bit-equal on
+# every rank and, as a share of the one-process run's own movement from
+# their initial values, within PARALLEL_RN_STATS_TOL of its.  A random-init
+# RN50 in bf16 amplifies rounding (PERF.md, Findings): the sound runs' later
+# steps and final parameters drift far from the one-process run's (Adam's
+# sign-like first steps flip the near-zero gradients), so the bounds come
+# from the measured spread (PERF.md, Findings: the sound runs' step-0 loss
+# 6.0e-5 and 4.6e-5, every step 2.9e-3, gradient norms 0.18, parameters
+# 0.68, statistics 0.087; the fault's step-0 loss 4.4e-4), and the step-0
+# loss, at equal weights, is the tight one.
+PARALLEL_RN_RUNS = {"rn_dp": ("rn_single", ()), "rn_chunk_dp": ("rn_chunk_single", ("--grad_cache_chunks", "2"))}
+PARALLEL_RN_FAULT = "rn_dp_local_bn"
+PARALLEL_RN_LOSS0_TOL = 2e-4  # the first step's loss, relative
+PARALLEL_RN_LOSS_TOL = 1e-2  # per-step loss, relative
+PARALLEL_RN_GRAD_NORM_TOL = 0.5  # per-step global gradient norm, relative
+PARALLEL_RN_PARAM_TOL = 1.5  # as PARALLEL_PARAM_TOL
+PARALLEL_RN_STATS_TOL = 0.3  # |s - s_single| / |s_single - s_init| over every running statistic
+
+
+def parallel_argv(tsv: str, root: str, name: str, steps: int, workers: int, model: str = MODEL) -> list:
     return ["--ft_data", tsv, "--batch-size", str(INPUT_BATCH), "--data_backend", "native", "--workers",
-            str(workers), "--model", MODEL, "--seed", "0", "--epochs", "1", "--lr", PARALLEL_LR,
+            str(workers), "--model", model, "--seed", "0", "--epochs", "1", "--lr", PARALLEL_LR,
             "--warmup_length", "0", "--log_grad_norm", "--adam_moment_dtype", "bfloat16", "--max_steps",
             str(steps), "--save", os.path.join(root, name), "--exp_name", name]
 
 
+class _LocalBatchNorm:
+    """A planted fault: BatchNorm ignores the group the step gives it, so
+    each rank normalises by its own rows' statistics."""
+
+    def __get__(self, obj, owner=None):
+        return None
+
+    def __set__(self, obj, value):
+        pass
+
+
 def _planted(name: str, fn):
     """``fn()``, with the gradient sum over ranks skipped if ``name`` is
-    the planted fault's run."""
+    the planted fault's run, or BatchNorm's all-reduces if it is the RN
+    fault's."""
+    from flyp_tpu_torch.models import resnet
     from flyp_tpu_torch.parallel import comm
 
+    if name == PARALLEL_RN_FAULT:
+        resnet.TorchBatchNorm.group = _LocalBatchNorm()
+        try:
+            return fn()
+        finally:
+            resnet.TorchBatchNorm.group = None
     if name != PARALLEL_FAULT:
         return fn()
     real = comm.all_reduce_flat
@@ -3180,14 +3396,20 @@ def _planted(name: str, fn):
 def _rank_counts(out_dir: str, rank: int, name: str, fn):
     """Run ``fn`` (a trainer run) with every count at 0 and each step's
     start stamped (after a synchronise); write this rank's launches, the
-    run's return value and its step intervals."""
-    from flyp_tpu_torch.training import flyp
+    run's return value and its step intervals.  For a ModifiedResNet, also
+    this rank's running statistics after the run and the BatchNorm
+    all-reduces it called; for a chunked run, the host seconds of its
+    chunk re-layout (synchronised before and after)."""
+    from flyp_tpu_torch.models import resnet
+    from flyp_tpu_torch.training import flyp, grad_cache
 
-    stamps = []
-    real = flyp.make_train_step
+    stamps, models = [], []
+    bn_calls, relayout_s = [0], [0.0]
+    real = flyp.make_train_step, resnet.all_reduce_, grad_cache.chunk_rows
 
     def make_step(*args, **kwargs):
-        step = real(*args, **kwargs)
+        models.append(args[0])
+        step = real[0](*args, **kwargs)
 
         def stamped(*a, **k):
             torch.cuda.synchronize()
@@ -3195,17 +3417,34 @@ def _rank_counts(out_dir: str, rank: int, name: str, fn):
             return step(*a, **k)
         return stamped
 
-    flyp.make_train_step = make_step
+    def bn_all_reduce(*a, **k):
+        bn_calls[0] += 1
+        return real[1](*a, **k)
+
+    def timed_relayout(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real[2](*a, **k)
+        torch.cuda.synchronize()
+        relayout_s[0] += time.perf_counter() - t0
+        return res
+
+    flyp.make_train_step, resnet.all_reduce_, grad_cache.chunk_rows = make_step, bn_all_reduce, timed_relayout
     reset_counts()
     t0 = time.perf_counter()
     try:
         res = fn()
         torch.cuda.synchronize()
     finally:
-        flyp.make_train_step = real
+        flyp.make_train_step, resnet.all_reduce_, grad_cache.chunk_rows = real
+    record = {"counts": counts(), "ret": res, "run_s": time.perf_counter() - t0,
+              "step_intervals_ms": [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])],
+              "steps": len(stamps), "bn_all_reduces": bn_calls[0], "relayout_s": relayout_s[0]}
+    if models and not models[0].config.vision.is_vit:
+        torch.save({k: v.detach().cpu() for k, v in models[0].named_buffers()},
+                   os.path.join(out_dir, f"{name}.rank{rank}.stats.pt"))
     with open(os.path.join(out_dir, f"{name}.rank{rank}.json"), "w") as f:
-        json.dump({"counts": counts(), "ret": res, "run_s": time.perf_counter() - t0,
-                   "step_intervals_ms": [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]}, f)
+        json.dump(record, f)
     return res
 
 
@@ -3286,11 +3525,12 @@ def _rel(got: list, want: list) -> list:
 def phase_parallel(card: str, peaks, kernels: bool = True) -> dict:
     """Phase 12: the shard kernels (unless ``kernels`` is False), then the
     trainer across ranks."""
+    import gc
+
     import torch.multiprocessing as mp
 
+    from flyp_tpu_torch.cli import main as cli_main
     from flyp_tpu_torch.utils import checkpoint
-
-    import gc
 
     t_phase = time.perf_counter()
     out = {"card": card, "kernels": phase_parallel_kernels(peaks) if kernels else None}
@@ -3298,6 +3538,11 @@ def phase_parallel(card: str, peaks, kernels: bool = True) -> dict:
     torch.cuda.empty_cache()
     out["gloo_cuda_collectives"] = gloo_cuda_collectives()
     log(f"parallel: gloo takes CUDA tensors for {out['gloo_cuda_collectives']}")
+    if kernels:
+        with tempfile.TemporaryDirectory() as root:
+            out["tp_blocks"] = phase_tp_blocks(root)
+        gc.collect()
+        torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     world = min(cards, 4) if cards >= 2 else 2
     backend = "nccl" if cards >= 2 else "gloo"
@@ -3337,6 +3582,22 @@ def phase_parallel(card: str, peaks, kernels: bool = True) -> dict:
         runs.append(("fsdp_resume", [*parallel_argv(tsv, root, "fsdp_resume", PARALLEL_STEPS - PARALLEL_STOP,
                                                      workers), "--fsdp"]))
         runs.append((PARALLEL_FAULT, parallel_argv(tsv, root, PARALLEL_FAULT, PARALLEL_STEPS, workers)))
+        for name, (_, flags) in PARALLEL_RN_RUNS.items():
+            runs.append((name, [*parallel_argv(tsv, root, name, PARALLEL_STEPS, workers, RN_MODEL), *flags]))
+        runs.append((PARALLEL_RN_FAULT, parallel_argv(tsv, root, PARALLEL_RN_FAULT, PARALLEL_STEPS, workers,
+                                                      RN_MODEL)))
+        # The RN references: one process, in this one (no process group).
+        t0 = time.perf_counter()
+        os.chdir(runs_dir)  # cli/main.py writes expt_logs/ under the working directory
+        try:
+            for ref_name, flags in PARALLEL_RN_RUNS.values():
+                rn_argv = [*parallel_argv(tsv, root, ref_name, PARALLEL_STEPS, INPUT_WORKERS, RN_MODEL), *flags]
+                _rank_counts(runs_dir, 0, ref_name, lambda: cli_main.main(cli_main.parse_main_arguments(rn_argv)))
+        finally:
+            os.chdir(cwd)
+        out["rn_single_s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         if backend == "nccl":
             for name, argv in runs:
@@ -3355,20 +3616,30 @@ def phase_parallel(card: str, peaks, kernels: bool = True) -> dict:
                 with open(os.path.join(runs_dir, f"{name}.rank{r}.json")) as f:
                     per_rank.append(json.load(f))
             results[name] = per_rank
-        per_step = layers_v + layers_t
+        for ref_name, _ in PARALLEL_RN_RUNS.values():
+            with open(os.path.join(runs_dir, f"{ref_name}.rank0.json")) as f:
+                results[ref_name] = [json.load(f)]
+        rn_layers_t = MODEL_CONFIGS[RN_MODEL].text.layers
         out["step_ms"] = {name: [sorted(r["step_intervals_ms"])[len(r["step_intervals_ms"]) // 2]
-                                 for r in results[name] if r["step_intervals_ms"]] for name, _ in runs}
-        out["run_s"] = {name: [r["run_s"] for r in results[name]] for name, _ in runs}
+                                 for r in res if r["step_intervals_ms"]] for name, res in results.items()}
+        out["run_s"] = {name: [r["run_s"] for r in res] for name, res in results.items()}
         log(f"parallel: median ms between step starts {out['step_ms']}; run seconds {out['run_s']}")
-        for name, _ in runs:
+        for name, res in results.items():
             steps = PARALLEL_STOP if name == "fsdp_stop" else (
                 PARALLEL_STEPS - PARALLEL_STOP if name == "fsdp_resume" else PARALLEL_STEPS)
-            for r, res in enumerate(results[name]):
-                c = res["counts"]
+            for r, rec in enumerate(res):
+                c = rec["counts"]
                 # Each rank launches B1 and B2 once a block a step (a TP
-                # rank on its heads), and nothing else.
+                # rank on its heads), and nothing else; RN50 in its text
+                # tower alone, and the chunked step B1 twice (features,
+                # then gradients) and B2 once a chunk.
                 want = {k: 0 for k in c}
-                want.update(B1=per_step * steps, B2=per_step * steps)
+                if name.startswith("rn_chunk"):
+                    want.update(B1=rn_layers_t * 4 * steps, B2=rn_layers_t * 2 * steps)
+                elif name.startswith("rn_"):
+                    want.update(B1=rn_layers_t * steps, B2=rn_layers_t * steps)
+                else:
+                    want.update(B1=(layers_v + layers_t) * steps, B2=(layers_v + layers_t) * steps)
                 if c != want:
                     raise AssertionError(f"parallel {name} rank {r}: launches {c}, expected {want}")
         # Each run against the one-process run: per-step losses and global
@@ -3416,6 +3687,9 @@ def phase_parallel(card: str, peaks, kernels: bool = True) -> dict:
             f"{max(c['loss_rel_err']):.3g} > {PARALLEL_LOSS_TOL}, gradient norm rel err "
             f"{max(c['grad_norm_rel_err']):.3g} > {PARALLEL_GRAD_NORM_TOL}, parameters {c['param_distance']:.4g} > "
             f"{PARALLEL_PARAM_TOL}")
+        out["rn"] = rn_parallel_checks(root, runs_dir, results, world, backend)
+        out["rn"]["synced_bn_one_rank"] = rn_synced_bn_check()
+        ran += [{"world": world, "backend": backend, "layout": name} for name in PARALLEL_RN_RUNS]
         # The TP run's head: B3 on each rank's heads, one launch a text block.
         _, _, layers_t = model_shape()
         heads = []
@@ -3443,6 +3717,138 @@ def phase_parallel(card: str, peaks, kernels: bool = True) -> dict:
         out["ran"] = ran
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"parallel: ran {ran}; FSDP resumed bit-equal; phase took {out['phase_s']:.1f} s on {card}")
+    return out
+
+
+def rn_synced_bn_check() -> dict:
+    """The synchronised BatchNorm on the card, in one process over a gloo
+    group of one rank (the all-reduces run, the numbers are this rank's):
+    one RN50 step's loss and gradients at B = 256 against the same step on
+    cuDNN's BatchNorm, and on ATen's (cuDNN off), the spread of two torch
+    implementations of the same BatchNorm.  fp32 holds the synchronised
+    step to cuDNN's at 1e-5 (loss) and a gradient cosine of 0.99 (the
+    exact-zero ``ZERO_GRADS`` aside; in bf16 hundreds of its tensors fall
+    below that between cuDNN's and ATen's BatchNorm); bf16 is recorded only: there a
+    random-init RN50 carries each rounding difference into whole
+    gradients."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from flyp_tpu_torch.models import resnet
+
+    images, tokens = bench_batch(INPUT_BATCH, MODEL_CONFIGS[RN_MODEL].vision.image_size, seed=1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    out = {}
+    try:
+        group = dist.new_group([0])
+        for dtype in ("float32", "bfloat16"):
+            model = build_clip_model(rn_cfg(dtype), device="cuda").train().requires_grad_(True)
+            names = [n for n, _ in model.named_parameters()]
+            im = torch.from_numpy(images).cuda().to(getattr(torch, dtype))
+            tk = torch.from_numpy(tokens).cuda()
+            runs = {}
+            for name in ("cudnn", "aten", "synced"):
+                torch.backends.cudnn.enabled = name != "aten"
+                try:
+                    with resnet.synced_batch_norm(model, group if name == "synced" else None), \
+                            resnet.running_stats_frozen(model):
+                        runs[name] = loss_and_grads(model, im, tk)
+                finally:
+                    torch.backends.cudnn.enabled = True
+            ref_loss, ref_grads = runs["cudnn"]
+            for name in ("aten", "synced"):
+                loss, grads = runs[name]
+                cos = grad_cosines([g for n, g in zip(names, grads) if n not in ZERO_GRADS],
+                                   [g for n, g in zip(names, ref_grads) if n not in ZERO_GRADS])
+                out[f"{dtype} {name}"] = {"loss_rel_err": abs(loss - ref_loss) / abs(ref_loss),
+                                          "min_grad_cosine": min(cos), "params_below_0.99": sum(c < 0.99 for c in cos)}
+            del model, runs
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    f32 = out["float32 synced"]
+    if f32["loss_rel_err"] > 1e-5 or f32["min_grad_cosine"] < 0.99:
+        raise AssertionError(f"the synchronised BatchNorm's fp32 RN50 step against cuDNN's: {f32}")
+    log(f"parallel: the synchronised BatchNorm's RN50 step (B = {INPUT_BATCH}, one rank) against cuDNN's: {out}")
+    return out
+
+
+def stats_distance(stats: dict, ref: dict, init: dict) -> float:
+    """|s - s_ref| / |s_ref - s_init| over every running statistic."""
+    off = sum(float((stats[k].double() - ref[k].double()).pow(2).sum()) for k in ref)
+    moved = sum(float((ref[k].double() - init[k].double()).pow(2).sum()) for k in ref)
+    return math.sqrt(off / moved)
+
+
+def rn_parallel_checks(root: str, runs_dir: str, results: dict, world: int, backend: str) -> dict:
+    """RN50 across ranks against its one-process runs (PARALLEL_RN_RUNS):
+    per-step losses, global gradient norms, final parameters and running
+    statistics within PARALLEL_RN_*_TOL, the statistics bit-equal on every
+    rank; the planted fault (PARALLEL_RN_FAULT) must fail at least one of
+    those checks.  Also the BatchNorm all-reduces a step and the chunk
+    re-layout's seconds."""
+    from flyp_tpu_torch.utils import checkpoint
+
+    cfg = SimpleNamespace(model=RN_MODEL, clip_load=None, compute_dtype="bfloat16", seed=0)
+    start = build_clip_model(cfg, device="cpu")
+    init = {k: v.detach() for k, v in start.named_parameters()}
+    init_stats = {k: v.detach() for k, v in start.named_buffers()}
+    del start
+
+    def stats(name, r):
+        return torch.load(os.path.join(runs_dir, f"{name}.rank{r}.stats.pt"))
+
+    out = {}
+    for name, ref_name in [*((n, ref) for n, (ref, _) in PARALLEL_RN_RUNS.items()),
+                           (PARALLEL_RN_FAULT, PARALLEL_RN_RUNS["rn_dp"][0])]:
+        ref, ref_norms = run_metrics(runs_dir, ref_name)
+        losses, norms = run_metrics(runs_dir, name)
+        if len(losses) != len(ref) or len(norms) != len(ref_norms):
+            raise AssertionError(f"parallel {name}: {len(losses)} steps logged, expected {len(ref)}")
+        ref_params = checkpoint.load_tensors(results_path(root, ref_name))
+        ref_stats = stats(ref_name, 0)
+        per_rank = [stats(name, r) for r in range(world)]
+        equal = all(torch.equal(per_rank[0][k], other[k]) for other in per_rank[1:] for k in per_rank[0])
+        recs = results[name]
+        steps = recs[0]["steps"]
+        c = {"losses": losses, "grad_norms": norms, "single_losses": ref, "single_grad_norms": ref_norms,
+             "loss_rel_err": _rel(losses, ref), "grad_norm_rel_err": _rel(norms, ref_norms),
+             "param_distance": param_distance(results_path(root, name), ref_params, init),
+             "stats_distance": stats_distance(per_rank[0], ref_stats, init_stats), "stats_equal_on_ranks": equal,
+             "bn_all_reduces_per_step": recs[0]["bn_all_reduces"] / steps,
+             "relayout_ms_per_step": recs[0]["relayout_s"] * 1e3 / steps,
+             "step_ms": sorted(recs[0]["step_intervals_ms"])[len(recs[0]["step_intervals_ms"]) // 2],
+             "single_step_ms": sorted(results[ref_name][0]["step_intervals_ms"])[
+                 len(results[ref_name][0]["step_intervals_ms"]) // 2]}
+        c["fails"] = [k for k, bad in (
+            ("loss0", c["loss_rel_err"][0] > PARALLEL_RN_LOSS0_TOL),
+            ("loss", max(c["loss_rel_err"]) > PARALLEL_RN_LOSS_TOL),
+            ("grad_norm", max(c["grad_norm_rel_err"]) > PARALLEL_RN_GRAD_NORM_TOL),
+            ("params", c["param_distance"] > PARALLEL_RN_PARAM_TOL),
+            ("stats", c["stats_distance"] > PARALLEL_RN_STATS_TOL),
+            ("stats_equal_on_ranks", not equal)) if bad]
+        out[name] = c
+        log(f"parallel: {name} over {backend}, world {world}, against {ref_name}: losses {losses} against "
+            f"{ref}, rel err {c['loss_rel_err']}; gradient norms {norms} against {ref_norms}, rel err "
+            f"{c['grad_norm_rel_err']}; parameters "
+            f"{c['param_distance']:.4g}, running statistics {c['stats_distance']:.4g} of the one-process run's "
+            f"movement, bit-equal on the ranks: {equal}; BatchNorm all-reduces a step "
+            f"{c['bn_all_reduces_per_step']:.1f}, re-layout {c['relayout_ms_per_step']:.2f} ms a step; ms between "
+            f"step starts {c['step_ms']:.1f} (one process {c['single_step_ms']:.1f}); fails {c['fails']}")
+    # BatchNorm's collectives: the fault's run skips exactly them.
+    out["bn_collective_share_of_dp_step"] = 1 - out[PARALLEL_RN_FAULT]["step_ms"] / out["rn_dp"]["step_ms"]
+    log(f"parallel: BatchNorm's all-reduces take {out['bn_collective_share_of_dp_step']:.3f} of the RN50 DP step "
+        f"(its ms between step starts against the fault's, which skips them)")
+    bad = {n: out[n]["fails"] for n in PARALLEL_RN_RUNS if out[n]["fails"]}
+    if bad:
+        raise AssertionError(f"parallel RN50 runs against their one-process runs fail {bad} (bounds: step-0 loss "
+                             f"{PARALLEL_RN_LOSS0_TOL}, loss {PARALLEL_RN_LOSS_TOL}, gradient norm "
+                             f"{PARALLEL_RN_GRAD_NORM_TOL}, parameters "
+                             f"{PARALLEL_RN_PARAM_TOL}, statistics {PARALLEL_RN_STATS_TOL})")
+    if not out[PARALLEL_RN_FAULT]["fails"]:
+        raise AssertionError(f"parallel: the planted fault ({PARALLEL_RN_FAULT}) passes every check")
     return out
 
 
@@ -3531,7 +3937,8 @@ def main() -> int:
         return 0
     if "--trainer" in sys.argv[1:]:
         use_impl("auto")
-        log(json.dumps({"card": card, "trainer": phase_trainer(card)}))
+        with cut_depth(MODEL, **TRAINER_DEPTH[MODEL]):
+            log(json.dumps({"card": card, "trainer": phase_trainer(card)}))
         return 0
     if "--resnet" in sys.argv[1:]:
         use_impl("auto")
@@ -3561,7 +3968,8 @@ def main() -> int:
     probes, tools = phase_probes(peaks), phase_tools()
     use_impl("auto")
     evaluation = phase_evaluation(card)
-    trainer = phase_trainer(card)
+    with cut_depth(MODEL, **TRAINER_DEPTH[MODEL]):
+        trainer = phase_trainer(card)
     resnet = phase_resnet(card)
     use_impl("auto")
     parallel = phase_parallel(card, peaks)

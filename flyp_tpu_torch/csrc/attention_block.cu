@@ -57,7 +57,10 @@
 // Dv, and the out-projection contracts over K = Dv.  With `partial` the
 // out-projection's epilogue drops the bias and the residual and writes the
 // fp32 product, which the caller sums over the shards before adding x and
-// bout once.  Dv must be a multiple of 128 (the GEMMs' tile width).
+// bout once.  Any whole number of heads runs: an odd one (Dv = 192, 320)
+// ends the QKV product's columns in 64-wide tiles (gemm_sm90.cuh), and the
+// fp32 FMA GEMM masks the columns of its last tile.  D stays a multiple of
+// 128.
 
 #include "attention.cuh"
 #include "gemm_sm90.cuh"
@@ -133,7 +136,7 @@ cudaError_t run(const T* x, const float* g, const float* beta, const T* wqkv, co
 int launch(const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* bqkv,
            const void* wout, const void* bout, void* out, void* qkv, void* o, void* y, float* lse, int B, int L,
            int D, int Dv, int H, int causal, int partial, int dtype, void* stream) {
-  if (Dv != H * kHeadDim || D % kBN != 0 || Dv % kBN != 0 || Dv > D) return (int)cudaErrorInvalidValue;
+  if (Dv != H * kHeadDim || D % kBN != 0 || Dv > D) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(ln_scale);
   const float* beta = static_cast<const float*>(ln_bias);

@@ -62,7 +62,9 @@
 // dY contracts over Dv.  dY, and so dscale, dbias and dx, are then the
 // shard's part, linear in dY: with add_g = 0 the LN backward writes
 // T(dx_ln) without + g, for the caller to sum over the shards and add g
-// once.  Dv must be a multiple of 128.
+// once.  Any whole number of heads runs: an odd one (Dv = 192, 320) ends
+// G3's and G4's columns in 64-wide tiles (gemm_sm90.cuh), and the fp32 FMA
+// GEMM masks the columns of its last tile.
 
 #include "attention.cuh"
 #include "gemm_sm90.cuh"
@@ -301,7 +303,7 @@ struct Bwd {
 };
 
 bool shapes_ok(int L, int D, int Dv, int H) {
-  return Dv == H * kHeadDim && D % kBN == 0 && Dv % kBN == 0 && Dv <= D && D <= 32 * kMaxCols && L >= 1 &&
+  return Dv == H * kHeadDim && D % kBN == 0 && Dv <= D && D <= 32 * kMaxCols && L >= 1 &&
          L <= kMaxL;
 }
 

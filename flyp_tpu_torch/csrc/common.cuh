@@ -228,7 +228,8 @@ __device__ __forceinline__ float2 load_pair(const bf16* p) {
 // kBT), row major with leading dimensions lda/ldb.  blockIdx.z = zt * splits
 // + s: zt picks a tower (A += zt*a_z, B += zt*b_z, bias += zt*N) and s a
 // chunk of the contraction, whose partial goes to C[s][zt] ([M, N] each).
-// Rows past M and the contraction past K read as zeros; N % 128 == 0.  It
+// Rows past M, columns past N and the contraction past K read as zeros;
+// columns past N are not stored (N even: a head shard's 64 H).  It
 // runs FMA tiles on the CUDA cores, since the tensor cores would round fp32
 // operands to TF32.
 //
@@ -395,11 +396,11 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_fma_kernel(const GemmArg
         if (kBT) {  // [n][k]
           const int r = e / kFmaBK, c = e % kFmaBK;
           const int k = k0 + c;
-          Bs[c][r] = k < gb.kend ? Bs_g[(size_t)(n0 + r) * ldb + k] : 0.f;
+          Bs[c][r] = k < gb.kend && n0 + r < N ? Bs_g[(size_t)(n0 + r) * ldb + k] : 0.f;
         } else {  // [k][n]
           const int r = e / kBN, c = e % kBN;
           const int k = k0 + r;
-          Bs[r][c] = k < gb.kend ? Bs_g[(size_t)k * ldb + n0 + c] : 0.f;
+          Bs[r][c] = k < gb.kend && n0 + c < N ? Bs_g[(size_t)k * ldb + n0 + c] : 0.f;
         }
       }
       __syncthreads();
@@ -428,7 +429,8 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_fma_kernel(const GemmArg
     if (m >= M) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      gemm_store<kOps, float>(C, resid, bias, N, m, n0 + 2 * tx + 32 * j, acc[i][2 * j], acc[i][2 * j + 1]);
+      const int n = n0 + 2 * tx + 32 * j;
+      if (n < N) gemm_store<kOps, float>(C, resid, bias, N, m, n, acc[i][2 * j], acc[i][2 * j + 1]);
     }
   }
 }
@@ -436,7 +438,7 @@ __global__ void __launch_bounds__(kGemmThreads, 2) gemm_fma_kernel(const GemmArg
 // Launch the fp32 GEMM over `towers` towers on the caller's stream.
 template <bool kAT, bool kBT, int kOps>
 cudaError_t launch_gemm(const GemmArgs& g, int towers, cudaStream_t st) {
-  const dim3 grid(g.N / kBN, (g.M + kBM - 1) / kBM, towers * g.splits);
+  const dim3 grid((g.N + kBN - 1) / kBN, (g.M + kBM - 1) / kBM, towers * g.splits);
   gemm_fma_kernel<kAT, kBT, kOps><<<grid, kGemmThreads, 0, st>>>(g);
   return cudaGetLastError();
 }

@@ -35,7 +35,8 @@
 // The design, the usual shape of a fast Hopper kernel:
 //
 // * Persistent: one block an SM walks output tiles of 128 x 256 (128 x 128
-//   where N is not a multiple of 256) with 12 warps: two consumer
+//   where N is not a multiple of 256, 128 x 64 where N is an odd multiple
+//   of 64: a head shard of an odd number of heads) with 12 warps: two consumer
 //   warpgroups (64 rows each) and one producer warpgroup, of which one
 //   thread walks the contraction one k-tile (128 bytes: 64 bf16 or 128 int8)
 //   at a time and issues the TMA copies (cp.async.bulk.tensor, 128-byte
@@ -64,7 +65,7 @@
 //   past K, load as zeros (TMA's out-of-bounds fill); rows past M are not
 //   stored.
 //   Nothing is summed with atomics, so a product repeats bit for bit.
-// * N is a multiple of 128, except in a launch that asks for ragged columns
+// * N is a multiple of 64 (128 in int8), except in a launch that asks for ragged columns
 //   (kRagged, an fp32 output with no bias or residual: T2's N = L = 197 or
 //   208; the other products compile without it).  There the last column
 //   tile is ragged, B's rows past N load as zeros and columns past N are
@@ -223,6 +224,23 @@ __device__ __forceinline__ void fence_acc(int (&d)[kN]) {
 // d += A (64 x 16) B (16 x kN); kTA / kTB: A / B held MN-major.
 template <int kN>
 struct Wgmma;
+template <>
+struct Wgmma<64> {
+  template <int kTA, int kTB>
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %34, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]),
+        "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "n"(kTA), "n"(kTB), "r"(1));
+  }
+};
 template <>
 struct Wgmma<128> {
   template <int kTA, int kTB>
@@ -666,16 +684,17 @@ inline Product product(const void* A, const void* B, void* C, int M, int N, int 
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// Whether the kernel tiles the product: N a multiple of 128 (any N >= 1
-// with kRagged), every contiguous extent 16-byte rows for TMA (a multiple
-// of 8 bf16 or 16 int8), the chunks of a split contraction multiples of the
-// k-tile, the tile count within an int.
+// Whether the kernel tiles the product: N a multiple of 64, and of 128 in
+// int8 (any N >= 1 with kRagged), every contiguous extent 16-byte rows for
+// TMA (a multiple of 8 bf16 or 16 int8), the chunks of a split contraction
+// multiples of the k-tile, the tile count within an int.
 template <bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged, typename TIn>
 bool tiles(const Product& p) {
   constexpr int kRow = 16 / (int)sizeof(TIn);
-  return p.M >= 1 && p.K >= 1 && p.N >= 1 && (p.N % 128 == 0 || kRagged) && (kAMN ? p.M : p.K) % kRow == 0 &&
+  constexpr int kMinN = std::is_same<TIn, int8_t>::value ? 128 : 64;
+  return p.M >= 1 && p.K >= 1 && p.N >= 1 && (p.N % kMinN == 0 || kRagged) && (kAMN ? p.M : p.K) % kRow == 0 &&
          (kBMN ? p.N : p.K) % kRow == 0 && p.k_chunk >= 1 && (p.splits == 1 || p.k_chunk % kTileK<TIn> == 0) &&
-         (long long)((p.N + 127) / 128) * ((p.M + kBM - 1) / kBM) * p.towers * p.splits < (1LL << 31) &&
+         (long long)((p.N + 63) / 64) * ((p.M + kBM - 1) / kBM) * p.towers * p.splits < (1LL << 31) &&
          aligned16(p.A) && aligned16(p.B) && (!Tile<128, TOut, kRagged>::kStaged4 || aligned16(p.C));
 }
 
@@ -717,11 +736,16 @@ cudaError_t launch_tile(const Product& p, cudaStream_t st) {
 }
 
 // The tile width: 256 where N allows it (half the shared-memory reads of A
-// per product and 128 accumulators a thread), else 128.  A ragged N
+// per product and 128 accumulators a thread), else 128; 64 where N is an odd
+// multiple of 64 (a head shard of an odd number of heads, Dv = 192 or 320:
+// every tile of the launch 64 wide, 32 accumulators a thread).  A ragged N
 // (kRagged) between 129 and 256 takes one 256-wide tile, so each of A's row
 // tiles is read once.
-inline int tile_n(int N) {
-  if (N % 128 != 0) return N > 128 && N <= 256 ? 256 : 128;
+inline int tile_n(int N, bool ragged = false) {
+  if (N % 128 != 0) {
+    if (!ragged && N % 64 == 0) return 64;
+    return N > 128 && N <= 256 ? 256 : 128;
+  }
   return N % 256 == 0 ? 256 : 128;
 }
 
@@ -729,8 +753,12 @@ template <bool kAMN, bool kBMN, int kOps, typename TOut, bool kRagged = false, t
 cudaError_t launch(const Product& p, cudaStream_t st) {
   static_assert(!kRagged || (sizeof(TOut) == 4 && kOps == kOpNone), "a ragged N takes an fp32 output alone");
   if (!tiles<kAMN, kBMN, kOps, TOut, kRagged, TIn>(p)) return cudaErrorInvalidValue;
-  return tile_n(p.N) == 256 ? launch_tile<256, kAMN, kBMN, kOps, TOut, kRagged, TIn>(p, st)
-                            : launch_tile<128, kAMN, kBMN, kOps, TOut, kRagged, TIn>(p, st);
+  const int bn = tile_n(p.N, kRagged);
+  if constexpr (!std::is_same<TIn, int8_t>::value && !kRagged) {
+    if (bn == 64) return launch_tile<64, kAMN, kBMN, kOps, TOut, kRagged, TIn>(p, st);
+  }
+  return bn == 256 ? launch_tile<256, kAMN, kBMN, kOps, TOut, kRagged, TIn>(p, st)
+                   : launch_tile<128, kAMN, kBMN, kOps, TOut, kRagged, TIn>(p, st);
 }
 
 // Each product of the attention block takes a head shard's width Dv (the
@@ -786,8 +814,7 @@ inline cudaError_t grad_out(const bf16* g, const bf16* wout, bf16* out, int M, i
 // tile width) output tiles); chunks of ceil(M / s) rows rounded up to the
 // k-tile, at least 256.
 inline int weight_grad_chunk(int M, int D, int Dv) {
-  const int wide = tile_n(Dv) == 256;
-  const int tiles = 3 * (D / kBM) * (Dv / (wide ? 256 : 128));
+  const int tiles = 3 * (D / kBM) * (Dv / tile_n(Dv));
   const int resident = 132;
   int best = 1;
   double best_cost = 1e9;

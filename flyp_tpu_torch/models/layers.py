@@ -33,8 +33,15 @@ the plain attention runs over the local heads; either way the
 out-projection's partial sum is all-reduced over the model axis before
 ``+ out_bias``.  The MLP is Megatron's: the identity forward with an
 all-reduce backward at its entry, one all-reduce after ``proj``, then
-``+ proj_bias``.  The routes that run other kernels (``pallas_block_mlp``,
-``pallas_qkv``, ``pallas``) are ROADMAP A9b under TP and raise.
+``+ proj_bias``.  ``pallas_qkv`` and ``pallas`` run their kernels (B5, B6)
+on the local heads (attention is independent per head, so the numbers are
+those of the JAX package, whose partitioning gathers the heads first).
+``pallas_block_mlp`` runs the attention sub-block as ``pallas_block`` does
+and the MLP sub-block as the whole fused MLP op (B4) on the weights
+gathered over the model axis (``parallel/comm.py::gather_shards``), as
+GSPMD runs the JAX kernel, which has no partitioning rule: every model
+rank computes the same whole sub-block, and keeps its own slice of the
+weight gradients.
 
 ``remat`` (``--remat``) recomputes activations in the backward
 (``torch.utils.checkpoint``) as the JAX ``remat`` policy does: under the
@@ -139,7 +146,7 @@ class MultiHeadAttention(nn.Module):
         w = self.qkv_kernel.permute(1, 0, 2).reshape(D, 3 * Dv)
         qkv = _matmul(x, w) + self.qkv_bias.reshape(3 * Dv).to(dtype)
         if _default_impl() == "pallas_qkv":
-            o = fused_qkv_attention(qkv, self.heads, self.causal)
+            o = fused_qkv_attention(qkv, Dv // hd, self.causal)
         else:
             q, k, v = (qkv[..., t * Dv:(t + 1) * Dv].reshape(B, L, Dv // hd, hd) for t in range(3))
             o = multi_head_attention(q, k, v, self.causal).reshape(B, L, Dv)
@@ -208,14 +215,6 @@ class ResidualBlock(nn.Module):
         self.ln_2 = LayerNormFp32(width)
         self.mlp = MLP(width)
 
-    def _tp_route(self) -> str:
-        impl = _default_impl()
-        if impl in ("pallas_block_mlp", "pallas_qkv", "pallas"):
-            raise NotImplementedError(
-                f"FLYP_ATTENTION_IMPL={impl} under tensor parallelism (--mesh_model > 1) is ROADMAP.md, item A9b: "
-                "the JAX package gathers the shards and runs the whole kernel there; use pallas_block or xla")
-        return impl
-
     def attention(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` plus the attention sub-block."""
         group = self.tp_group
@@ -223,7 +222,7 @@ class ResidualBlock(nn.Module):
             from flyp_tpu_torch.parallel.comm import copy_to_group, group_size
 
             a = self.attn
-            if self._tp_route() == "pallas_block":
+            if _default_impl() in ("pallas_block", "pallas_block_mlp"):
                 heads = self.heads // group_size(group)
                 return tp_attention_block(
                     x, self.ln_1.scale, self.ln_1.bias, a.qkv_kernel, a.qkv_bias, a.out_kernel, a.out_bias,
@@ -242,15 +241,20 @@ class ResidualBlock(nn.Module):
     def feed_forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` plus the MLP sub-block."""
         group = self.tp_group
+        m = self.mlp
+        if _default_impl() == "pallas_block_mlp":
+            fc_kernel, fc_bias, proj_kernel = m.fc_kernel, m.fc_bias, m.proj_kernel
+            if group is not None:
+                from flyp_tpu_torch.parallel.comm import gather_shards
+
+                fc_kernel, fc_bias = gather_shards(fc_kernel, group, 1), gather_shards(fc_bias, group, 0)
+                proj_kernel = gather_shards(proj_kernel, group, 0)
+            return mlp_block(x, self.ln_2.scale, self.ln_2.bias, fc_kernel, fc_bias, proj_kernel, m.proj_bias)
         if group is not None:
             from flyp_tpu_torch.parallel.comm import copy_to_group
 
-            self._tp_route()
-            return x + self.mlp(copy_to_group(self.ln_2(x), group), tp_group=group)
-        if _default_impl() == "pallas_block_mlp":
-            m = self.mlp
-            return mlp_block(x, self.ln_2.scale, self.ln_2.bias, m.fc_kernel, m.fc_bias, m.proj_kernel, m.proj_bias)
-        return x + self.mlp(self.ln_2(x))
+            return x + m(copy_to_group(self.ln_2(x), group), tp_group=group)
+        return x + m(self.ln_2(x))
 
     def _block(self, x: torch.Tensor) -> torch.Tensor:
         return self.feed_forward(self.attention(x))

@@ -13,7 +13,11 @@ them, and made channels-last OIHW in the compute type where they are used.
 
 BatchNorm follows torch's train-mode semantics (:class:`TorchBatchNorm`);
 its running statistics are the module's buffers (``mean``/``var``), named
-as the JAX ``batch_stats`` tree names them.  The ``s2d`` stem of the JAX
+as the JAX ``batch_stats`` tree names them.  On a mesh whose batch axes
+split the batch over ranks, the train step gives every BatchNorm the batch
+axes' process group (:func:`synced_batch_norm`): its statistics are then the
+global batch's, as the JAX layer's ``jnp.mean``/``jnp.var`` over the batch
+axis are under GSPMD.  The ``s2d`` stem of the JAX
 package is a TPU layout of the same numbers
 (``flyp_tpu/models/configs.py::VisionConfig.stem_impl``): here both values
 run the reference stem.
@@ -29,6 +33,7 @@ from torch import nn
 
 from flyp_tpu_torch.models.configs import VisionConfig
 from flyp_tpu_torch.ops.attention import multi_head_attention
+from flyp_tpu_torch.parallel.comm import all_reduce_, group_size
 
 
 def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -39,6 +44,59 @@ def _lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> 
         nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
+_CHANNELS = (0, 2, 3)  # the axes a channel's statistics run over, NCHW
+
+
+def _per_channel(t: torch.Tensor) -> torch.Tensor:
+    return t.view(1, -1, 1, 1)
+
+
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the rows of every rank of ``group``, in
+    fp32, as ``flyp_tpu/models/resnet.py::TorchBatchNorm`` computes it on
+    the global batch.
+
+    Statistics are float32 (float64 for a float64 input, which the tests
+    use).  Forward, two passes with one all-reduce each: ``[sum x]`` gives the
+    mean, then ``[sum (x - mean)^2]`` the biased variance (a single pass of
+    ``[sum x, sum x^2]`` would cancel); ``n`` is the rows of one rank times
+    the group's size (the mesh splits the batch evenly).  The running
+    statistics move with the global ``n``, in the JAX layer's order of
+    operations, so every rank writes the same bits.  Backward, one
+    all-reduce of ``[sum dy, sum dy xhat]``: the transpose of the forward's
+    sums of different rows is their sum over the group, so
+    ``dx = scale rstd (dy - mean(dy) - xhat mean(dy xhat))`` with both means
+    global.  ``dscale`` and ``dbias`` are this rank's own sums: the train
+    step sums every gradient over the batch axes once."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, running_mean, running_var, momentum, epsilon, update, group):
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = x.numel() // x.shape[1] * group_size(group)
+        mean = all_reduce_(x32.sum(_CHANNELS), group) / n
+        centered = x32 - _per_channel(mean)
+        var = all_reduce_(centered.square().sum(_CHANNELS), group) / n
+        if update:
+            m = momentum
+            running_mean.copy_(m * running_mean + (1 - m) * mean)
+            running_var.copy_(m * running_var + (1 - m) * var * (n / max(n - 1, 1)))
+        rstd = torch.rsqrt(var + epsilon)
+        xhat = centered * _per_channel(rstd)
+        ctx.save_for_backward(x, mean, rstd, scale)
+        ctx.n, ctx.group = n, group
+        return (xhat * _per_channel(scale) + _per_channel(bias)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, scale = ctx.saved_tensors
+        xhat = (x.to(mean.dtype) - _per_channel(mean)) * _per_channel(rstd)
+        dy = g.to(mean.dtype)
+        local = torch.stack([dy.sum(_CHANNELS), (dy * xhat).sum(_CHANNELS)])
+        total = all_reduce_(local.clone(), ctx.group) / ctx.n
+        dx = _per_channel(scale * rstd) * (dy - _per_channel(total[0]) - xhat * _per_channel(total[1]))
+        return dx.to(x.dtype), local[1], local[0], None, None, None, None, None, None
+
+
 class TorchBatchNorm(nn.Module):
     """BatchNorm over the channels of an NCHW tensor, torch-exact in train mode.
 
@@ -47,7 +105,11 @@ class TorchBatchNorm(nn.Module):
     one (``n/(n-1)``); in eval mode it normalises with the running
     statistics.  Statistics are float32 whatever the activation type, and
     the output is cast to the activation type.  ``momentum`` follows the
-    flax convention (flax 0.9 is torch's 0.1)."""
+    flax convention (flax 0.9 is torch's 0.1).  With a ``group`` (set by
+    :func:`synced_batch_norm`) training mode runs :class:`_SyncBatchNorm`:
+    the statistics of the rows of every rank of the group."""
+
+    group = None
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5):
         super().__init__()
@@ -70,6 +132,9 @@ class TorchBatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, training=False, eps=self.epsilon)
         write = self.update_stats
+        if self.group is not None:
+            return _SyncBatchNorm.apply(x, self.scale, self.bias, self.mean, self.var, self.momentum, self.epsilon,
+                                        write, self.group)
         return F.batch_norm(x, self.mean if write else None, self.var if write else None, self.scale, self.bias,
                             training=True, momentum=1 - self.momentum, eps=self.epsilon)
 
@@ -86,6 +151,21 @@ def running_stats_frozen(model: nn.Module):
     finally:
         for m in norms:
             m.update_stats = True
+
+
+@contextlib.contextmanager
+def synced_batch_norm(model: nn.Module, group):
+    """Train-mode BatchNorm in the body normalises with the statistics of
+    the rows of every rank of ``group`` (the mesh's batch axes); None, an
+    axis of one rank, changes nothing."""
+    norms = [m for m in model.modules() if isinstance(m, TorchBatchNorm)] if group is not None else []
+    for m in norms:
+        m.group = group
+    try:
+        yield model
+    finally:
+        for m in norms:
+            m.group = None
 
 
 class Conv2d(nn.Module):

@@ -33,9 +33,10 @@ heads without ``+ x + bout``; with ``add_g=False`` the backward's ``dx`` is
 the shard's LayerNorm backward without ``+ g``, and its ``dscale``/``dbias``
 are the shard's part.  :func:`tp_attention_block` sums the parts over the
 model axis and adds the residual once (module ``parallel/comm.py``).  On the
-card a shard's width must be a multiple of 128: ``Dv`` = 192 (ViT-B/16's
-vision tower, ViT-L/14's text tower at ``--mesh_model 4``) is refused with
-a ``ValueError`` naming the shape.
+card a shard takes any whole number of heads: ``Dv`` = 192 (ViT-B/16's
+vision tower, ViT-L/14's text tower at ``--mesh_model 4``) runs the GEMM's
+64-column tiles (``csrc/gemm_sm90.cuh``).  ``D`` stays a multiple of 128;
+another shape is refused with a ``ValueError`` naming it.
 
 A tensor on the CPU takes the plain PyTorch versions
 (:func:`attention_block_inference_reference`,
@@ -251,9 +252,9 @@ def _check_inputs(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bi
     Dv = qkv_kernel.shape[-1]
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention-block kernel takes float32 or bfloat16, got {x.dtype}")
-    if Dv != heads * _HEAD_DIM or D % 128 or Dv % 128:
-        raise ValueError(f"the attention-block kernel needs head_dim 64 and D, Dv multiples of 128; got D={D}, "
-                         f"Dv={Dv} (qkv_kernel {tuple(qkv_kernel.shape)}), heads={heads}")
+    if Dv != heads * _HEAD_DIM or D % 128 or Dv > D:
+        raise ValueError(f"the attention-block kernel needs head_dim 64, D a multiple of 128 and Dv <= D; got "
+                         f"D={D}, Dv={Dv} (qkv_kernel {tuple(qkv_kernel.shape)}), heads={heads}")
     if B * L == 0:
         raise ValueError("empty input")
     shapes = {
@@ -318,9 +319,9 @@ def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, l
     dtype = x.dtype
     if L > _MAX_TRAIN_LEN:
         raise ValueError(f"the attention-block backward kernel takes L <= {_MAX_TRAIN_LEN}, got L={L}")
-    if Dv != heads * _HEAD_DIM or D % 128 or Dv % 128:
-        raise ValueError(f"the attention-block backward kernel needs head_dim 64 and D, Dv multiples of 128; got "
-                         f"D={D}, Dv={Dv} (qkv_kernel {tuple(qkv_kernel.shape)}), heads={heads}")
+    if Dv != heads * _HEAD_DIM or D % 128 or Dv > D:
+        raise ValueError(f"the attention-block backward kernel needs head_dim 64, D a multiple of 128 and Dv <= D; "
+                         f"got D={D}, Dv={Dv} (qkv_kernel {tuple(qkv_kernel.shape)}), heads={heads}")
     shard = Dv != D or not add_g
     lib = _bwd_lib()
     if shard:

@@ -10,15 +10,20 @@ products alone (``csrc/gemm_sm90.cu``), so that each can be held against its
 plain version and timed; the main path reaches them only through the
 attention-block ops.
 
-For ``M`` rows and width ``D`` (a multiple of 128), all bf16 but the fp32
-biases and the fp32 outputs of G4 and G5:
+For ``M`` rows, width ``D`` (a multiple of 128) and a head shard's width
+``Dv`` (a multiple of 64 up to ``D``; ``Dv = D`` for the whole block, read
+from the operands' shapes), all bf16 but the fp32 biases and the fp32
+outputs of G4 and G5:
 
-* G1 :func:`qkv_product`: ``qkv[t] = T(y @ wqkv[t] + bqkv[t])`` -> ``[3, M, D]``;
+* G1 :func:`qkv_product`: ``qkv[t] = T(y @ wqkv[t] + bqkv[t])`` -> ``[3, M, Dv]``;
 * G2 :func:`out_product`: ``T(x + o @ wout + bout)`` -> ``[M, D]``;
-* G3 :func:`grad_out_product`: ``T(g @ wout^T)`` -> ``[M, D]``;
-* G4 :func:`weight_grad_product`: ``y^T d[t]`` -> fp32 ``[3, D, D]``, partial
+* G3 :func:`grad_out_product`: ``T(g @ wout^T)`` -> ``[M, Dv]``;
+* G4 :func:`weight_grad_product`: ``y^T d[t]`` -> fp32 ``[3, D, Dv]``, partial
   sums over fixed row chunks added in a fixed order;
 * G5 :func:`input_grad_product`: ``sum_t d[t] @ wqkv[t]^T`` -> fp32 ``[M, D]``.
+
+An odd number of heads (``Dv`` = 192, 320) makes G1's, G3's and G4's
+column count an odd multiple of 64, which the GEMM tiles 64 wide.
 
 A CPU tensor takes the plain version (fp32 products of the bf16 operands,
 rounded as the epilogue rounds); a CUDA tensor launches the kernel or raises.
@@ -34,6 +39,7 @@ import torch
 from flyp_tpu_torch.ops import _kernels
 
 _TILE = 128
+_SHARD_TILE = 64  # a head shard's width: whole heads of 64
 
 
 # ---------------------------------------------------------------------------
@@ -56,7 +62,7 @@ def grad_out_product_reference(g, wout):
 
 
 def weight_grad_product_reference(y, d):
-    return torch.matmul(y.float().T, d.float())  # [3, D, D]
+    return torch.matmul(y.float().T, d.float())  # [3, D, Dv]
 
 
 def input_grad_product_reference(d, wqkv):
@@ -74,16 +80,15 @@ def _lib() -> ctypes.CDLL:
     for name, n_ptrs in (("flyp_gemm_qkv", 4), ("flyp_gemm_out", 5), ("flyp_gemm_grad_out", 3),
                          ("flyp_gemm_weight_grad", 4), ("flyp_gemm_input_grad", 3)):
         fn = getattr(lib, name)
-        fn.argtypes = [p] * n_ptrs + [i, i, p]
+        fn.argtypes = [p] * n_ptrs + [i, i, i, p]
         fn.restype = ctypes.c_int
-    lib.flyp_gemm_weight_grad_workspace.argtypes = [i, i]
+    lib.flyp_gemm_weight_grad_workspace.argtypes = [i, i, i]
     lib.flyp_gemm_weight_grad_workspace.restype = ctypes.c_longlong
     return lib
 
 
 def _check(name, tensors: dict, shapes: dict):
-    """Every operand bf16 (biases fp32), of its shape, on one device; D a
-    multiple of 128 and M >= 1, else a ValueError naming the dimension."""
+    """Every operand bf16 (biases fp32), of its shape, on one device."""
     dev = next(iter(tensors.values())).device
     for key, t in tensors.items():
         want = torch.float32 if key.startswith("b") else torch.bfloat16
@@ -95,9 +100,13 @@ def _check(name, tensors: dict, shapes: dict):
             raise ValueError(f"{name}: {key} must have shape {shapes[key]}, got {tuple(t.shape)}")
 
 
-def _dims(name, M, D):
+def _dims(name, M, D, Dv):
+    """D a multiple of 128, Dv a multiple of 64 up to D and M >= 1, else a
+    ValueError naming the dimension."""
     if D % _TILE or D < _TILE:
         raise ValueError(f"{name}: the kernel tiles D in multiples of {_TILE}; got D={D}")
+    if Dv % _SHARD_TILE or not _SHARD_TILE <= Dv <= D:
+        raise ValueError(f"{name}: the kernel takes whole heads of {_SHARD_TILE} up to D={D}; got Dv={Dv}")
     if M < 1:
         raise ValueError(f"{name}: M={M} rows")
 
@@ -111,10 +120,10 @@ def _route(t) -> bool:
     raise RuntimeError(f"the products run on cuda or cpu tensors, got {t.device}")
 
 
-def _launch(fn_name, counter, ptrs, M, D, device):
+def _launch(fn_name, counter, ptrs, M, D, Dv, device):
     lib = _lib()
     with torch.cuda.device(device):
-        code = getattr(lib, fn_name)(*ptrs, M, D, torch.cuda.current_stream(device).cuda_stream)
+        code = getattr(lib, fn_name)(*ptrs, M, D, Dv, torch.cuda.current_stream(device).cuda_stream)
     _kernels.check(lib, code, f"{fn_name} launch")
     counter.launches += 1
 
@@ -128,72 +137,73 @@ def _output(out, shape, dtype, device):
 
 
 def qkv_product(y, wqkv, bqkv, out=None):
-    """G1: ``[3, M, D]`` bf16 ``T(y @ wqkv[t] + bqkv[t])``."""
-    M, D = y.shape
-    _dims("G1", M, D)
-    _check("G1", {"y": y, "wqkv": wqkv, "bqkv": bqkv}, {"y": (M, D), "wqkv": (3, D, D), "bqkv": (3, D)})
+    """G1: ``[3, M, Dv]`` bf16 ``T(y @ wqkv[t] + bqkv[t])``."""
+    (M, D), Dv = y.shape, wqkv.shape[-1]
+    _dims("G1", M, D, Dv)
+    _check("G1", {"y": y, "wqkv": wqkv, "bqkv": bqkv}, {"y": (M, D), "wqkv": (3, D, Dv), "bqkv": (3, Dv)})
     if not _route(y):
         return qkv_product_reference(y, wqkv, bqkv)
     y, wqkv, bqkv = (t.contiguous() for t in (y, wqkv, bqkv))
-    out = _output(out, *product_output("G1", M, D), y.device)
+    out = _output(out, *product_output("G1", M, D, Dv), y.device)
     _launch("flyp_gemm_qkv", qkv_product, [y.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), out.data_ptr()], M, D,
-            y.device)
+            Dv, y.device)
     return out
 
 
 def out_product(o, wout, bout, x, out=None):
     """G2: ``[M, D]`` bf16 ``T(x + o @ wout + bout)``."""
-    M, D = o.shape
-    _dims("G2", M, D)
+    (M, Dv), D = o.shape, wout.shape[-1]
+    _dims("G2", M, D, Dv)
     _check("G2", {"o": o, "wout": wout, "bout": bout, "x": x},
-           {"o": (M, D), "wout": (D, D), "bout": (D,), "x": (M, D)})
+           {"o": (M, Dv), "wout": (Dv, D), "bout": (D,), "x": (M, D)})
     if not _route(o):
         return out_product_reference(o, wout, bout, x)
     o, wout, bout, x = (t.contiguous() for t in (o, wout, bout, x))
-    out = _output(out, *product_output("G2", M, D), o.device)
+    out = _output(out, *product_output("G2", M, D, Dv), o.device)
     _launch("flyp_gemm_out", out_product, [o.data_ptr(), wout.data_ptr(), bout.data_ptr(), x.data_ptr(),
-                                           out.data_ptr()], M, D, o.device)
+                                           out.data_ptr()], M, D, Dv, o.device)
     return out
 
 
 def grad_out_product(g, wout, out=None):
-    """G3: ``[M, D]`` bf16 ``T(g @ wout^T)``."""
-    M, D = g.shape
-    _dims("G3", M, D)
-    _check("G3", {"g": g, "wout": wout}, {"g": (M, D), "wout": (D, D)})
+    """G3: ``[M, Dv]`` bf16 ``T(g @ wout^T)``."""
+    (M, D), Dv = g.shape, wout.shape[0]
+    _dims("G3", M, D, Dv)
+    _check("G3", {"g": g, "wout": wout}, {"g": (M, D), "wout": (Dv, D)})
     if not _route(g):
         return grad_out_product_reference(g, wout)
     g, wout = g.contiguous(), wout.contiguous()
-    out = _output(out, *product_output("G3", M, D), g.device)
-    _launch("flyp_gemm_grad_out", grad_out_product, [g.data_ptr(), wout.data_ptr(), out.data_ptr()], M, D, g.device)
+    out = _output(out, *product_output("G3", M, D, Dv), g.device)
+    _launch("flyp_gemm_grad_out", grad_out_product, [g.data_ptr(), wout.data_ptr(), out.data_ptr()], M, D, Dv,
+            g.device)
     return out
 
 
 def weight_grad_product(y, d, out=None):
-    """G4: fp32 ``[3, D, D]`` ``y^T d[t]``."""
-    M, D = y.shape
-    _dims("G4", M, D)
-    _check("G4", {"y": y, "d": d}, {"y": (M, D), "d": (3, M, D)})
+    """G4: fp32 ``[3, D, Dv]`` ``y^T d[t]``."""
+    (M, D), Dv = y.shape, d.shape[-1]
+    _dims("G4", M, D, Dv)
+    _check("G4", {"y": y, "d": d}, {"y": (M, D), "d": (3, M, Dv)})
     if not _route(y):
         return weight_grad_product_reference(y, d)
     y, d = y.contiguous(), d.contiguous()
-    out = _output(out, *product_output("G4", M, D), y.device)
-    workspace = torch.empty(_lib().flyp_gemm_weight_grad_workspace(M, D), dtype=torch.uint8, device=y.device)
+    out = _output(out, *product_output("G4", M, D, Dv), y.device)
+    workspace = torch.empty(_lib().flyp_gemm_weight_grad_workspace(M, D, Dv), dtype=torch.uint8, device=y.device)
     _launch("flyp_gemm_weight_grad", weight_grad_product,
-            [y.data_ptr(), d.data_ptr(), workspace.data_ptr(), out.data_ptr()], M, D, y.device)
+            [y.data_ptr(), d.data_ptr(), workspace.data_ptr(), out.data_ptr()], M, D, Dv, y.device)
     return out
 
 
 def input_grad_product(d, wqkv, out=None):
     """G5: fp32 ``[M, D]`` ``sum_t d[t] @ wqkv[t]^T``."""
-    _, M, D = d.shape
-    _dims("G5", M, D)
-    _check("G5", {"d": d, "wqkv": wqkv}, {"d": (3, M, D), "wqkv": (3, D, D)})
+    (_, M, Dv), D = d.shape, wqkv.shape[1]
+    _dims("G5", M, D, Dv)
+    _check("G5", {"d": d, "wqkv": wqkv}, {"d": (3, M, Dv), "wqkv": (3, D, Dv)})
     if not _route(d):
         return input_grad_product_reference(d, wqkv)
     d, wqkv = d.contiguous(), wqkv.contiguous()
-    out = _output(out, *product_output("G5", M, D), d.device)
-    _launch("flyp_gemm_input_grad", input_grad_product, [d.data_ptr(), wqkv.data_ptr(), out.data_ptr()], M, D,
+    out = _output(out, *product_output("G5", M, D, Dv), d.device)
+    _launch("flyp_gemm_input_grad", input_grad_product, [d.data_ptr(), wqkv.data_ptr(), out.data_ptr()], M, D, Dv,
             d.device)
     return out
 
@@ -208,22 +218,26 @@ PRODUCTS = {
 }
 
 
-def product_output(name: str, M: int, D: int) -> tuple:
-    """(shape, dtype) of product ``name``'s output at ``M`` rows and width ``D``."""
-    return {"G1": ((3, M, D), torch.bfloat16), "G2": ((M, D), torch.bfloat16), "G3": ((M, D), torch.bfloat16),
-            "G4": ((3, D, D), torch.float32), "G5": ((M, D), torch.float32)}[name]
+def product_output(name: str, M: int, D: int, Dv: int = None) -> tuple:
+    """(shape, dtype) of product ``name``'s output at ``M`` rows, width ``D``
+    and shard width ``Dv`` (default ``D``)."""
+    Dv = D if Dv is None else Dv
+    return {"G1": ((3, M, Dv), torch.bfloat16), "G2": ((M, D), torch.bfloat16), "G3": ((M, Dv), torch.bfloat16),
+            "G4": ((3, D, Dv), torch.float32), "G5": ((M, D), torch.float32)}[name]
 
 
-def product_operands(name: str, M: int, D: int, device, seed: int = 0) -> tuple:
-    """Seeded operands of product ``name`` at ``M`` rows and width ``D``:
-    unit-normal activations, weights of scale ``D**-0.5``, biases of 0.1."""
+def product_operands(name: str, M: int, D: int, device, seed: int = 0, Dv: int = None) -> tuple:
+    """Seeded operands of product ``name`` at ``M`` rows, width ``D`` and
+    shard width ``Dv`` (default ``D``): unit-normal activations, weights of
+    scale ``D**-0.5``, biases of 0.1."""
+    Dv = D if Dv is None else Dv
     gen = torch.Generator().manual_seed(seed)
 
     def r(*shape, scale=1.0, dtype=torch.bfloat16):
         return (scale * torch.randn(*shape, generator=gen)).to(dtype).to(device)
 
-    shapes = {"y": (M, D), "o": (M, D), "g": (M, D), "x": (M, D), "d": (3, M, D),
-              "wqkv": (3, D, D), "wout": (D, D), "bqkv": (3, D), "bout": (D,)}
+    shapes = {"y": (M, D), "o": (M, Dv), "g": (M, D), "x": (M, D), "d": (3, M, Dv),
+              "wqkv": (3, D, Dv), "wout": (Dv, D), "bqkv": (3, Dv), "bout": (D,)}
     out = []
     for key in PRODUCTS[name][2]:
         if key.startswith("b"):
@@ -235,21 +249,23 @@ def product_operands(name: str, M: int, D: int, device, seed: int = 0) -> tuple:
     return tuple(out)
 
 
-def product_flops(name: str, M: int, D: int) -> int:
-    """2 M D D a product, three of them in G1, G4 and G5."""
-    return 2 * M * D * D * (1 if name in ("G2", "G3") else 3)
+def product_flops(name: str, M: int, D: int, Dv: int = None) -> int:
+    """2 M D Dv a product, three of them in G1, G4 and G5."""
+    Dv = D if Dv is None else Dv
+    return 2 * M * D * Dv * (1 if name in ("G2", "G3") else 3)
 
 
-def product_bytes(name: str, M: int, D: int) -> int:
+def product_bytes(name: str, M: int, D: int, Dv: int = None) -> int:
     """Each input read once and each output written once."""
+    Dv = D if Dv is None else Dv
     el = 2
-    md, dd = M * D, D * D
+    md, mv, dv = M * D, M * Dv, D * Dv
     return {
-        "G1": (md + 3 * dd) * el + 3 * D * 4 + 3 * md * el,
-        "G2": (2 * md + dd) * el + D * 4 + md * el,
-        "G3": (md + dd) * el + md * el,
-        "G4": 4 * md * el + 3 * dd * 4,
-        "G5": (3 * md + 3 * dd) * el + md * 4,
+        "G1": (md + 3 * dv) * el + 3 * Dv * 4 + 3 * mv * el,
+        "G2": (mv + dv + md) * el + D * 4 + md * el,
+        "G3": (md + dv) * el + mv * el,
+        "G4": (md + 3 * mv) * el + 3 * dv * 4,
+        "G5": (3 * mv + 3 * dv) * el + md * 4,
     }[name]
 
 

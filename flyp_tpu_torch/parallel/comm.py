@@ -11,7 +11,18 @@ carry their transposes as JAX's do:
 * :func:`reduce_from_group`: ``psum`` (Megatron's "g"); backward, the
   identity;
 * :func:`copy_to_group`: the identity (Megatron's "f"); backward, the
-  ``psum`` of the gradient.
+  ``psum`` of the gradient;
+* :func:`gather_shards`: the all-gather of a sharded weight that every rank
+  then uses whole on the same replicated input (GSPMD's gather in front of
+  a kernel with no partitioning rule); backward, this rank's slice of the
+  gradient, which every rank computed whole.
+
+The sums over the group that a layer needs inside its own backward (the
+BatchNorm of ``models/resnet.py`` over the batch axes) call
+:func:`all_reduce_` there: the transpose of an all-reduce of statistics of
+different rows on each rank is the sum over the group, not
+:func:`reduce_from_group`'s identity, which holds only for a computation
+that every rank repeats.
 
 Every collective takes its tensors where they lie, under ``nccl`` and
 ``gloo`` alike (gloo stages CUDA tensors through the host itself).
@@ -103,6 +114,26 @@ class _CopyToGroup(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return all_reduce_(g.clone(), ctx.group), None
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, i = group_size(ctx.group), group_rank(ctx.group)
+        return g.chunk(n, dim=ctx.dim)[i].contiguous(), None, None
+
+
+def gather_shards(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Differentiable all-gather of a weight shard along ``dim`` into the
+    whole weight, for a computation every rank of the group repeats on the
+    same input: each rank's gradient is its own slice of the whole
+    gradient (a reduce-scatter would count it once a rank)."""
+    return x if group is None else _GatherShards.apply(x, group, dim)
 
 
 def gather_rows(x: torch.Tensor, group) -> torch.Tensor:

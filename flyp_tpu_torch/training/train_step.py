@@ -26,6 +26,7 @@ import torch
 
 from flyp_tpu_torch.models.clip import CLIPModel
 from flyp_tpu_torch.models.modes import pinned_mode
+from flyp_tpu_torch.models.resnet import synced_batch_norm
 from flyp_tpu_torch.ops.losses import clip_loss
 from flyp_tpu_torch.training.train_state import AdamW, TrainState
 
@@ -50,6 +51,18 @@ def sharded_global_norm(state: TrainState, grads) -> torch.Tensor:
         part = sum_of_squares([g for n, g in zip(names, grads) if state.layout.get(n, (None,))[0] == axis], device)
         total = total + all_reduce_(part, state.mesh.group(axis))
     return torch.sqrt(total)
+
+
+def batch_groups(mesh):
+    """``(n, group, replica)`` of a step on ``mesh``: the ranks the batch
+    is split over, their process group (None for one rank) and the replica
+    axis's group (None without one)."""
+    from flyp_tpu_torch.parallel.mesh import REPLICA_AXIS, batch_axes
+
+    if mesh is None or mesh.size == 1:
+        return 1, None, None
+    replica = mesh.group(REPLICA_AXIS) if REPLICA_AXIS in mesh.axis_names else None
+    return mesh.axis_size(batch_axes(mesh)), mesh.group(batch_axes(mesh)), replica
 
 
 def frozen_mask(model: CLIPModel, freeze_encoder: bool) -> List[bool]:
@@ -109,34 +122,25 @@ def make_train_step(
     (``parallel/mesh.py::shard_batch``), ``loss`` is the global batch's and
     ``per_item_loss`` this rank's rows' (the supervised variants: the
     global scalar).  The state must have been placed on the same mesh (TP,
-    FSDP or replicated).  The chunked step on a mesh and a ModifiedResNet
-    whose batch is split (its BatchNorm would see a shard's statistics, not
-    the global batch's) are ROADMAP A9b and raise.
+    FSDP or replicated).  A ModifiedResNet's BatchNorm normalises with the
+    global batch's statistics there (``models/resnet.py::synced_batch_norm``
+    over the batch axes), and its running statistics stay equal on every
+    rank.
     """
     if grad_cache_chunks < 1:
         raise ValueError(f"grad_cache_chunks must be >= 1, got {grad_cache_chunks}")
     multi = mesh is not None and mesh.size > 1
-    if multi and grad_cache_chunks > 1:
-        raise NotImplementedError("the chunked (GradCache) step on a mesh of several ranks is ROADMAP.md, item A9b")
     if grad_cache_chunks > 1:
         from flyp_tpu_torch.training.grad_cache import make_chunked_train_step
 
         return make_chunked_train_step(
             model, optimizer, chunks=grad_cache_chunks, ignore=ignore, google_sup_loss=google_sup_loss,
             use_ground_labels=use_ground_labels, log_grad_norm=log_grad_norm, freeze_encoder=freeze_encoder,
+            mesh=mesh,
         )
     from flyp_tpu_torch.parallel import comm, fsdp
-    from flyp_tpu_torch.parallel.mesh import REPLICA_AXIS, batch_axes
 
-    group = replica = None
-    n_batch = 1
-    if multi:
-        n_batch, group = mesh.axis_size(batch_axes(mesh)), mesh.group(batch_axes(mesh))
-        replica = mesh.group(REPLICA_AXIS) if REPLICA_AXIS in mesh.axis_names else None
-        if n_batch > 1 and not model.config.vision.is_vit:
-            raise NotImplementedError(
-                "a ModifiedResNet image tower with the batch split over ranks is ROADMAP.md, item A9b: its "
-                "BatchNorm would normalise by a shard's statistics where the JAX package's sees the global batch")
+    n_batch, group, replica = batch_groups(mesh)
     frozen = frozen_mask(model, freeze_encoder)
 
     def step_fn(state: TrainState, images: torch.Tensor, tokens: torch.Tensor, ground_labels=None):
@@ -148,7 +152,8 @@ def make_train_step(
         if is_fsdp:
             fsdp.materialize(state)
         params = state.params
-        with pinned_mode(model, train=True):  # the JAX step's train=True, whatever the model's mode
+        # The JAX step's train=True, whatever the model's mode.
+        with pinned_mode(model, train=True), synced_batch_norm(model, group):
             img_f, txt_f, scale = model(images, tokens)
             per_item = clip_loss(
                 img_f, txt_f, scale, ground_labels if use_ground_labels else None,

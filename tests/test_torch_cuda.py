@@ -637,6 +637,22 @@ def test_gemm_products_match_plain_on_card(card, name, M, D):
     assert op.launches == before + 2
 
 
+@pytest.mark.parametrize("name", list(tgs.PRODUCTS))
+@pytest.mark.parametrize("M, D, Dv", [(256 * 197, 768, 192), (64 * 32, 768, 192), (45, 512, 320)])
+def test_gemm_shard_products_match_plain_on_card(card, name, M, D, Dv):
+    """A head shard of an odd number of heads (Dv = 192: ViT-B/16's image
+    tower and ViT-L/14's text tower at 4 model ranks; Dv = 320), whose
+    column count G1, G3 and G4 tile 64 wide: each product over a
+    NaN-poisoned output against its plain version, two launches bit-equal."""
+    op = tgs.PRODUCTS[name][0]
+    ops = tgs.product_operands(name, M, D, card, seed=M + Dv, Dv=Dv)
+    shape, dtype = tgs.product_output(name, M, D, Dv)
+    got = op(*ops, out=torch.full(shape, float("nan"), dtype=dtype, device=card))
+    torch.cuda.synchronize()
+    check_gemm_product(name, got, ops, (name, M, D, Dv))
+    assert torch.equal(got, op(*ops))
+
+
 def test_gemm_products_refuse_what_they_cannot_tile(card):
     y = torch.zeros(64, 200, dtype=torch.bfloat16, device=card)
     w = torch.zeros(3, 200, 200, dtype=torch.bfloat16, device=card)

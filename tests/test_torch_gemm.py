@@ -59,6 +59,24 @@ def test_plain_products_match_jax(name, M, D):
     np.testing.assert_array_less(np.abs(got - ref), ulp * np.abs(ref) + 1e-5 * scale + 1e-30)
 
 
+@pytest.mark.parametrize("name", list(gs.PRODUCTS))
+def test_plain_shard_products_match_jax(name):
+    """A head shard of 3 heads (Dv = 192 < D = 256, the width the GEMM tiles
+    64 columns at a time on the card): the plain products at the bounds of
+    the whole-width test."""
+    M, D, Dv = 33, 256, 192
+    op, plain, _ = gs.PRODUCTS[name]
+    ops = gs.product_operands(name, M, D, "cpu", seed=7, Dv=Dv)
+    got = op(*ops)
+    assert tuple(got.shape) == gs.product_output(name, M, D, Dv)[0]
+    assert torch.equal(got, plain(*ops))
+    ref = np.asarray(_jax_product(name, ops), np.float32)
+    got = got.float().numpy()
+    ulp = 2.0 ** -7 if name in ("G1", "G2", "G3") else 0.0
+    np.testing.assert_array_less(np.abs(got - ref), ulp * np.abs(ref) + 1e-5 * np.abs(ref).max() + 1e-30)
+    assert gs.product_flops(name, M, D, Dv) * D == gs.product_flops(name, M, D) * Dv
+
+
 def test_products_refuse_what_the_kernel_cannot_tile():
     y = torch.zeros(8, 200, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D=200"):
@@ -69,6 +87,8 @@ def test_products_refuse_what_the_kernel_cannot_tile():
         gs.weight_grad_product(torch.zeros(8, 128), torch.zeros(3, 8, 128))
     with pytest.raises(ValueError, match="shape"):
         gs.out_product(*gs.product_operands("G2", 8, 128, "cpu")[:3], torch.zeros(9, 128, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="Dv=96"):  # not a whole number of 64-wide heads
+        gs.grad_out_product(torch.zeros(8, 128, dtype=torch.bfloat16), torch.zeros(96, 128, dtype=torch.bfloat16))
 
 
 def test_bounds_count_each_byte_once():

@@ -68,6 +68,7 @@ LOSS_VARIANTS = {"default": {}, "local_loss": {"local_loss": True}, "ignore": {"
 LAYOUTS = {"data2": (dict(data=2), False), "replica2": (dict(data=1, replica=2), False),
            "model2": (dict(data=1, model=2), False), "fsdp2": (dict(data=2), True)}
 LAYOUTS4 = {"model2_data2": (dict(data=2, model=2), False)}
+TP_ROUTES = ("pallas_block", "xla", "pallas_qkv", "pallas", "pallas_block_mlp")
 
 
 def _block_inputs(B, L, seed, Dv=D):
@@ -127,7 +128,7 @@ def ranks(tiny):
               for train in (False, True)}
     jobs = [(f"tp_block_{causal}_{train}", "tp_block", (*blocks[(causal, train)], HEADS, causal, train))
             for causal, train in blocks]
-    jobs += [(f"block_{impl}_{train}", "tp_residual_block", (impl, train)) for impl in ("pallas_block", "xla")
+    jobs += [(f"block_{impl}_{train}", "tp_residual_block", (impl, train)) for impl in TP_ROUTES
              for train in (True, False)]
     jobs.append(("loss", "gathered_loss", (*_features(), LOSS_VARIANTS)))
     jobs.append(("collectives", "collectives", ()))
@@ -146,7 +147,8 @@ def test_collectives_on_two_ranks(ranks):
     gathers and reduce-scatter of rank-dependent inputs, the bucketed sum
     with buckets smaller than a tensor, the host's max, and the transposes
     (gather_rows: the summed gradient of this rank's rows; reduce_from_group:
-    the identity; copy_to_group: the sum)."""
+    the identity; copy_to_group: the sum; gather_shards: this rank's slice
+    of its own gradient)."""
     world = 2
     base = np.arange(2 * world * 3, dtype=np.float32).reshape(2 * world, 3)
     xs = [base * (r + 1) for r in range(world)]
@@ -166,6 +168,10 @@ def test_collectives_on_two_ranks(ranks):
         np.testing.assert_array_equal(c["gather_rows_grad"], world * 2 * xs[r][:2])
         np.testing.assert_array_equal(c["reduce_grad"], np.full((2, 3), r + 1, np.float32))
         np.testing.assert_array_equal(c["copy_grad"], np.full((2, 3), sum(range(1, world + 1)), np.float32))
+        # Every rank uses the gathered weight whole: its own slice of the
+        # gradient, not the sum over the ranks.
+        np.testing.assert_array_equal(c["gather_shards"], np.concatenate([x[:2] for x in xs], 1))
+        np.testing.assert_array_equal(c["gather_shards_grad"], 2 * xs[r][:2])
 
 
 # ---------------------------------------------------------------- (a) ----
@@ -520,61 +526,18 @@ def test_mesh_step_layout_at_rest(ranks, tiny, name):
         assert (k in got["layout"]) == any(ax is not None for ax in spec), k
 
 
-# --------------------------------------------------------------- A9b ----
-
-
-def _two_rank_mesh(**config):
-    """A mesh of two ranks, built without a process group (no collective
-    runs before the refusals)."""
-    config = {"data": 2, "model": 1, **config}
-    return port_mesh.Mesh(np.arange(2).reshape(config["model"], config["data"]), ("model", "data"))
-
-
-@pytest.mark.parametrize("what", ["grad_cache", "resnet"])
-def test_a9b_steps_raise(tiny, what):
-    """The chunked step on a mesh, and a ModifiedResNet whose batch is split
-    over ranks, raise NotImplementedError naming ROADMAP A9b."""
-    from flyp_tpu_torch.models import MODEL_CONFIGS
-    from flyp_tpu_torch.training import make_optimizer, make_train_step, warmup_cosine_lr
-
-    opt = make_optimizer(warmup_cosine_lr(*SCHEDULE), weight_decay=0.1)
-    if what == "grad_cache":
-        model, kwargs = CLIPModel(tiny.config), dict(grad_cache_chunks=2)
-    else:
-        rn = MODEL_CONFIGS["RN50"]
-        small = dataclasses.replace(rn, vision=dataclasses.replace(rn.vision, width=8, image_size=32),
-                                    text=dataclasses.replace(rn.text, width=64, heads=1, layers=1))
-        model, kwargs = CLIPModel(small), {}
-    with pytest.raises(NotImplementedError, match="A9b"):
-        make_train_step(model, opt, mesh=_two_rank_mesh(), **kwargs)
-
-
-@pytest.mark.parametrize("impl", ["pallas_block_mlp", "pallas_qkv", "pallas"])
-def test_a9b_routes_under_tp_raise(tiny, monkeypatch, impl):
-    """Under tensor parallelism the routes that run other kernels raise
-    NotImplementedError naming ROADMAP A9b before any work; ``pallas_block``
-    and ``xla`` are the TP routes."""
-    from flyp_tpu_torch.ops import attention as port_attention
-
-    monkeypatch.setenv(port_attention._IMPL_ENV, impl)
-    port_attention._default_impl.cache_clear()
-    try:
-        model = CLIPModel(tiny.config)
-        block = model.visual.transformer.block_0
-        block.tp_group = object()
-        with pytest.raises(NotImplementedError, match="A9b"):
-            block(torch.zeros(1, 5, 128))
-    finally:
-        port_attention._default_impl.cache_clear()
+# ------------------------------------------------------- TP routes ----
 
 
 @pytest.mark.parametrize("train", [True, False])
-@pytest.mark.parametrize("impl", ["pallas_block", "xla"])
+@pytest.mark.parametrize("impl", TP_ROUTES)
 def test_tp_residual_block_matches_whole_block(ranks, impl, train):
     """A transformer block sharded over 2 ranks (``tp.shard_params``) on
-    each TP route, in training and eval mode, against the same block whole
-    in one process: the output and the grads of x and of every parameter
-    (the shards' concatenated along their sharded dim) at 1e-5."""
+    each route, in training and eval mode, against the same block whole in
+    one process: the output and the grads of x and of every parameter (the
+    shards' concatenated along their sharded dim) at 1e-5.  ``pallas_qkv``
+    and ``pallas`` run their attention on the local heads,
+    ``pallas_block_mlp`` its MLP sub-block whole on the gathered weights."""
     out0, grads0, layout = ranks.two[0][f"block_{impl}_{train}"]
     out1, grads1, _ = ranks.two[1][f"block_{impl}_{train}"]
     want_out, want_grads = workers.whole_block(impl, train)

@@ -76,6 +76,10 @@ def collectives(rank, world):
     out["reduce_grad"] = torch.autograd.grad(comm.reduce_from_group(y, group).sum() * (rank + 1), y)[0]
     z = x[:2].clone().requires_grad_(True)
     out["copy_grad"] = torch.autograd.grad(comm.copy_to_group(z, group).sum() * (rank + 1), z)[0]
+    w = x[:2].clone().requires_grad_(True)
+    whole = comm.gather_shards(w, group, 1)
+    out["gather_shards"] = whole.detach()
+    out["gather_shards_grad"] = torch.autograd.grad((whole * whole).sum(), w)[0]
     return out
 
 
@@ -274,9 +278,20 @@ def _block_grads(block, x, cot):
 
 
 def whole_block(impl, train):
-    """The seeded block whole, in this process: output and grads."""
-    block, x, cot = _seeded_block(impl, train)
-    return _block_grads(block, x, cot)
+    """The seeded block whole, in this process: output and grads.  The
+    route's environment variable is restored after."""
+    from flyp_tpu_torch.ops import attention as dispatch
+
+    saved = os.environ.get(dispatch._IMPL_ENV)
+    try:
+        block, x, cot = _seeded_block(impl, train)
+        return _block_grads(block, x, cot)
+    finally:
+        if saved is None:
+            os.environ.pop(dispatch._IMPL_ENV, None)
+        else:
+            os.environ[dispatch._IMPL_ENV] = saved
+        dispatch._default_impl.cache_clear()
 
 
 def tp_residual_block(rank, world, impl, train):
@@ -290,3 +305,119 @@ def tp_residual_block(rank, world, impl, train):
     layout = shard_params(create_mesh(MeshConfig(data=1, model=world)), block)
     out, grads = _block_grads(block, x, cot)
     return out, grads, layout
+
+
+# --------------------------------------------------------------------------
+# The rest of the parallel layer (tests/test_torch_parallel_a9b.py).
+
+
+def synced_batch_norm(rank, world, x, scale, bias, mean, var, cot):
+    """The BatchNorm layer over ``world`` ranks of this group, each its
+    rows of the float64 batch ``x`` (NHWC): output, the grads of x, scale
+    and bias, and the running statistics; then the same with the
+    backward's sum over the group left out (the transpose taken as the
+    identity, a planted fault)."""
+    from flyp_tpu_torch.models import resnet
+    from flyp_tpu_torch.parallel.mesh import MeshConfig, create_mesh, shard_batch
+
+    mesh = create_mesh(MeshConfig(data=world))
+    group = mesh.group("data")
+    xs, gs = (torch.from_numpy(shard_batch(mesh, a)).permute(0, 3, 1, 2) for a in (x, cot))
+    out = {}
+    for name in ("sound", "identity_transpose"):
+        bn = resnet.TorchBatchNorm(x.shape[-1]).double()
+        with torch.no_grad():
+            for t, v in ((bn.scale, scale), (bn.bias, bias), (bn.mean, mean), (bn.var, var)):
+                t.copy_(torch.from_numpy(v))
+        xr = xs.clone().requires_grad_(True)
+        with resnet.synced_batch_norm(bn, group):
+            y = bn(xr)
+        real = resnet.all_reduce_
+        if name == "identity_transpose":
+            resnet.all_reduce_ = lambda t, group, op="sum": t
+        try:
+            grads = torch.autograd.grad(y, [xr, bn.scale, bn.bias], gs)
+        finally:
+            resnet.all_reduce_ = real
+        out[name] = dict(y=y.detach().permute(0, 2, 3, 1).numpy(), dx=grads[0].permute(0, 2, 3, 1).numpy(),
+                         dscale=grads[1].numpy(), dbias=grads[2].numpy(), mean=bn.mean.numpy(), var=bn.var.numpy())
+    return out
+
+
+class SGD:
+    """Plain SGD with the port optimizer's interface (``p - lr g`` for each
+    parameter not frozen), as tests/test_torch_grad_cache.py's, with
+    unused moments for the placements to cut."""
+
+    def __init__(self, lr: float):
+        self.lr = lr
+
+    def init(self, params):
+        from flyp_tpu_torch.training.train_state import AdamWState
+
+        # Zero moments the FSDP and TP placements can cut like AdamW's.
+        params = list(params)
+        return AdamWState(count=torch.zeros((), dtype=torch.int32), mu=[torch.zeros_like(p) for p in params],
+                          nu=[torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def update(self, params, grads, state, frozen=None):
+        for i, (p, g) in enumerate(zip(params, grads)):
+            if not (frozen and frozen[i]):
+                p.copy_(p - self.lr * g)
+        state.count.add_(1)
+        return torch.tensor(self.lr)
+
+
+#: A planted fault of the chunked step on a mesh: no re-layout, so each
+#: rank's chunk i is its own block's i-th piece, not its 1/n of the global
+#: chunk i.
+CONTIGUOUS_CHUNKS = "contiguous_chunks"
+
+
+def a9b_steps(rank, world, cases):
+    """Per case ``name -> dict(config, state_dict, batch, mesh, fsdp, impl,
+    chunks, sgd, schedule, steps, fault)``: ``steps`` train steps of the
+    port on this rank's rows of ``batch`` on the mesh; returns each case's
+    losses, grad norms, this rank's per-item losses and running statistics,
+    and (rank 0) the whole parameters after."""
+    from flyp_tpu_torch.models import CLIPModel
+    from flyp_tpu_torch.ops import attention as dispatch
+    from flyp_tpu_torch.parallel import comm
+    from flyp_tpu_torch.parallel.mesh import MeshConfig, create_mesh, shard_batch
+    from flyp_tpu_torch.training import create_train_state, grad_cache, make_optimizer, make_train_step
+    from flyp_tpu_torch.training import warmup_cosine_lr
+    from flyp_tpu_torch.utils.checkpoint import gather_state
+
+    out = {}
+    for name, c in cases.items():
+        os.environ[dispatch._IMPL_ENV] = c.get("impl", "xla")
+        dispatch._default_impl.cache_clear()
+        mesh = create_mesh(MeshConfig(**c["mesh"]))
+        model = CLIPModel(c["config"])
+        model.load_state_dict(c["state_dict"], strict=True)
+        opt = SGD(c["sgd"]) if c.get("sgd") else make_optimizer(warmup_cosine_lr(*c["schedule"]), weight_decay=0.1)
+        state = _place(mesh, create_train_state(model, opt), c.get("fsdp", False))
+        step = make_train_step(model, opt, mesh=mesh, log_grad_norm=True, grad_cache_chunks=c.get("chunks", 1))
+        images, tokens = (torch.from_numpy(a) for a in shard_batch(mesh, c["batch"]))
+        real = grad_cache.chunk_rows, grad_cache.global_rows, grad_cache.own_rows
+        if c.get("fault") == CONTIGUOUS_CHUNKS:
+            grad_cache.chunk_rows = lambda x, group, chunks: x
+            grad_cache.global_rows = lambda x, group, chunks: comm.all_gather(x, group)
+            grad_cache.own_rows = lambda whole, group, chunks: whole.chunk(comm.group_size(group))[
+                comm.group_rank(group)]
+        try:
+            losses, norms, per_item = [], [], []
+            for _ in range(c["steps"]):
+                state, m = step(state, images, tokens)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                per_item.append(m["per_item_loss"].numpy())
+        finally:
+            grad_cache.chunk_rows, grad_cache.global_rows, grad_cache.own_rows = real
+        params, _, _ = gather_state(state)
+        out[name] = dict(losses=losses, norms=norms, per_item=per_item,
+                         stats={k: v.numpy().copy() for k, v in model.named_buffers()},
+                         params={k: v.numpy() for k, v in params.items()} if rank == 0 else None)
+    dispatch._default_impl.cache_clear()
+    return out
