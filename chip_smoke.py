@@ -11,6 +11,7 @@
     python3 chip_smoke.py --resnet             # only the RN50 towers and the chunked step (phase 11)
     python3 chip_smoke.py --parallel           # only the head-shard kernels and the trainer across ranks (phase 12)
     python3 chip_smoke.py --parallel-trainer   # only phase 12's trainer across ranks (nccl on every card)
+    python3 chip_smoke.py --research           # only the research trainers (phase 13)
 
 Phases, each of which raises on failure:
 
@@ -171,13 +172,33 @@ Phases, each of which raises on failure:
    2``, in one process and data-parallel, its running statistics bit-equal
    on every rank and near the one-process run's, with a planted fault
    (BatchNorm on each rank's own rows) failing a check.  Phases 10 and 11's
-   trainers run at 4 ViT layers a tower and an RN50 of one bottleneck a
-   stage (full width; TRAINER_DEPTH, RN_TRAINER_DEPTH).  Its numbers go to
-   a ``"parallel"`` line.
+   trainers and phase 12's ViT-B/16 trainer runs run at 4 ViT layers a
+   tower and an RN50 of one bottleneck a stage (full width; TRAINER_DEPTH,
+   RN_TRAINER_DEPTH).  Its numbers go to a ``"parallel"`` line.
+13. the research trainers at full ViT-B/16 width, on a PatchCamelyon-shaped
+   tree the phase writes (two classes of 96-px PNGs in train, val, test and
+   train_shot_16; a guidance TSV at guidance 50 and 100): (a) few-shot
+   through ``cli/few_shot.py``, k = 16 (a batch of 32), 4 epochs, full
+   depth, the kept snapshot's scores reproducing on the card and B1/B2/B3
+   launches exact; (b) the CE ablation: its first step's loss and
+   gradients at B = 4 (B3 forward, B1 + B2 backward) against the CPU plain
+   step (cosine 0.9999 fp32, 0.99 bf16), its step's ms at batch 32, one
+   epoch through ``cli/main.py --ce_ablation`` with exact launches, and 2
+   gloo ranks at ``TRAINER_DEPTH`` against one process (per-step losses at
+   phase 12's bound); (c) the Fisher step, fp32, on 16 ViT-B/16 images
+   (B3, B1 and B2 at batch 1) and 8 RN50 images at ``RN_TRAINER_DEPTH``,
+   against the CPU port's on the same images and labels, a planted fault
+   (the square of the batch-summed gradient) failing the bound, ms an
+   example; (d) the linear probe: features through B3, the C sweep on the
+   card in float32 giving the best i, C and accuracy of the same sweep on
+   the CPU in float64; (e) the progress-validation beam search (beam 2, one
+   round, ``TRAINER_DEPTH``): each kept snapshot, restored, holding its
+   candidate's state bit for bit and giving its ``progress_eval`` again.
+   Seconds for each part; its numbers go to a ``"research"`` line.
 
 The products' numbers are a JSON line of their own (``"gemm"``), the input
-pipeline's, the evaluation's, the trainer's and phase 11's too (``"input"``,
-``"evaluation"``, ``"trainer"``, ``"resnet"``); the line
+pipeline's, the evaluation's, the trainer's and phases 11-13's too (``"input"``,
+``"evaluation"``, ``"trainer"``, ``"resnet"``, ``"parallel"``, ``"research"``); the line
 before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -186,6 +207,7 @@ beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -3485,11 +3507,12 @@ def parallel_gloo_rank(rank: int, world: int, port: int, runs: list, out_dir: st
                             timeout=datetime.timedelta(seconds=600))
     try:
         use_impl("auto")
-        for name, argv in runs:
-            ret = _rank_counts(out_dir, rank, name, lambda: _planted(
-                name, lambda: cli_main.main(cli_main.parse_main_arguments(argv))))
-            if name == "tp":
-                _tp_head(out_dir, rank, ret)
+        with cut_depth(MODEL, **TRAINER_DEPTH[MODEL]):
+            for name, argv in runs:
+                ret = _rank_counts(out_dir, rank, name, lambda: _planted(
+                    name, lambda: cli_main.main(cli_main.parse_main_arguments(argv))))
+                if name == "tp":
+                    _tp_head(out_dir, rank, ret)
     finally:
         dist.destroy_process_group()
 
@@ -3524,13 +3547,14 @@ def _rel(got: list, want: list) -> list:
 
 def phase_parallel(card: str, peaks, kernels: bool = True) -> dict:
     """Phase 12: the shard kernels (unless ``kernels`` is False), then the
-    trainer across ranks."""
+    trainer across ranks, its ViT-B/16 at ``TRAINER_DEPTH`` (full width)."""
+    out = _phase_parallel_kernels(card, peaks, kernels)
+    with cut_depth(MODEL, **TRAINER_DEPTH[MODEL]):
+        return _phase_parallel_trainer(card, out)
+
+
+def _phase_parallel_kernels(card: str, peaks, kernels: bool) -> dict:
     import gc
-
-    import torch.multiprocessing as mp
-
-    from flyp_tpu_torch.cli import main as cli_main
-    from flyp_tpu_torch.utils import checkpoint
 
     t_phase = time.perf_counter()
     out = {"card": card, "kernels": phase_parallel_kernels(peaks) if kernels else None}
@@ -3543,6 +3567,19 @@ def phase_parallel(card: str, peaks, kernels: bool = True) -> dict:
             out["tp_blocks"] = phase_tp_blocks(root)
         gc.collect()
         torch.cuda.empty_cache()
+    out["t_phase"] = t_phase
+    return out
+
+
+def _phase_parallel_trainer(card: str, out: dict) -> dict:
+    import gc
+
+    import torch.multiprocessing as mp
+
+    from flyp_tpu_torch.cli import main as cli_main
+    from flyp_tpu_torch.utils import checkpoint
+
+    t_phase = out.pop("t_phase")
     cards = torch.cuda.device_count()
     world = min(cards, 4) if cards >= 2 else 2
     backend = "nccl" if cards >= 2 else "gloo"
@@ -3852,6 +3889,487 @@ def rn_parallel_checks(root: str, runs_dir: str, results: dict, world: int, back
     return out
 
 
+# Phase 13: the research trainers (ROADMAP A11) at full ViT-B/16 width, on a
+# PatchCamelyon-shaped tree: two classes of 96-px PNGs in train, val, test
+# and train_shot_16, and a guidance TSV over the train images at two
+# guidance values (each caption names its class).
+RESEARCH_PX = 96
+RESEARCH_SPLITS = {"train": 64, "val": 32, "test": 64, "train_shot_16": 16}  # images a class
+RESEARCH_GUIDANCE = (50, 100)
+RESEARCH_BATCH = 32  # the CE ablation's and the beam search's batch, and every evaluation's
+FEW_SHOT_K, FEW_SHOT_EPOCHS = 16, 4
+FISHER_VIT_IMAGES, FISHER_RN_IMAGES = 16, 8
+# The CE ablation's 2-rank runs compute in fp32: in bf16 a sound run's
+# losses left one process's by 5.2e-3-6.8e-3 within 3 steps at lr 1e-5 and
+# 1e-6 alike (PERF.md, phase 13), above phase 12's bound.
+CE_RANK_DTYPE = "float32"
+PROBE_CS = 20
+# The Fisher of the card against the CPU port's on the same images and
+# labels: the largest per-tensor ||F_card - F_cpu|| / ||F_cpu||.  ViT-B/16's
+# from the spread of sound runs (PERF.md, phase 13: 1.22e-6); the RN's
+# training-mode BatchNorm amplifies rounding (ROADMAP, "What the parity
+# tests showed"), so it is held to SPREAD_FACTOR times the CPU's own spread
+# (one thread against all), no tighter than its floor here.  The planted
+# fault (the square of the batch-summed gradient) must exceed the bound.
+FISHER_TOL = {"vit": 1e-4, "rn": 1e-3}
+
+
+def research_image(seed: int, split: int, c: int, i: int) -> np.ndarray:
+    """A 96-px tissue-like patch: a class colour, smooth texture and noise."""
+    rng = np.random.default_rng([seed, split, c, i])
+    y, x = np.mgrid[0:RESEARCH_PX, 0:RESEARCH_PX].astype(np.float32)
+    f, p = rng.uniform(0.05, 0.3, 2), rng.uniform(0, 6, 3)
+    base = np.stack([(90, 170)[c] + (40, -30, 20)[ch] * (c - 0.5) + 30 * np.sin(x * f[0] + p[ch])
+                     * np.cos(y * f[1] + p[ch]) for ch in range(3)], axis=-1)
+    return np.clip(base + rng.normal(0, 12, base.shape), 0, 255).astype(np.uint8)
+
+
+def write_research_corpus(root: str, seed: int) -> str:
+    """The tree under ``root/patchcamelyon`` and the guidance TSV's path."""
+    from flyp_tpu_torch.data.classnames import patchcamelyon_classnames
+
+    rows = ["title\tfilepath\tlabel\tguidance\timg_id"]
+    for s, (split, n) in enumerate(RESEARCH_SPLITS.items()):
+        for c in range(2):
+            d = os.path.join(root, "patchcamelyon", split, f"class_{c}")
+            os.makedirs(d)
+            for i in range(n):
+                path = os.path.join(d, f"{i:03d}.png")
+                with open(path, "wb") as f:
+                    f.write(png_bytes(research_image(seed, s, c, i)))
+                if split == "train":
+                    for g in RESEARCH_GUIDANCE:
+                        rows.append(f"this is a photo of {patchcamelyon_classnames[c]}\t{path}\t{c}\t{g}\t"
+                                    f"{c * 1000 + i}")
+    tsv = os.path.join(root, "guidance.tsv")
+    with open(tsv, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return tsv
+
+
+def research_argv(root: str, tsv: str, name: str, *extra) -> list:
+    return ["--model", MODEL, "--ft_data", tsv, "--ft_data_test", tsv, "--template", "patchcamelyon_template",
+            "--train-dataset", "PatchCamelyonTrain", "--eval-datasets", "PatchCamelyonVal,PatchCamelyonTest",
+            "--data-location", root, "--batch-size", str(RESEARCH_BATCH), "--workers", str(INPUT_WORKERS),
+            "--seed", "0", "--lr", "1e-5", "--warmup_length", "1", "--exp_name", name, *extra]
+
+
+def research_few_shot(root: str, tsv: str) -> dict:
+    """(a) ``cli/few_shot.py``: one k = 16 run of 4 epochs at full depth;
+    the kept snapshot's scores reproduce on the card (the trainer's own
+    asserts), launches exact."""
+    from flyp_tpu_torch.cli import few_shot as cli_few_shot
+    from flyp_tpu_torch.cli import main as cli_main
+
+    _, layers_v, layers_t = model_shape()
+    n_test = 2 * RESEARCH_SPLITS["test"]
+    argv = research_argv(root, tsv, "few_shot", "--k", str(FEW_SHOT_K), "--epochs", str(FEW_SHOT_EPOCHS), "--save",
+                         os.path.join(root, "fs"))
+    cwd = os.getcwd()
+    os.chdir(root)  # cli/few_shot.py writes expt_logs/ under the working directory
+    try:
+        reset_counts()
+        # ---- the few-shot path: counts start at 0 here -----------------------
+        summary = cli_few_shot.main(cli_main.parse_main_arguments(argv), num_runs=1)
+        torch.cuda.synchronize()
+        got = counts()
+        # ---- end of the few-shot path -----------------------------------------
+    finally:
+        os.chdir(cwd)
+    # A step a epoch (both towers, B1 and B2 once a block); a head (the one
+    # prompt a class: one chunk of the text tower) and the 2k-image
+    # validation batch before training, after each epoch and for the
+    # re-score; the test set through the re-scored head.
+    scorings = FEW_SHOT_EPOCHS + 2
+    want = dict(B1=FEW_SHOT_EPOCHS * (layers_v + layers_t), B2=FEW_SHOT_EPOCHS * (layers_v + layers_t),
+                B3=scorings * (layers_t + layers_v) + layers_v * math.ceil(n_test / RESEARCH_BATCH))
+    expect_counts("few-shot", **want)
+    log(f"research: few-shot k={FEW_SHOT_K}, {FEW_SHOT_EPOCHS} epochs: {summary}; the kept snapshot re-scored "
+        f"equal; launches {got}, as counted")
+    return {"summary": summary, "launches": got}
+
+
+def ce_step_check(images, labels, texts) -> dict:
+    """The CE ablation's first step at B=4, full width: loss and gradients
+    on the card (B3 forward, B1 + B2 backward) against the CPU plain step,
+    fp32 at cosine 0.9999 and bf16 at 0.99 (phase 5's rule)."""
+    from flyp_tpu_torch.training.ce_ablation import ce_loss
+
+    def loss_grads(model, dev):
+        model.requires_grad_(True)
+        loss = ce_loss(model, torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev),
+                       torch.from_numpy(texts).to(dev))
+        return loss.item(), [g.float().cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
+
+    cfg = {n: SimpleNamespace(model=MODEL, clip_load=None, compute_dtype=n, seed=0) for n in ("float32", "bfloat16")}
+    ref_loss, ref_grads = loss_grads(build_clip_model(cfg["float32"], device="cpu"), "cpu")
+    out = {}
+    for name, min_cos, loss_tol in (("float32", 0.9999, 1e-4), ("bfloat16", 0.99, 2e-2)):
+        model = build_clip_model(cfg[name], device="cuda")
+        _, layers_v, layers_t = model_shape()
+        reset_counts()
+        loss, grads = loss_grads(model, "cuda")
+        expect_counts(f"CE step ({name})", B3=layers_v + layers_t, B1=layers_v + layers_t, B2=layers_v + layers_t)
+        cos = grad_cosines(grads, ref_grads)
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        log(f"research: CE step, {name}, B=4: loss {loss:.7f} against the CPU's {ref_loss:.7f} (rel err {rel:.3g}), "
+            f"min grad cosine {min(cos):.7f}")
+        if rel > loss_tol or min(cos) < min_cos:
+            names = [n for n, _ in model.named_parameters()]
+            raise AssertionError(f"CE step ({name}) drifts from the CPU plain step: loss rel err {rel}, worst "
+                                 f"{sorted(zip(cos, names))[:5]}")
+        out[name] = {"loss_rel_err": rel, "min_grad_cosine": min(cos)}
+        del model, grads
+    return out
+
+
+def ce_step_ms() -> tuple:
+    """ms of one CE ablation step at batch 32 (bf16, AdamW), full width,
+    and a profile of one more (device busy share, the port's kernels'
+    share, the top kernels)."""
+    from flyp_tpu_torch.data.classnames import patchcamelyon_classnames
+    from flyp_tpu_torch.templates import get_template
+    from flyp_tpu_torch.tokenizer import tokenize
+    from flyp_tpu_torch.training.ce_ablation import make_ce_train_step
+
+    model = build_clip_model(SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="bfloat16", seed=0),
+                             device="cuda")
+    opt = make_optimizer(warmup_cosine_lr(1e-5, 1, 100), 0.1)
+    state = create_train_state(model, opt)
+    step = make_ce_train_step(model, opt)
+    px = model.config.vision.image_size
+    images = torch.randn(RESEARCH_BATCH, px, px, 3, device="cuda", dtype=torch.bfloat16)
+    labels = torch.arange(RESEARCH_BATCH, device="cuda") % 2
+    template = get_template("patchcamelyon_template")
+    texts = torch.from_numpy(shrink_context(tokenize([template[0](c) for c in patchcamelyon_classnames]))).cuda()
+    ms = cuda_ms(lambda: step(state, images, labels, texts), iters=10, warmup=3)
+    return ms, device_profile(lambda: step(state, images, labels, texts), {"port": PORT_KERNELS})
+
+
+def ce_gloo_rank(rank: int, world: int, port: int, argv: list, cwd: str):
+    """One rank of the CE ablation on gloo, both ranks on card 0, at
+    ``TRAINER_DEPTH``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from flyp_tpu_torch.cli import main as cli_main
+
+    os.chdir(cwd)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        use_impl("auto")
+        with cut_depth(MODEL, **TRAINER_DEPTH[MODEL]):
+            cli_main.main(cli_main.parse_main_arguments(argv))
+    finally:
+        dist.destroy_process_group()
+
+
+def ce_losses(cwd: str, name: str) -> list:
+    base = os.path.join(cwd, "expt_logs", name)
+    (key,) = os.listdir(base)
+    with open(os.path.join(base, key, "metrics.jsonl")) as f:
+        return [r["ID CE Loss"] for r in map(json.loads, f) if "ID CE Loss" in r]
+
+
+def research_ce(root: str, tsv: str) -> dict:
+    """(b) the CE ablation: its first step against the CPU, then
+    ``cli/main.py --ce_ablation`` for one epoch with exact launches, then 2
+    gloo ranks at ``TRAINER_DEPTH`` against one process."""
+    import torch.multiprocessing as mp
+
+    from flyp_tpu_torch.cli import main as cli_main
+    from flyp_tpu_torch.data.classnames import patchcamelyon_classnames
+    from flyp_tpu_torch.templates import get_template
+    from flyp_tpu_torch.tokenizer import tokenize
+
+    px, layers_v, layers_t = model_shape()
+    images, _ = bench_batch(4, px, seed=0)
+    labels = np.array([0, 1, 1, 0], np.int64)
+    template = get_template("patchcamelyon_template")
+    texts = shrink_context(tokenize([template[0](c) for c in patchcamelyon_classnames]))
+    out = {"step": ce_step_check(images, labels, texts)}
+    out["step_ms_bf16_b32"], out["step_profile"] = ce_step_ms()
+    log(f"research: CE step at batch {RESEARCH_BATCH}, bf16: {out['step_ms_bf16_b32']:.3f} ms, device busy "
+        f"{out['step_profile'].get('busy_share', float('nan')):.3f} of one profiled step")
+
+    cwd = os.getcwd()
+    os.chdir(root)  # cli/main.py writes expt_logs/ under the working directory
+    try:
+        n_train = 2 * RESEARCH_SPLITS["train"]
+        steps = n_train // RESEARCH_BATCH
+        n_eval = 2 * RESEARCH_SPLITS["val"] + 2 * RESEARCH_SPLITS["test"]
+        argv = research_argv(root, tsv, "ce", "--ce_ablation", "--epochs", "1", "--save", os.path.join(root, "ce"))
+        reset_counts()
+        # ---- the CE ablation path: counts start at 0 here --------------------
+        ret = cli_main.main(cli_main.parse_main_arguments(argv))
+        torch.cuda.synchronize()
+        out["launches"] = counts()
+        # ---- end of the CE ablation path --------------------------------------
+        per_step = layers_v + layers_t
+        evals = math.ceil(2 * RESEARCH_SPLITS["val"] / RESEARCH_BATCH) + math.ceil(
+            2 * RESEARCH_SPLITS["test"] / RESEARCH_BATCH)
+        expect_counts("the CE ablation", B1=steps * per_step, B2=steps * per_step,
+                      B3=steps * per_step + layers_t + layers_v * evals)
+        losses = ce_losses(root, "ce")
+        if os.path.basename(ret) != "checkpoint_0" or len(losses) != steps or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"the CE ablation returned {ret}, logged losses {losses}")
+        log(f"research: cli/main.py --ce_ablation, one epoch of {steps} steps and {n_eval} evaluation images: losses "
+            f"{losses}; launches {out['launches']}, as counted")
+        out["losses"] = losses
+
+        # Across ranks, at the trainer depth: one process, then 2 gloo ranks.
+        extra = ("--ce_ablation", "--epochs", "1", "--warmup_length", "0", "--compute_dtype", CE_RANK_DTYPE)
+        with cut_depth(MODEL, **TRAINER_DEPTH[MODEL]):
+            t0 = time.perf_counter()
+            cli_main.main(cli_main.parse_main_arguments(research_argv(root, tsv, "ce_single", *extra)))
+            out["single_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mp.start_processes(ce_gloo_rank, args=(2, _free_port(), research_argv(root, tsv, "ce_ranks", *extra), root),
+                           nprocs=2, join=True, start_method="spawn")
+        out["ranks_s"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    single, ranks = ce_losses(root, "ce_single"), ce_losses(root, "ce_ranks")
+    rel = _rel(ranks, single)
+    out.update(single_losses=single, rank_losses=ranks, rank_loss_rel_err=rel)
+    log(f"research: the CE ablation on 2 gloo ranks: losses {ranks} against one process's {single} (rel err "
+        f"{max(rel):.3g}, bound {PARALLEL_LOSS_TOL}; the first step's {rel[0]:.3g}, bound 1e-6)")
+    if len(ranks) != len(single) or not single or max(rel) > PARALLEL_LOSS_TOL or rel[0] > 1e-6:
+        raise AssertionError(f"the CE ablation on 2 ranks drifts from one process: {ranks} vs {single}")
+    return out
+
+
+def fisher_rel_errs(got: dict, ref: dict) -> dict:
+    """Per tensor ||a - b|| / ||b|| over the tensors with a nonzero Fisher,
+    those whose exact gradient is zero (``ZERO_GRADS``) left out."""
+    return {k: float((got[k].double() - v.double()).norm() / v.double().norm()) for k, v in ref.items()
+            if float(v.norm()) > 0 and k not in ZERO_GRADS}
+
+
+def check_zero_fishers(fishers, where: str) -> None:
+    """A tensor whose exact gradient is zero has a Fisher of rounding size:
+    below 1e-8 of the largest (the square of grad_report's 1e-5 on
+    gradients, with room)."""
+    for f in fishers:
+        largest = max(float(v.norm()) for v in f.values())
+        for k in ZERO_GRADS:
+            if k in f and float(f[k].norm()) > 1e-8 * largest:
+                raise AssertionError(f"{where}: {k}'s Fisher is not ~0: {float(f[k].norm())} of {largest}")
+
+
+def summed_gradient_squared(model, head, images, labels) -> dict:
+    """The planted fault: the square of the batch-summed gradient (one
+    batch forward and backward) in place of the sum of per-example squares."""
+    from flyp_tpu_torch.training import fisher
+
+    with fisher._fisher_mode(model, grad=True):
+        logits = head(model.encode_image(images)).float()
+        loss = torch.nn.functional.cross_entropy(logits, labels, reduction="sum")
+        grads = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    return {n: (torch.zeros_like(p) if g is None else g.float().square()).cpu()
+            for (n, p), g in zip(model.named_parameters(), grads)}
+
+
+def research_fisher() -> dict:
+    """(c) the Fisher step, fp32: 16 ViT-B/16 images at full depth and 8
+    RN50 images at ``RN_TRAINER_DEPTH`` on the card (labels drawn there)
+    against the CPU port on the same images and labels; the planted fault
+    must fail the bound; ms per example (also ViT-B/16 in bf16)."""
+    from flyp_tpu_torch.data.classnames import patchcamelyon_classnames
+    from flyp_tpu_torch.templates import get_template
+    from flyp_tpu_torch.training.fisher import make_fisher_step
+
+    out = {}
+    template = get_template("patchcamelyon_template")
+    cases = (("vit", MODEL, {}, FISHER_VIT_IMAGES), ("rn", RN_MODEL, RN_TRAINER_DEPTH, FISHER_RN_IMAGES))
+    for tower, name, depth, n in cases:
+        with cut_depth(name, **depth):
+            spec = SimpleNamespace(model=name, clip_load=None, compute_dtype="float32", seed=0)
+            model = build_clip_model(spec, device="cuda")
+            px = model.config.vision.image_size
+            layers_v = model.config.vision.layers if tower == "vit" else 0
+            images = torch.from_numpy(bench_batch(n, px, seed=1)[0])
+            head = get_zeroshot_classifier(model, patchcamelyon_classnames, template)
+            step = make_fisher_step(model, head, seed=0)
+            torch.cuda.synchronize()
+            drawn, real = [], torch.multinomial
+            torch.multinomial = lambda *a, **k: drawn.append(real(*a, **k)) or drawn[-1]
+            reset_counts()
+            # ---- the Fisher step: counts start at 0 here -----------------------
+            try:
+                t0 = time.perf_counter()
+                sq, _ = step(images.cuda())
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
+            finally:
+                torch.multinomial = real
+            got = counts()
+            # ---- end of the Fisher step -----------------------------------------
+            # ViT: one batch forward for the labels, then B3 forward and B1 + B2
+            # backward a block for each example; the RN tower runs no kernel.
+            expect_counts(f"Fisher ({name})", B3=layers_v * (1 + n), B1=layers_v * n, B2=layers_v * n)
+            labels = drawn[0][:, 0]
+            sq = {k: v.cpu() for k, v in sq.items()}
+            cpu = build_clip_model(spec, device="cpu")
+            cpu_head = copy.deepcopy(head).to("cpu")  # the same head on both sides
+            t0 = time.perf_counter()
+            ref, _ = make_fisher_step(cpu, cpu_head)(images, labels.cpu())
+            cpu_s = time.perf_counter() - t0
+            bound, spread = FISHER_TOL[tower], None
+            if tower == "rn":
+                threads = torch.get_num_threads()
+                torch.set_num_threads(1)
+                try:
+                    ref1, _ = make_fisher_step(cpu, cpu_head)(images, labels.cpu())
+                finally:
+                    torch.set_num_threads(threads)
+                check_zero_fishers([ref1], f"Fisher {name} on the CPU")
+                spread = max(fisher_rel_errs(ref1, ref).values())
+                bound = max(bound, SPREAD_FACTOR * spread)
+            check_zero_fishers([sq, ref], f"Fisher {name}")
+            errs = fisher_rel_errs(sq, ref)
+            fault = fisher_rel_errs(summed_gradient_squared(model, head, images.cuda(), labels), ref)
+            worst, fault_worst = max(errs.values()), max(fault.values())
+            rec = {"images": n, "ms_per_example_fp32": 1e3 * card_s / n, "cpu_ms_per_example": 1e3 * cpu_s / n,
+                   "max_rel_err": worst, "median_rel_err": float(np.median(list(errs.values()))),
+                   "cpu_spread": spread, "fault_max_rel_err": fault_worst, "bound": bound, "launches": got}
+            log(f"research: Fisher {name} ({n} images, fp32): {rec['ms_per_example_fp32']:.2f} ms an example on the "
+                f"card ({rec['cpu_ms_per_example']:.1f} on the CPU); per-tensor rel err against the CPU max "
+                f"{worst:.3g}, median {rec['median_rel_err']:.3g} (bound {bound:.3g}; the CPU's own spread "
+                f"{spread}); the planted fault {fault_worst:.3g}")
+            if worst > bound:
+                raise AssertionError(f"the Fisher of {name} on the card drifts from the CPU's: {worst} > {bound}")
+            if fault_worst <= bound:
+                raise AssertionError(f"the planted Fisher fault passes the {name} bound: {fault_worst} <= {bound}")
+            del model, cpu
+            if tower == "vit":
+                bf16 = build_clip_model(SimpleNamespace(model=name, clip_load=None, compute_dtype="bfloat16",
+                                                        seed=0), device="cuda")
+                step16 = make_fisher_step(bf16, head, seed=0)
+                step16(images.cuda())  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step16(images.cuda())
+                torch.cuda.synchronize()
+                rec["ms_per_example_bf16"] = 1e3 * (time.perf_counter() - t0) / n
+                log(f"research: Fisher {name} in bf16: {rec['ms_per_example_bf16']:.2f} ms an example")
+                del bf16
+            out[tower] = rec
+    return out
+
+
+def research_probe(root: str, tsv: str) -> dict:
+    """(d) ``training/linear_probe.py``: the image features through B3
+    (launches exact), the C sweep on the card in the features' float32,
+    and the same sweep on the CPU in float64: the same best i, C and
+    accuracy."""
+    from flyp_tpu_torch.cli import main as cli_main
+    from flyp_tpu_torch.training.linear_probe import linear_probe, log_reg_warm_start_sweep
+    from flyp_tpu_torch.utils.logging import get_logger
+
+    _, layers_v, _ = model_shape()
+    cache = os.path.join(root, "probe_cache")
+    cfg = cli_main.parse_main_arguments(research_argv(root, tsv, "probe", "--eval-datasets", "PatchCamelyonVal",
+                                                      "--cache-dir", cache))
+    model = build_clip_model(cfg, device="cuda")
+    reset_counts()
+    # ---- the linear probe: counts start at 0 here ------------------------------
+    t0 = time.perf_counter()
+    best = linear_probe(cfg, get_logger(None), model=model, num_cs=PROBE_CS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    # ---- end of the linear probe -------------------------------------------------
+    batches = sum(math.ceil(2 * RESEARCH_SPLITS[s] / RESEARCH_BATCH) for s in ("train", "val"))
+    expect_counts("the linear probe's features", B3=layers_v * batches)
+    feats = {}
+    for split, ds in (("train", "PatchCamelyonTrain"), ("val", "PatchCamelyonVal")):
+        with np.load(os.path.join(cache, ds, split, "features.npz")) as z:
+            feats[split] = (z["features"].astype(np.float64), z["labels"])
+    t0 = time.perf_counter()
+    ref = log_reg_warm_start_sweep(*feats["train"], *feats["val"], num_cs=PROBE_CS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    got = (best["i"], best["c"], best["acc"])
+    log(f"research: linear probe over {PROBE_CS} C: best (i, C, acc) {got} on the card in float32 ({card_s:.1f} s with "
+        f"the features), {(ref['i'], ref['c'], ref['acc'])} on the CPU in float64 ({cpu_s:.1f} s)")
+    if got != (ref["i"], ref["c"], ref["acc"]):
+        raise AssertionError(f"the probe's best fit on the card {got} differs from the CPU's float64 one")
+    return {"best": {"i": best["i"], "c": best["c"], "acc": best["acc"]}, "card_s": card_s, "cpu_float64_s": cpu_s,
+            "coef_rel_err": float(np.linalg.norm(best["coef"] - ref["coef"]) / np.linalg.norm(ref["coef"]))}
+
+
+def state_digest(model) -> str:
+    """A hash of every parameter's and buffer's bits."""
+    return digest([t.reshape(-1) for t in model.state_dict().values()])
+
+
+def research_beam(root: str, tsv: str) -> dict:
+    """(e) ``training/progress.py`` at ``TRAINER_DEPTH``: beam 2, one
+    round; each kept snapshot, restored, holds the trained candidate's
+    state bit for bit and gives its ``progress_eval`` again."""
+    from flyp_tpu_torch.cli import main as cli_main
+    from flyp_tpu_torch.training import progress
+    from flyp_tpu_torch.utils.logging import get_logger
+
+    cfg = cli_main.parse_main_arguments(research_argv(root, tsv, "beam", "--curriculum", "--eval-datasets",
+                                                      "PatchCamelyonVal", "--save", os.path.join(root, "beam")))
+    cfg.log_dir = os.path.join(root, "beam_logs")
+    seen = []
+    real = progress.progress_eval
+
+    def recorded(cfg, model, *args, **kwargs):
+        res = real(cfg, model, *args, **kwargs)
+        seen.append((state_digest(model), res[2]))
+        return res
+
+    with cut_depth(MODEL, **TRAINER_DEPTH[MODEL]):
+        model = build_clip_model(cfg, device="cuda")
+        progress.progress_eval = recorded
+        try:
+            beam = progress.flyp_progress_validation(cfg, get_logger(None), model=model, beam_size=2, num_rounds=1,
+                                                     select_metric="Avg OOD Acc")
+        finally:
+            progress.progress_eval = real
+        trained = seen[1:]  # after the starting point's: one a guidance
+        state = progress.create_train_state(model, progress.make_optimizer(lambda c: 0.0, 0.0))
+        restored = []
+        for path in beam:
+            state, last_perform, step = progress._restore(path, state)
+            stats = real(cfg, model, {}, 0, get_logger(None))[2]
+            restored.append((state_digest(model), stats))
+            if restored[-1] not in trained or stats != last_perform:
+                raise AssertionError(f"the snapshot {path} does not restore its candidate: {restored[-1]} not in "
+                                     f"{trained}")
+    names = sorted(os.listdir(cfg.log_dir))
+    if len(beam) != 2 or sum(n.startswith("progress0_") for n in names) != 3:
+        raise AssertionError(f"the beam search kept {beam} and wrote {names}")
+    log(f"research: beam search (beam 2, one round) kept {[os.path.basename(p) for p in beam]}; each restored "
+        f"snapshot holds its candidate's state bit for bit and gives its progress_eval {[s for _, s in restored]}")
+    return {"beam": [os.path.basename(p) for p in beam], "tsvs": names, "step": step}
+
+
+def phase_research(card: str, seed: int = 0) -> dict:
+    """Phase 13: the research trainers, (a)-(e), each timed."""
+    t_phase = time.perf_counter()
+    out = {"card": card, "s": {}}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        tsv = write_research_corpus(root, seed)
+        out["s"]["corpus"] = time.perf_counter() - t0
+        for part, fn in (("few_shot", lambda: research_few_shot(root, tsv)), ("ce", lambda: research_ce(root, tsv)),
+                         ("fisher", research_fisher), ("probe", lambda: research_probe(root, tsv)),
+                         ("beam", lambda: research_beam(root, tsv))):
+            t0 = time.perf_counter()
+            out[part] = fn()
+            out["s"][part] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"research: seconds {out['s']}; phase took {out['phase_s']:.1f} s on {card}")
+    return out
+
 def results_path(root: str, name: str) -> str:
     """The step checkpoint a run ended with (``checkpoint_0_step_{n-1}``)."""
     base = os.path.join(root, name, name)
@@ -3882,10 +4400,11 @@ def parallel_rank_main(out_dir: str, name: str, argv_json: str) -> int:
         torch.cuda.set_device(local)
         dist.init_process_group("nccl", device_id=torch.device("cuda", local))
     try:
-        ret = _rank_counts(out_dir, rank, name, lambda: _planted(
-            name, lambda: cli_main.main(cli_main.parse_main_arguments(json.loads(argv_json)))))
-        if name == "tp":
-            _tp_head(out_dir, rank, ret)
+        with cut_depth(MODEL, **TRAINER_DEPTH[MODEL]):
+            ret = _rank_counts(out_dir, rank, name, lambda: _planted(
+                name, lambda: cli_main.main(cli_main.parse_main_arguments(json.loads(argv_json)))))
+            if name == "tp":
+                _tp_head(out_dir, rank, ret)
     finally:
         if name == "tp":
             dist.destroy_process_group()
@@ -3948,6 +4467,10 @@ def main() -> int:
         use_impl("auto")
         log(json.dumps({"card": card, "parallel": phase_parallel(card, peaks, "--parallel" in sys.argv[1:])}))
         return 0
+    if "--research" in sys.argv[1:]:
+        use_impl("auto")
+        log(json.dumps({"card": card, "research": phase_research(card)}))
+        return 0
 
     # The default route ("auto", the fused block) for the phases before the
     # route phase, whatever the environment says.
@@ -3974,6 +4497,8 @@ def main() -> int:
     use_impl("auto")
     parallel = phase_parallel(card, peaks)
     shard_cases = parallel["kernels"]
+    use_impl("auto")
+    research = phase_research(card)
 
     def line(name, source, replaces, launches, cases, pick=None):
         # B1-B6 are reported at the main path's vision shape, T1-T4 at the
@@ -4037,6 +4562,7 @@ def main() -> int:
     log(json.dumps({"card": card, "trainer": trainer}))
     log(json.dumps({"card": card, "resnet": resnet}))
     log(json.dumps({"card": card, "parallel": {k: v for k, v in parallel.items() if k != "kernels"}}))
+    log(json.dumps({"card": card, "research": research}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,10 @@ under ``--device cpu``) and leaves it on exit.
 
 Run directories are keyed ``<exp_name>/_BS{bs}_WD{wd}_LR{lr}_run{n}`` under
 ``--save`` (checkpoints) and ``expt_logs/`` (log, stats TSVs, metrics).
-``--ce_ablation`` and ``--progress_validation`` are ROADMAP item A11.
+Dispatch, as in the JAX CLI: ``--ce_ablation`` runs the cross-entropy
+ablation (``training/ce_ablation.py``, on a mesh too),
+``--progress_validation`` the progress-validation beam search
+(``training/progress.py``, one process), anything else the FLYP trainer.
 """
 
 from __future__ import annotations
@@ -85,12 +88,6 @@ def main(cfg=None):
 
 
 def _main(cfg):
-    for flag, trainer in (("ce_ablation", "the CE-ablation trainer"),
-                          ("progress_validation", "the progress-validation trainer")):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"--{flag} runs {trainer}, which is not ported yet: ROADMAP.md, item A11 (research trainers)")
-
     run_key = cfg.run_key()
     exp = cfg.exp_name or "flyp"
     if cfg.save is not None:
@@ -100,6 +97,15 @@ def _main(cfg):
     os.makedirs(cfg.log_dir, exist_ok=True)
     logger = get_logger(cfg.log_dir)
     logger.info(cfg)
+
+    if cfg.ce_ablation:
+        from flyp_tpu_torch.training.ce_ablation import ce_ablation
+
+        return ce_ablation(cfg, logger)
+    if cfg.progress_validation:
+        from flyp_tpu_torch.training.progress import flyp_progress_validation
+
+        return flyp_progress_validation(cfg, logger)
 
     from flyp_tpu_torch.training.flyp import flyp_train
 

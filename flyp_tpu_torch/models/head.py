@@ -28,3 +28,8 @@ class ClassificationHead(nn.Module):
             features = (x32 / torch.linalg.vector_norm(x32, dim=-1, keepdim=True)).to(features.dtype)
         w = self.weight.to(features.dtype)
         return (torch.matmul(features.float(), w.float().T) + self.bias).float()
+
+    @classmethod
+    def zeros(cls, num_classes: int = 1000, embed_dim: int = 512, normalize: bool = True) -> "ClassificationHead":
+        """An all-zero head (a placeholder where only the features are read)."""
+        return cls(torch.zeros((num_classes, embed_dim), dtype=torch.float32), normalize=normalize)

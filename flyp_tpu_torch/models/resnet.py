@@ -135,8 +135,27 @@ class TorchBatchNorm(nn.Module):
         if self.group is not None:
             return _SyncBatchNorm.apply(x, self.scale, self.bias, self.mean, self.var, self.momentum, self.epsilon,
                                         write, self.group)
+        if x.numel() == x.shape[1]:
+            return self._one_value_per_channel(x, write)
         return F.batch_norm(x, self.mean if write else None, self.var if write else None, self.scale, self.bias,
                             training=True, momentum=1 - self.momentum, eps=self.epsilon)
+
+    def _one_value_per_channel(self, x: torch.Tensor, write: bool) -> torch.Tensor:
+        """Train mode on one value a channel (a per-example pass that reaches a
+        1x1 map), where ``F.batch_norm`` raises: the JAX layer's formula, so
+        the mean is ``x``, the variance 0, the output ``bias`` and ``dx``
+        zero; the running variance moves with the factor ``n / max(n - 1,
+        1)`` = 1."""
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = x32.mean(_CHANNELS)
+        var = (x32 - _per_channel(mean)).square().mean(_CHANNELS)
+        if write:
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        y = (x32 - _per_channel(mean)) * _per_channel(torch.rsqrt(var + self.epsilon))
+        return (y * _per_channel(self.scale) + _per_channel(self.bias)).to(x.dtype)
 
 
 @contextlib.contextmanager

@@ -47,7 +47,8 @@ def _inputs(B, L, D, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(4, 197, 768, 12, False), (4, 77, 512, 8, True), (3, 13, 128, 2, True)])
+@pytest.mark.parametrize("shape", [(4, 197, 768, 12, False), (4, 77, 512, 8, True), (3, 13, 128, 2, True),
+                                   (1, 197, 768, 12, False), (1, 77, 512, 8, True), (1, 16, 512, 8, True)])
 def test_kernel_matches_plain_on_card(card, shape, dtype):
     """fp32 (TF32 off) at 1e-4: only the fp32 summation order differs.
     bf16 at 2e-2 absolute + relative: the kernel rounds where the plain
@@ -120,12 +121,15 @@ TRAIN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 1e-2)}
 @pytest.mark.parametrize(
     "shape",
     [(4, 197, 768, 12, False), (4, 77, 512, 8, True), (3, 32, 512, 8, True), (3, 13, 128, 2, True),
-     (2, 257, 768, 12, False), (2, 320, 128, 2, True), (2, 577, 1024, 16, False)],
+     (2, 257, 768, 12, False), (2, 320, 128, 2, True), (2, 577, 1024, 16, False),
+     (1, 197, 768, 12, False), (1, 77, 512, 8, True), (1, 16, 512, 8, True)],
 )
 def test_training_kernels_match_plain_on_card(card, shape, dtype):
     """B1 on out, o, q, k, v and lse; B2 on dx, dWqkv, dbqkv, dscale and
     dbias against the plain backward, and through autograd; up to
-    ViT-L/14@336px's 577 keys at D = 1024."""
+    ViT-L/14@336px's 577 keys at D = 1024, and at batch 1 (the Fisher's
+    per-example passes: M = 197 rows, under two of the GEMM's 128-row
+    tiles)."""
     B, L, D, H, causal = shape
     dt = getattr(torch, dtype)
     elem, norm = TRAIN_TOL[dtype]
@@ -981,3 +985,41 @@ def test_chunked_step_on_card_matches_oracle(card, tower):
             assert float(a @ b) >= 0.9999 * float(a.norm() * b.norm()), name
     for (k, v), w in zip(model.named_buffers(), oracle.buffers()):
         assert torch.equal(v, w), k
+
+
+def test_fisher_step_on_card_matches_cpu(card):
+    """The Fisher step (``training/fisher.py``) of a small fp32 ViT on the
+    card (B3 for each example's forward, B1 and B2 for its backward, all at
+    batch 1) against the CPU's plain step on the same labels: each
+    parameter's sum of squared gradients within 1e-3 of its norm (fp32
+    sums in another order, squared), launches exact."""
+    from types import SimpleNamespace
+
+    from flyp_tpu_torch.models import build_clip_model
+    from flyp_tpu_torch.training.fisher import make_fisher_step
+
+    cfg = MODEL_CONFIGS["ViT-B/16"]
+    tiny = dataclasses.replace(cfg, embed_dim=64,
+                               vision=dataclasses.replace(cfg.vision, image_size=64, width=128, layers=2, heads=2),
+                               text=dataclasses.replace(cfg.text, width=128, heads=2, layers=1))
+    spec = SimpleNamespace(model="ViT-B/16", clip_load=None, compute_dtype="float32", seed=0)
+    rng = np.random.default_rng(0)
+    images = torch.from_numpy(rng.standard_normal((4, 64, 64, 3)).astype(np.float32))
+    W = torch.from_numpy(rng.standard_normal((64, 5)).astype(np.float32))
+    labels = torch.tensor([0, 3, 1, 4])
+    out = {}
+    for dev in ("cpu", card):
+        model = build_clip_model(spec, config_override=tiny, device=dev)
+        step = make_fisher_step(model, lambda f, w=W.to(dev): f.float() @ w)
+        before = (tab.attention_block_inference.launches, tab.attention_block.fwd_launches,
+                  tab.attention_block.bwd_launches)
+        sq, n = step(images.to(dev), labels.to(dev))
+        torch.cuda.synchronize()
+        after = (tab.attention_block_inference.launches, tab.attention_block.fwd_launches,
+                 tab.attention_block.bwd_launches)
+        out[str(dev)] = ({k: v.cpu() for k, v in sq.items()}, [b - a for a, b in zip(before, after)])
+    (ref, cpu_launches), (got, launches) = out["cpu"], out[str(card)]
+    assert cpu_launches == [0, 0, 0] and launches == [4 * 2, 4 * 2, 4 * 2]
+    for k, v in ref.items():
+        assert float((got[k] - v).norm()) <= 1e-3 * float(v.norm()) + 1e-12, k
+    assert any(float(v.norm()) > 0 for k, v in ref.items() if k.startswith("visual."))

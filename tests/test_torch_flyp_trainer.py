@@ -298,19 +298,29 @@ print("LOADED", sorted(n for n in sys.modules if n.split(".")[0] in ("sklearn", 
 def test_cli_main_run_directories_and_refusals(corpus, tmp_path, monkeypatch):  # noqa: F811
     """``cli/main.py`` keys the run as the JAX CLI does (``<save>/<exp>/
     <run key>`` and ``expt_logs/<exp>/<run key>``), runs on ``--device
-    cpu`` when asked, and refuses the research trainers before any work."""
+    cpu`` when asked, and dispatches ``--ce_ablation`` and
+    ``--progress_validation`` to the research trainers, as the JAX CLI
+    does."""
     from flyp_tpu_torch.cli import main as cli_main
     from flyp_tpu_torch.models import factory
+    from flyp_tpu_torch.training import ce_ablation, progress
 
     monkeypatch.chdir(tmp_path)
     argv = ["--train-dataset", "PatchCamelyonVal", "--template", "patchcamelyon_template", "--eval-datasets",
             "PatchCamelyonVal", "--data-location", corpus["root"], "--ft_data", corpus["train_csv"],
             "--batch-size", "8", "--epochs", "1", "--workers", "2", "--compute_dtype", "float32",
             "--model", "ViT-B/16", "--save", str(tmp_path / "ckpt"), "--exp_name", "cli"]
-    for flag in ("--ce_ablation", "--progress_validation"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            cli_main.main(cli_main.parse_main_arguments([*argv, flag]))
-    assert not os.path.exists(tmp_path / "ckpt") and not os.path.exists(tmp_path / "expt_logs")
+    reached = []
+    monkeypatch.setattr(ce_ablation, "ce_ablation", lambda cfg, logger: reached.append(("ce", cfg)) or "ce")
+    monkeypatch.setattr(progress, "flyp_progress_validation",
+                        lambda cfg, logger: reached.append(("progress", cfg)) or "progress")
+    for flag, name in (("--ce_ablation", "ce"), ("--progress_validation", "progress")):
+        assert cli_main.main(cli_main.parse_main_arguments([*argv, flag, "--exp_name", name])) == name
+        cfg = reached[-1][1]
+        assert reached[-1][0] == name and cfg.device == "cuda" and getattr(cfg, flag[2:])
+        assert cfg.save == os.path.join(str(tmp_path / "ckpt"), name, cfg.run_key())
+        assert cfg.log_dir == os.path.join("expt_logs", name, cfg.run_key()) and os.path.isdir(cfg.log_dir)
+    assert len(reached) == 2
     assert cli_main.parse_main_arguments(argv).device == "cuda"
     tiny = port_model().config
     real = factory.build_clip_model

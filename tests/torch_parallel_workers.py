@@ -421,3 +421,26 @@ def a9b_steps(rank, world, cases):
                          params={k: v.numpy() for k, v in params.items()} if rank == 0 else None)
     dispatch._default_impl.cache_clear()
     return out
+
+
+# --------------------------------------------------------------------------
+# The CE ablation across ranks (tests/test_torch_research_ce.py).
+
+
+def ce_ablation_runs(rank, world, runs):
+    """Each run of ``runs`` (name, config fields, model config, state dict)
+    through ``training/ce_ablation.py`` on this rank's rows: the model's
+    state dict afterwards."""
+    import logging
+
+    from flyp_tpu_torch.config import ExperimentConfig
+    from flyp_tpu_torch.models import CLIPModel
+    from flyp_tpu_torch.training.ce_ablation import ce_ablation
+
+    out = {}
+    for name, fields, config, state_dict in runs:
+        model = CLIPModel(config)
+        model.load_state_dict(state_dict)
+        ce_ablation(ExperimentConfig(**fields), logging.getLogger("ce_ablation_ranks"), model=model, print_every=1)
+        out[name] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return out
