@@ -12,6 +12,7 @@
     python3 chip_smoke.py --parallel           # only the head-shard kernels and the trainer across ranks (phase 12)
     python3 chip_smoke.py --parallel-trainer   # only phase 12's trainer across ranks (nccl on every card)
     python3 chip_smoke.py --research           # only the research trainers (phase 13)
+    python3 chip_smoke.py --surface            # only HTTP serving, entry points and tools (phase 14)
 
 Phases, each of which raises on failure:
 
@@ -195,10 +196,33 @@ Phases, each of which raises on failure:
    round, ``TRAINER_DEPTH``): each kept snapshot, restored, holding its
    candidate's state bit for bit and giving its ``progress_eval`` again.
    Seconds for each part; its numbers go to a ``"research"`` line.
+14. HTTP serving, the entry points and the tools: (a) ``serving/http.py``
+   bound on an ephemeral port over phase 4's full-width ViT-B/16 bf16
+   server (in the whole run, before phase 4 drops it): ``/healthz``, then
+   ``/features`` and ``/classify?k=3`` at 5 and 64 images and
+   ``/text_features``, each answer bit-equal to the direct ``ClipServer``
+   call and B3's launches exact; 8 of those requests again on 4 threads at
+   once, bit-equal and exact; ms a request beside the direct call; (b)
+   ``entry.entry()`` (ViT-B/16, bf16, batch 8): B3 once a block (24), a
+   finite loss within bf16 rounding of the plain route's, and the image
+   and text features it computes against the plain route's on the same
+   model and batch (least row cosine 0.99, as phase 4's bf16 bound); (c)
+   ``entry.dryrun_multichip(4)``: the eight checks on 4 ranks (``gloo``
+   ranks sharing the card where fewer than 4 cards are visible), B1 and B2
+   once a block of the tiny model in its kernel step, whose loss and
+   gradient norm the dry run holds to the plain step's; (d)
+   ``tools/validate_data.py`` and ``tools/validate_checkpoint.py`` (a
+   full-width ``.pt``, ``--template simple_template``, B3 exact) on an
+   ImageNet val tree of one PNG a class, its ``activation_crosscheck`` on
+   the card (fp32, B3 once a block) against a stand-in reference that runs
+   the port's plain model on the CPU (features within 1e-3 of their
+   largest entry), and the datacreation tools that need no h5py on small
+   trees.  Its numbers go to a ``"surface"`` line.
 
 The products' numbers are a JSON line of their own (``"gemm"``), the input
-pipeline's, the evaluation's, the trainer's and phases 11-13's too (``"input"``,
-``"evaluation"``, ``"trainer"``, ``"resnet"``, ``"parallel"``, ``"research"``); the line
+pipeline's, the evaluation's, the trainer's and phases 11-14's too (``"input"``,
+``"evaluation"``, ``"trainer"``, ``"resnet"``, ``"parallel"``, ``"research"``,
+``"surface"``); the line
 before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -237,6 +261,7 @@ from flyp_tpu_torch.ops.losses import clip_loss  # noqa: E402
 from flyp_tpu_torch.serving import ClipServer  # noqa: E402
 from flyp_tpu_torch.templates import simple_template  # noqa: E402
 from flyp_tpu_torch.testing import check_gemm, check_gemm_product, check_rounded_product  # noqa: E402
+from flyp_tpu_torch.testing import reference_stand_in  # noqa: E402
 from flyp_tpu_torch.tokenizer import shrink_context  # noqa: E402
 from flyp_tpu_torch.tools import int8_matmul_probe as tip  # noqa: E402
 from flyp_tpu_torch.tools import mfu_levers as tml  # noqa: E402
@@ -689,8 +714,9 @@ def phase_serving(tmp: str, card: str) -> dict:
                                {"attention_block": B3_KERNELS, "B3_attention": B3_ATTENTION})
     if breakdown:
         breakdown["rows"] = len(batch)
+    http = surface_http(srv, card)  # phase 14 (a), over this server before it is dropped
     return {"launches": launches, "cos_fp32": float(cos32.min()), "cos_bf16": float(cos16.min()), "img_s": rates,
-            "breakdown": breakdown}
+            "breakdown": breakdown, "http": http}
 
 
 # Kernel names by port kernel, as the profiler reports them.  The bf16 GEMM
@@ -1389,13 +1415,13 @@ def write_eval_corpus(root: str, seed: int) -> dict:
     return expected
 
 
-def imagenet_val_jobs(root: str):
+def imagenet_val_jobs(root: str, per_class: int = EVAL_PER_CLASS):
     """ImageNet's val tree under ``root`` (1,000 class folders of
-    ``EVAL_PER_CLASS`` images): the PNG jobs and the labels in loader order."""
+    ``per_class`` images): the PNG jobs and the labels in loader order."""
     val = os.path.join(root, "ILSVRC2012", "val")
     os.makedirs(os.path.join(root, "ILSVRC2012", "train"))
-    jobs = [(os.path.join(val, f"n{c:05d}", f"{i}.png"), False) for c in range(1000) for i in range(EVAL_PER_CLASS)]
-    return jobs, {"ImageNet": {"labels": [c for c in range(1000) for _ in range(EVAL_PER_CLASS)]}}
+    jobs = [(os.path.join(val, f"n{c:05d}", f"{i}.png"), False) for c in range(1000) for i in range(per_class)]
+    return jobs, {"ImageNet": {"labels": [c for c in range(1000) for _ in range(per_class)]}}
 
 
 def write_pngs(jobs, seed: int) -> None:
@@ -4370,6 +4396,333 @@ def phase_research(card: str, seed: int = 0) -> dict:
     log(f"research: seconds {out['s']}; phase took {out['phase_s']:.1f} s on {card}")
     return out
 
+
+# ---------------------------------------------------------------------------
+# Phase 14: HTTP serving, entry(), the dry run and the tools.
+
+SURFACE_SIZES = (5, 64)  # images a request
+SURFACE_REPS = 5  # timed requests of each kind, after the counted round
+SURFACE_THREADS, SURFACE_CONCURRENT = 4, 8
+SURFACE_PER_CLASS = 1  # ImageNet's reader takes its 1,000 classes; one image each
+NPY = "application/x-npy"
+
+
+def http_json(port: int, path: str, body=None, ctype="application/json"):
+    """A request to the bound server; anything but 200 raises."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={} if body is None else {"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def npy_bytes(a: np.ndarray) -> bytes:
+    import io
+
+    buf = io.BytesIO()
+    np.save(buf, a)
+    return buf.getvalue()
+
+
+def response_arrays(kind: str, out: dict) -> tuple:
+    """A JSON answer as the direct call returns it (float32 arrays)."""
+    if kind.startswith("classify"):
+        idx = np.asarray(out["indices"])
+        if out["classes"] != [[CLASSNAMES[j] for j in row] for row in idx]:
+            raise AssertionError(f"HTTP {kind}: classes {out['classes']} do not name indices {idx.tolist()}")
+        return np.asarray(out["probs"], np.float32), idx
+    return (np.asarray(out["features"], np.float32),)
+
+
+def median_ms(fn, reps: int = SURFACE_REPS) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def surface_http(srv, card: str) -> dict:
+    """Phase 14 (a): ``serve_http`` over ``srv`` on an ephemeral port; every
+    answer bit-equal to the direct call (float32 through ``tolist()`` and
+    JSON is exact), B3's launches exact on a sequential round and on 8
+    requests from 4 threads (``pinned_mode``'s lock serialises the
+    forwards, so the counters stay exact), ms a request beside the direct
+    call (each returns host arrays, so the host clock holds the device
+    work)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from flyp_tpu_torch.serving import serve_http
+
+    t_phase = time.perf_counter()
+    cfg = srv.model.config
+    px, layers_v, layers_t = cfg.vision.image_size, cfg.vision.layers, cfg.text.layers
+    rng = np.random.default_rng(14)
+    imgs = {n: rng.standard_normal((n, px, px, 3)).astype(np.float32) for n in SURFACE_SIZES}
+    texts = [f"a photo of a {c}." for c in CLASSNAMES] * 2
+    # kind -> (path, body, content type, the direct call, its B3 launches)
+    requests = {}
+    for n in SURFACE_SIZES:
+        body = npy_bytes(imgs[n])
+        requests[f"features_{n}"] = ("/features", body, NPY, lambda n=n: (srv.encode_images(imgs[n]),),
+                                     layers_v * chunks(n))
+        requests[f"classify_{n}"] = ("/classify?k=3", body, NPY, lambda n=n: srv.top_k(imgs[n], k=3),
+                                     layers_v * chunks(n))
+    requests["text_features"] = ("/text_features", json.dumps({"texts": texts}).encode(), "application/json",
+                                 lambda: (srv.encode_texts(texts),), layers_t * chunks(len(texts)))
+
+    def check(kind, out, where):
+        for got, want in zip(response_arrays(kind, out), direct[kind]):
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{where} {kind}: the answer differs from the direct call "
+                                     f"(max abs {np.abs(got.astype(np.float64) - want).max()})")
+
+    httpd = serve_http(srv, 0, classnames=CLASSNAMES)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    port = httpd.server_address[1]
+    out = {}
+    try:
+        health = http_json(port, "/healthz")
+        want_health = {"ok": True, "model": "CLIPModel", "buckets": list(BUCKETS), "num_classes": len(CLASSNAMES)}
+        if health != want_health:
+            raise AssertionError(f"HTTP /healthz: {health}, expected {want_health}")
+        direct = {kind: r[3]() for kind, r in requests.items()}  # the reference, before the counted round
+        reset_counts()
+        # ---- the HTTP path: counts start at 0 here ----------------------------
+        answers = {kind: http_json(port, *r[:3]) for kind, r in requests.items()}
+        launches = counts()
+        # ---- end of the HTTP path ---------------------------------------------
+        expect_counts("HTTP requests", B3=sum(r[4] for r in requests.values()))
+        for kind, answer in answers.items():
+            check(kind, answer, "HTTP")
+        order = [list(requests)[i % len(requests)] for i in range(SURFACE_CONCURRENT)]
+        reset_counts()
+        with ThreadPoolExecutor(max_workers=SURFACE_THREADS) as pool:
+            concurrent = list(pool.map(lambda kind: http_json(port, *requests[kind][:3]), order, timeout=600))
+        expect_counts("concurrent HTTP requests", B3=sum(requests[kind][4] for kind in order))
+        for kind, answer in zip(order, concurrent):
+            check(kind, answer, f"{SURFACE_THREADS} threads:")
+        out["ms"] = {kind: {"http_ms": median_ms(lambda r=r: http_json(port, *r[:3])),
+                            "direct_ms": median_ms(r[3])} for kind, r in requests.items()}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=60)
+    out.update(launches=launches["B3"], concurrent=len(order), threads=SURFACE_THREADS,
+               s=time.perf_counter() - t_phase)
+    log(f"HTTP: {len(requests) + 1} requests bit-equal to the direct calls with {launches['B3']} B3 launches, "
+        f"{len(order)} more on {SURFACE_THREADS} threads; ms a request (HTTP, direct) "
+        f"{ {k: (round(v['http_ms'], 2), round(v['direct_ms'], 2)) for k, v in out['ms'].items()} } on {card}; "
+        f"{out['s']:.1f} s")
+    return out
+
+
+def surface_entry(card: str) -> dict:
+    """Phase 14 (b): ``entry()`` on the card, its launches exact; its loss
+    finite and within bf16 rounding of the plain route's on the same model
+    and batch, and what it computes, the image and text features, at least
+    0.99 row cosine to the plain route's (near-orthogonal features of a
+    broken forward give a loss near ln 8 too, so the loss alone does not
+    hold B3)."""
+    from flyp_tpu_torch.entry import entry
+    from flyp_tpu_torch.models.modes import pinned_mode
+
+    t0 = time.perf_counter()
+    fn, args = entry()
+    model = args[0]
+    blocks = model.config.vision.layers + model.config.text.layers
+    build_s = time.perf_counter() - t0
+    reset_counts()
+    # ---- entry(): counts start at 0 here ----------------------------------
+    loss = fn(*args)
+    torch.cuda.synchronize()
+    launches = counts()
+    # ---- end of entry() ---------------------------------------------------
+    expect_counts("entry()", B3=blocks)
+    loss = float(loss)
+
+    def features():
+        with torch.inference_mode(), pinned_mode(model, train=False):
+            img_f, txt_f, _ = model(*args[1:])
+        return img_f.float().cpu().numpy(), txt_f.float().cpu().numpy()
+
+    fused = features()
+    use_impl("xla")
+    try:
+        plain = float(fn(*args))
+        plain_f = features()
+    finally:
+        use_impl("auto")
+    cos = {tower: float(cosine(a, b).min()) for tower, a, b in zip(("image", "text"), fused, plain_f)}
+    if not math.isfinite(loss) or abs(loss - plain) > TOL[torch.bfloat16] * max(1.0, abs(plain)) \
+            or min(cos.values()) < 0.99:
+        raise AssertionError(f"entry(): loss {loss} against the plain route's {plain}, least feature cosine {cos}")
+    ms = cuda_ms(lambda: fn(*args), iters=10, warmup=2)
+    out = {"loss": loss, "plain_loss": plain, "min_cosine": cos, "launches": launches["B3"], "ms": ms,
+           "build_s": build_s, "s": time.perf_counter() - t0}
+    log(f"entry(): loss {loss:.5f} (plain route {plain:.5f}), least feature cosine to the plain route {cos}, "
+        f"{launches['B3']} B3 launches, {ms:.2f} ms a call on {card}; {out['s']:.1f} s")
+    del fn, args, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def surface_dryrun(card: str) -> dict:
+    """Phase 14 (c): ``dryrun_multichip(DRYRUN_RANKS)`` on the card; its step
+    on the fused block route launched B1 and B2 once a block of the tiny
+    model on rank 0."""
+    from flyp_tpu_torch.entry import DRYRUN_RANKS, _tiny_config, dryrun_multichip
+
+    cfg = _tiny_config(real_text=True)
+    blocks = cfg.vision.layers + cfg.text.layers
+    out = dryrun_multichip(DRYRUN_RANKS)
+    if out["pallas_block_launches"] != {"B1": blocks, "B2": blocks}:
+        raise AssertionError(f"dry run: step 7 launched {out['pallas_block_launches']}, expected B1 = B2 = {blocks}")
+    log(f"dry run: {out['backend']} ranks (shared card: {out['shared_card']}), seconds {out['seconds']}, "
+        f"{out['seconds_total']:.1f} s in all on {card}")
+    return out
+
+
+def surface_tools(card: str, root: str, seed: int = 14) -> dict:
+    """Phase 14 (d): the offline tools on trees written here."""
+    import csv
+    import io
+
+    from flyp_tpu_torch.templates import get_template
+    from flyp_tpu_torch.tools import validate_checkpoint, validate_data
+    from flyp_tpu_torch.tools.datacreation import fmow_csv, folder_csv, iwildcam_csv, train_test_split
+
+    t_phase = time.perf_counter()
+    out = {"s": {}}
+    px, layers_v, layers_t = model_shape()
+    jobs, expected = imagenet_val_jobs(root, per_class=SURFACE_PER_CLASS)
+    small = [(os.path.join(root, "small", c, f"{i}.png"), False) for c in ("ant", "bee_fly") for i in range(10)]
+    write_pngs(jobs + small, seed)
+    n_val = len(expected["ImageNet"]["labels"])
+
+    t0 = time.perf_counter()
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        rc = validate_data.main(["--dataset", "ImageNet", "--root", root, "--batch_size", str(EVAL_BATCH),
+                                 "--probe", "4", "--workers", str(EVAL_WORKERS)])
+    report = report.getvalue()
+    if rc != 0 or "OK ImageNet" not in report or f"test samples:    {n_val} " not in report \
+            or "classes:         1000" not in report:
+        raise AssertionError(f"validate_data: rc {rc}, report {report!r}")
+    out["s"]["validate_data"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cpu_model = build_clip_model(SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="float32", seed=0),
+                                 device="cpu")
+    ckpt = os.path.join(root, "vit_b16_random.pt")
+    convert.save_torch_checkpoint(ckpt, convert.export_clip_state_dict(cpu_model.state_dict(), cpu_model.config))
+    del cpu_model
+    out["s"]["pt"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prompts = 1000 * len(get_template("simple_template"))
+    want_b3 = layers_t * math.ceil(prompts / min(1024, max(8, prompts))) + layers_v * math.ceil(n_val / EVAL_BATCH)
+    printed = io.StringIO()
+    with contextlib.chdir(root), contextlib.redirect_stdout(printed):  # the evaluation's log goes under root
+        reset_counts()
+        # ---- validate_checkpoint: counts start at 0 here --------------------
+        stats = validate_checkpoint.main(["--checkpoint", ckpt, "--model", MODEL, "--train-dataset", "ImageNet",
+                                          "--template", "simple_template", "--eval-datasets", "ImageNet",
+                                          "--data-location", root, "--batch-size", str(EVAL_BATCH),
+                                          "--workers", str(EVAL_WORKERS)])
+        launches = counts()
+        # ---- end of validate_checkpoint -------------------------------------
+    expect_counts("validate_checkpoint", B3=want_b3)
+    top1 = stats.get("ImageNet Accuracy")
+    if top1 is None or not 0.0 <= top1 <= 1.0 or str(stats) not in printed.getvalue():
+        raise AssertionError(f"validate_checkpoint: stats {stats}")
+    out.update(validate_checkpoint={"launches": launches["B3"], "top1": top1, "stats": len(stats)})
+    out["s"]["validate_checkpoint"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ref_root = os.path.join(root, "reference")
+    os.makedirs(os.path.join(ref_root, "clip"))
+    with open(os.path.join(ref_root, "clip", "model.py"), "w") as f:
+        f.write(reference_stand_in())
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        reset_counts()
+        # ---- activation_crosscheck: counts start at 0 here ------------------
+        diff = validate_checkpoint.activation_crosscheck(ckpt, ref_root, "cuda")
+        cross = counts()
+        # ---- end of activation_crosscheck -----------------------------------
+    if cross["B3"] != layers_v + layers_t:
+        raise AssertionError(f"activation_crosscheck: {cross['B3']} B3 launches, expected {layers_v + layers_t}")
+    blocks = {name: float(d) for name, d in re.findall(r"^\s+(\S+): max abs diff (\S+)$", printed.getvalue(), re.M)}
+    scale = max(float(np.abs(a).max()) for a in sys.modules["ref_clip_model"].FEATURES)
+    if len(blocks) != layers_v + layers_t + 2 or not all(map(math.isfinite, blocks.values())) \
+            or diff > 1e-3 * scale:
+        raise AssertionError(f"activation_crosscheck: features diff {diff} (largest entry {scale}), blocks {blocks}")
+    out["crosscheck"] = {"launches": cross["B3"], "max_abs_diff": diff, "feature_scale": scale,
+                         "max_block_diff": max(blocks.values())}
+    out["s"]["crosscheck"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rows = {}
+    tsv = os.path.join(root, "csv")
+    n = folder_csv.build_csv(os.path.join(root, "small"), os.path.join(tsv, "folder.tsv"), "simple_template")
+    rows["folder_csv"] = n
+    with open(os.path.join(tsv, "folder.tsv")) as f:
+        lines = f.read().splitlines()
+    if n != 20 or len(lines) != 21 or lines[0] != "title\tfilepath\tlabel" or lines[-1].split("\t")[0] != \
+            "a photo of a bee fly.":
+        raise AssertionError(f"folder_csv: {n} rows, {lines[:2]} ... {lines[-1:]}")
+    split = train_test_split.split_folder(os.path.join(root, "small"), os.path.join(root, "split"), seed=seed)
+    if sum(split.values()) != 20 or sorted(split) != ["test", "train", "val"]:
+        raise AssertionError(f"train_test_split: {split}")
+    rows["train_test_split"] = split
+    fmow = os.path.join(root, "fmow_v1.1")
+    os.makedirs(fmow)
+    with open(os.path.join(fmow, "rgb_metadata.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["split", "timestamp", "category"])
+        w.writerows([("train", "2010-03-01T12:00:00Z", "airport"), ("train", "2014-06-01T12:00:00Z", "airport"),
+                     ("seq", "2010-01-01T00:00:00Z", "barn"), ("train", "2012-12-31 23:59:59", "barn")])
+    rows["fmow_csv"] = fmow_csv.build_csv(fmow, os.path.join(tsv, "fmow.tsv"))
+    if rows["fmow_csv"] != 2 * len(get_template("fmow_template")):
+        raise AssertionError(f"fmow_csv: {rows['fmow_csv']} rows")
+    labels = os.path.join(root, "iwildcam_labels.csv")
+    with open(labels, "w") as f:
+        f.write("name,english,y\nant,ant,3\nbee fly,bee fly,7\nempty,empty,99999\n")
+    crops = os.path.join(root, "crops")
+    for c in ("ant", "bee_fly"):
+        os.makedirs(os.path.join(crops, c, "Strength30_aug"))
+        for i in range(3):
+            for d in (os.path.join(crops, c), os.path.join(crops, c, "Strength30_aug")):
+                open(os.path.join(d, f"{c}{i}.jpg"), "wb").close()
+    df = iwildcam_csv.collect_rows(crops, labels, strength_folders=True)
+    rows["iwildcam_csv"] = iwildcam_csv.write_csv(df, labels, os.path.join(tsv, "iwildcam.tsv"))
+    if rows["iwildcam_csv"] != 12 or sorted(set(df["guidance"])) != [70, 100]:
+        raise AssertionError(f"iwildcam_csv: {rows['iwildcam_csv']} rows, guidance {sorted(set(df['guidance']))}")
+    out["rows"] = rows
+    out["s"]["datacreation"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tools: validate_data and validate_checkpoint ({launches['B3']} B3 launches, top-1 {top1}) on {n_val} "
+        f"PNGs, activation_crosscheck on the card {out['crosscheck']}, datacreation rows {rows}; "
+        f"seconds {out['s']} on {card}")
+    return out
+
+
+def phase_surface(card: str, http: dict) -> dict:
+    """Phase 14 but its HTTP part (``http``, run over phase 4's server):
+    ``entry()``, the dry run and the tools, with the seconds of each."""
+    t0 = time.perf_counter()
+    out = {"http": http, "entry": surface_entry(card), "dryrun": surface_dryrun(card)}
+    with tempfile.TemporaryDirectory() as root:
+        out["tools"] = surface_tools(card, root)
+    out["phase_s"] = http["s"] + time.perf_counter() - t0
+    log(f"surface: phase took {out['phase_s']:.1f} s on {card}")
+    return out
+
+
 def results_path(root: str, name: str) -> str:
     """The step checkpoint a run ended with (``checkpoint_0_step_{n-1}``)."""
     base = os.path.join(root, name, name)
@@ -4471,6 +4824,17 @@ def main() -> int:
         use_impl("auto")
         log(json.dumps({"card": card, "research": phase_research(card)}))
         return 0
+    if "--surface" in sys.argv[1:]:
+        use_impl("auto")
+        cfg = SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="bfloat16", seed=0)
+        srv = ClipServer.for_classification(build_clip_model(cfg, device="cuda"), CLASSNAMES, simple_template,
+                                            image_buckets=BUCKETS)
+        srv.warmup()  # as phase 4's server is when phase 14 (a) meets it
+        http = surface_http(srv, card)
+        del srv
+        torch.cuda.empty_cache()
+        log(json.dumps({"card": card, "surface": phase_surface(card, http)}))
+        return 0
 
     # The default route ("auto", the fused block) for the phases before the
     # route phase, whatever the environment says.
@@ -4499,6 +4863,8 @@ def main() -> int:
     shard_cases = parallel["kernels"]
     use_impl("auto")
     research = phase_research(card)
+    use_impl("auto")
+    surface = phase_surface(card, serving["http"])
 
     def line(name, source, replaces, launches, cases, pick=None):
         # B1-B6 are reported at the main path's vision shape, T1-T4 at the
@@ -4563,6 +4929,7 @@ def main() -> int:
     log(json.dumps({"card": card, "resnet": resnet}))
     log(json.dumps({"card": card, "parallel": {k: v for k, v in parallel.items() if k != "kernels"}}))
     log(json.dumps({"card": card, "research": research}))
+    log(json.dumps({"card": card, "surface": surface}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,12 @@
 """Serve a (fine-tuned) CLIP checkpoint from the command line, on the GPU.
 
-Counterpart of ``flyp_tpu/cli/serve.py`` in batch mode: builds a
-:class:`flyp_tpu_torch.serving.ClipServer` from a torch CLIP ``.pt`` and
-classifies images or dumps features, streaming batches through the
-pipelined bucketed path.
+Counterpart of ``flyp_tpu/cli/serve.py``: builds a
+:class:`flyp_tpu_torch.serving.ClipServer` from any ``--clip_load``
+artifact (a trainer epoch or step checkpoint directory, a bare
+``save_params`` tree, or a torch CLIP ``.pt``) and either classifies
+images or dumps features in batch mode, streaming batches through the
+pipelined bucketed path, or answers HTTP requests (``--http PORT``,
+``serving/http.py``).
 
 Examples::
 
@@ -16,6 +19,9 @@ Examples::
 
     python -m flyp_tpu_torch.cli.serve --checkpoint model.pt \\
         --images photos/ --features feats.npz     # no head needed
+
+    python -m flyp_tpu_torch.cli.serve --checkpoint ckpt/checkpoint_4 \\
+        --classnames "cat,dog" --warmup --http 8080   # POST /classify, ...
 """
 
 from __future__ import annotations
@@ -76,9 +82,10 @@ def _resolve_classnames(args) -> List[str]:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--checkpoint", "--clip_load", dest="checkpoint", required=True,
-                   help="torch CLIP checkpoint (.pt/.bin, OpenAI key layout)")
+                   help="trainer checkpoint dir (epoch or step), bare param tree, or torch .pt")
     p.add_argument("--model", default="ViT-B/16", help="model config name (default ViT-B/16)")
-    p.add_argument("--images", nargs="+", required=True, help="image files and/or directories")
+    p.add_argument("--images", nargs="+", default=None,
+                   help="image files and/or directories (batch mode; not used with --http)")
     p.add_argument("--classnames", default=None, help="comma-separated class names")
     p.add_argument("--train-dataset", default=None,
                    help="dataset name whose classnames build the zero-shot head")
@@ -93,14 +100,30 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--compute-dtype", default="bfloat16", choices=["bfloat16", "float32"])
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu runs the plain path)")
     p.add_argument("--warmup", action="store_true", help="run every bucket once before serving")
+    p.add_argument("--http", type=int, default=None, metavar="PORT",
+                   help="serve over HTTP instead of batch mode (serving/http.py: "
+                        "POST /classify, /features, /text_features; GET /healthz)")
+    p.add_argument("--http-host", default="127.0.0.1",
+                   help="HTTP bind address (default loopback; 0.0.0.0 to expose)")
     return p
+
+
+_BATCH_ONLY = ("images", "features", "output", "top_k")  # flags that only batch mode reads
 
 
 def main(argv=None, config_override=None) -> int:
     """``config_override`` (a CLIPConfig) bypasses the named-config lookup,
     for tests serving tiny models."""
-    args = build_parser().parse_args(argv)
-    if args.features is None and not (args.classnames or args.train_dataset):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.http is not None:
+        given = [f"--{k.replace('_', '-')}" for k in _BATCH_ONLY if getattr(args, k) != parser.get_default(k)]
+        if given:
+            raise SystemExit(f"{', '.join(given)} only apply to batch mode; drop them with --http "
+                             "(/classify takes ?k= per request)")
+    if args.http is None and args.images is None:
+        raise SystemExit("batch mode needs --images (or pass --http PORT to serve over HTTP)")
+    if args.http is None and args.features is None and not (args.classnames or args.train_dataset):
         raise SystemExit("classification needs --classnames or --train-dataset "
                          "(or pass --features to dump embeddings)")
     if args.top_k < 1:
@@ -109,7 +132,10 @@ def main(argv=None, config_override=None) -> int:
     from flyp_tpu_torch.serving import ClipServer
 
     buckets = tuple(int(b) for b in args.image_buckets.split(","))
-    classnames = None if args.features else _resolve_classnames(args)
+    # A head wherever class names are given, but for a feature dump.  Under
+    # --http it is optional: without one /classify gets 400.
+    named = args.classnames or args.train_dataset
+    classnames = _resolve_classnames(args) if named and args.features is None else None
     template = None
     if classnames is not None and args.template:
         from flyp_tpu_torch.templates import get_template
@@ -127,6 +153,22 @@ def main(argv=None, config_override=None) -> int:
     )
     if args.warmup:
         srv.warmup()
+
+    if args.http is not None:
+        from flyp_tpu_torch.serving import serve_http
+
+        httpd = serve_http(srv, args.http, classnames=classnames, host=args.http_host)
+        host, port = httpd.server_address[:2]
+        print(f"serving on http://{host}:{port} "
+              f"(/healthz, /features, /text_features{', /classify' if srv.head is not None else ''})",
+              flush=True)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            httpd.server_close()
+        return 0
 
     paths = collect_image_paths(args.images)
     batches = decoded_batches(paths, srv.model.config.vision.image_size, buckets[-1])

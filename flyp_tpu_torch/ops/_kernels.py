@@ -5,16 +5,19 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 build happens at first use, into ``build/flyp_tpu_torch_kernels/`` beside
 the package, under a name keyed by the source and flags, so an edited
 source rebuilds and concurrent processes never load a half-written file.
+Within a process, a lock per source makes threads that reach a kernel's
+first use together wait for one compile and share one loaded library;
+different sources still build at once (:func:`build_all`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -27,6 +30,15 @@ NVCC_FLAGS = (
 
 # Compiler output of each build this process ran (ptxas register/smem report).
 build_logs: dict = {}
+
+_locks_guard = threading.Lock()
+_locks: dict = {}  # source name -> the RLock that serialises its build and load
+_loaded: dict = {}  # source name -> its CDLL
+
+
+def _lock(name: str) -> threading.RLock:
+    with _locks_guard:
+        return _locks.setdefault(name, threading.RLock())
 
 
 def _nvcc() -> str:
@@ -48,19 +60,20 @@ def library_path(name: str) -> Path:
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of this source exists."""
-    lib = library_path(name)
-    if lib.exists():
+    with _lock(name):
+        lib = library_path(name)
+        if lib.exists():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_logs[name] = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, lib)
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
 
 
 def build_all() -> dict:
@@ -72,13 +85,17 @@ def build_all() -> dict:
         return dict(zip(names, pool.map(build, names)))
 
 
-@functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, compiled on first use."""
-    lib = ctypes.CDLL(str(build(name)))
-    lib.flyp_error_string.argtypes = [ctypes.c_int]
-    lib.flyp_error_string.restype = ctypes.c_char_p
-    return lib
+    """The built library for ``csrc/<name>.cu``, compiled on first use; one
+    object per process, whatever the number of threads asking."""
+    with _lock(name):
+        lib = _loaded.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            lib.flyp_error_string.argtypes = [ctypes.c_int]
+            lib.flyp_error_string.restype = ctypes.c_char_p
+            _loaded[name] = lib
+        return lib
 
 
 def check_out(what: str, out, shape, dtype, device) -> None:

@@ -19,7 +19,9 @@ Every transformer block runs the attention-block CUDA kernel
 ModifiedResNet one (whose image tower runs cuDNN convolutions and BatchNorm
 on its running statistics); requests run under ``torch.inference_mode()``
 and in eval mode whatever the model's mode (the JAX package's
-``train=False``), which is restored after each dispatch.
+``train=False``), which is restored after each dispatch.  Request methods
+are reentrant: concurrent callers (``serving/http.py``'s threads) get
+exactly the results of sequential calls (``models/modes.py``).
 Measured rates on the H100 are in PERF.md.
 """
 
@@ -90,15 +92,21 @@ class ClipServer:
         seed: int = 0,
         **kwargs,
     ) -> "ClipServer":
-        """One call from a checkpoint to a running server.
+        """One call from a training artifact to a running server.
 
-        ``path`` is a torch CLIP ``.pt``/``.bin`` (OpenAI key layout, as the
-        JAX package's converter writes it; a ModifiedResNet's with its
-        BatchNorm running statistics), or None for CLIP-initialised
-        random weights drawn from ``seed``.  Pass ``classnames`` (and
-        ``template``, default the simple template) to build the zero-shot
-        head.  ``device`` defaults to the GPU and raises if CUDA is absent;
-        ``compute_dtype="float32"`` gives CPU parity with fp32 evaluators.
+        ``path`` takes everything ``--clip_load`` does
+        (``models/factory.py::build_clip_model``): a trainer
+        ``checkpoint_{e}`` / ``checkpoint_{e}_step_{i}`` directory of
+        ``utils/checkpoint.py`` (its moments and cursors are not read; a
+        ModifiedResNet's running statistics are), a bare ``save_params``
+        tree (refused for a ModifiedResNet, which would lack its running
+        statistics), or a torch CLIP ``.pt``/``.bin`` (OpenAI key layout, as
+        the JAX package's converter writes it); or None for
+        CLIP-initialised random weights drawn from ``seed``.  Pass
+        ``classnames`` (and ``template``, default the simple template) to
+        build the zero-shot head.  ``device`` defaults to the GPU and raises
+        if CUDA is absent; ``compute_dtype="float32"`` gives CPU parity with
+        fp32 evaluators.
         """
         from types import SimpleNamespace
 

@@ -30,6 +30,11 @@ three bounds catch it), :func:`forward_cast_before_normalising` (``p`` cast
 to bf16 before it is normalised) and :func:`backward_delta_from_o`
 (``delta = rowsum(do T(o))``); the last two move a quarter to a half of
 the bf16 outputs by an ulp, and only the fourth bound catches them.
+
+:func:`reference_stand_in` is the source of a stand-in for the upstream
+``clip/model.py`` that ``tools/validate_checkpoint.py::activation_crosscheck``
+loads, for the tests and for ``chip_smoke.py``, where no upstream checkout
+is at hand.
 """
 
 from __future__ import annotations
@@ -222,3 +227,71 @@ def mlp_hidden_from_unrounded(x, ln_scale, ln_bias, fc_kernel, fc_bias):
     _, _, y32 = _layer_norm(x.float(), ln_scale, ln_bias)
     hpre32 = torch.matmul(y32.to(dtype).float(), fc_kernel.to(dtype).float()) + fc_bias.float()
     return _quick_gelu32(hpre32).to(dtype)
+
+
+_STAND_IN = '''"""Stands in for the upstream clip/model.py: the port's own model on the
+CPU, its residual blocks wrapped to run [L, B, D] as the upstream blocks
+do.  FEATURES keeps the features it returned."""
+import torch
+
+from flyp_tpu_torch.models import CLIPModel, convert
+
+PERTURB = None  # or (tower, block) whose first weight is moved
+FEATURES = []
+
+
+class _LND(torch.nn.Module):
+    def __init__(self, block):
+        super().__init__()
+        self.block = block
+
+    def forward(self, x):
+        return self.block(x.transpose(0, 1).contiguous()).transpose(0, 1)
+
+
+class _Stack(torch.nn.Module):
+    def __init__(self, transformer):
+        super().__init__()
+        self.resblocks = torch.nn.ModuleList(_LND(getattr(transformer, f"block_{i}"))
+                                             for i in range(transformer.layers))
+
+    def forward(self, x):
+        x = x.transpose(0, 1)
+        for blk in self.resblocks:
+            x = blk(x)
+        return x.transpose(0, 1).contiguous()
+
+
+class _Ref(torch.nn.Module):
+    def __init__(self, model):
+        super().__init__()
+        model.visual.transformer = _Stack(model.visual.transformer)
+        model.text.transformer = _Stack(model.text.transformer)
+        self.model, self.visual, self.transformer = model, model.visual, model.text.transformer
+
+    def encode_image(self, x):
+        FEATURES.append(self.model.encode_image(x.permute(0, 2, 3, 1).contiguous()).numpy())
+        return torch.from_numpy(FEATURES[-1])
+
+    def encode_text(self, tokens):
+        FEATURES.append(self.model.encode_text(tokens.to(torch.int32)).numpy())
+        return torch.from_numpy(FEATURES[-1])
+
+
+def build_model(state_dict):
+    port_state, config = convert.convert_clip_state_dict(state_dict)
+    model = CLIPModel(config)
+    model.load_state_dict(port_state, strict=True)
+    if PERTURB is not None:
+        tower, i = PERTURB
+        with torch.no_grad():
+            next(getattr(getattr(model, tower).transformer, f"block_{i}").parameters()).add_(0.05)
+    return _Ref(model)
+'''
+
+
+def reference_stand_in(perturb=None) -> str:
+    """The stand-in reference's source (module docstring): ``perturb``
+    ``(tower, block)`` moves that block's first weight by 0.05, so a
+    crosscheck must report that block first."""
+    return _STAND_IN.replace("PERTURB = None", f"PERTURB = {perturb!r}", 1)
