@@ -13,6 +13,7 @@
     python3 chip_smoke.py --parallel-trainer   # only phase 12's trainer across ranks (nccl on every card)
     python3 chip_smoke.py --research           # only the research trainers (phase 13)
     python3 chip_smoke.py --surface            # only HTTP serving, entry points and tools (phase 14)
+    python3 chip_smoke.py --measure            # only the measurement and check tools, ViT-L/14 (phase 15)
 
 Phases, each of which raises on failure:
 
@@ -218,11 +219,30 @@ Phases, each of which raises on failure:
    the port's plain model on the CPU (features within 1e-3 of their
    largest entry), and the datacreation tools that need no h5py on small
    trees.  Its numbers go to a ``"surface"`` line.
+15. the measurement and check tools of ``flyp_tpu_torch/tools/`` on the
+   default route: (a) ViT-L/14 at full width in bf16 (vision rows of 257
+   keys: B1-B3's long-row route): at the recipe's batch 256 with
+   ``--remat``, one step's loss and gradients against the plain route on
+   the card (loss 2e-2, least gradient cosine 0.99, phase 5's bf16
+   bounds), then the direct step timed (it must fit), its MFU
+   (``utils/profiling.py``), peak memory and a profiled step (B2's share);
+   ``grad_cache_bench`` at 512 = 8 x 64 (the direct attempt, where running
+   out of memory is "does not fit", then the chunked run after the memory
+   is released); ``serving_bench`` at 8 and 256 and ViT-L/14@336px (L =
+   577) at 64, each size's features against the plain route's (least row
+   cosine 0.99, phase 4's bf16 bound); B1/B2/B3 launches exact in each;
+   (b) ``kernel_breakdown`` at ViT-L/14 and ViT-B/32 (batch 256, launches
+   exact) and ``rn50_breakdown`` at 256 (per stage: ms, GFLOP, share of
+   peak); (c) ``convergence_check`` (120 steps of the tiny CLIP in bf16 on
+   the default route, held to the plain route's trajectory), ``bf16_drift``
+   (60 steps), ``loop_sync_ab``, ``eval_sync_ab``, ``host_decode_bench``
+   and ``e2e_check`` (ViT-B/16 at ``TRAINER_DEPTH``, one epoch through
+   ``cli/main.py``).  Its numbers go to a ``"measure"`` line.
 
 The products' numbers are a JSON line of their own (``"gemm"``), the input
-pipeline's, the evaluation's, the trainer's and phases 11-14's too (``"input"``,
+pipeline's, the evaluation's, the trainer's and phases 11-15's too (``"input"``,
 ``"evaluation"``, ``"trainer"``, ``"resnet"``, ``"parallel"``, ``"research"``,
-``"surface"``); the line
+``"surface"``, ``"measure"``); the line
 before the last is a JSON object of per-kernel numbers; the last
 is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside it, the script exits non-zero and prints no result.
@@ -265,7 +285,9 @@ from flyp_tpu_torch.testing import reference_stand_in  # noqa: E402
 from flyp_tpu_torch.tokenizer import shrink_context  # noqa: E402
 from flyp_tpu_torch.tools import int8_matmul_probe as tip  # noqa: E402
 from flyp_tpu_torch.tools import mfu_levers as tml  # noqa: E402
+from flyp_tpu_torch.tools._bench import bench_batch  # noqa: E402
 from flyp_tpu_torch.training import create_train_state, make_optimizer, make_train_step, warmup_cosine_lr  # noqa: E402
+from flyp_tpu_torch.utils.profiling import card_peaks, clip_flops, mfu, plain_route  # noqa: E402
 
 MODEL = "ViT-B/16"
 BUCKETS = (8, 64, 256)
@@ -304,11 +326,6 @@ INFER_SHAPES = [(64, 197, 768, 12, False, BOTH), (64, 16, 512, 8, True, BOTH), (
                 (256, 197, 768, 12, False, (torch.bfloat16,)), (2048, 16, 512, 8, True, (torch.bfloat16,)),
                 (1856, 16, 512, 8, True, (torch.bfloat16,)), *VIT_L_SHAPES]
 MAIN_SHAPE = (256, 197, "bfloat16")  # the kernels line reports each kernel at the main path's vision shape
-# Dense peaks (NVIDIA data sheets): bf16 and int8 tensor cores, fp32 CUDA cores, HBM.
-PEAKS = {
-    "sxm": {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12, "bytes": 3.35e12},
-    "pcie": {torch.bfloat16: 756e12, torch.int8: 1513e12, torch.float32: 51e12, "bytes": 2.0e12},
-}
 
 
 def log(*args):
@@ -780,19 +797,6 @@ def device_profile(fn, groups: dict) -> dict:
     out["top"] = [[k[:100], d / 1e3] for d, k in rows[:10]]
     log("profile " + json.dumps(out))
     return out
-
-
-def bench_batch(B: int, px: int, seed: int):
-    """Images and captions as ``bench.py`` makes them: BOS, random ids for a
-    length drawn in 6-20, EOT, cut by ``shrink_context``."""
-    rng = np.random.default_rng(seed)
-    images = rng.standard_normal((B, px, px, 3)).astype(np.float32)
-    tokens = np.zeros((B, 77), dtype=np.int32)
-    tokens[:, 0] = 49406
-    for i, n in enumerate(rng.integers(6, 20, B)):
-        tokens[i, 1:n] = rng.integers(1, 49000, n - 1)
-        tokens[i, n] = 49407
-    return images, shrink_context(tokens)
 
 
 def loss_and_grads(model, images, tokens):
@@ -1439,6 +1443,32 @@ def write_pngs(jobs, seed: int) -> None:
         list(pool.map(write, enumerate(jobs)))
 
 
+_TRAINER_CORPORA: dict = {}  # seed -> (TSV, data root, ImageNet val labels); removed when the process exits
+
+
+def trainer_corpus(seed: int = 0) -> tuple:
+    """(TSV, data root, ImageNet val labels, seconds spent writing): phase
+    5b's corpus under ``<root>/train`` and ImageNet's val tree at
+    ``EVAL_PER_CLASS`` PNGs a class, written on the first call into a
+    directory removed when the process exits.  The phases that train from
+    disk (10, 11 and 12) read these same seeded files, each from its own
+    working root, so the files are written once (0.0 seconds after)."""
+    import atexit
+    import shutil
+
+    if seed in _TRAINER_CORPORA:
+        return (*_TRAINER_CORPORA[seed], 0.0)
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="flyp_trainer_corpus_")
+    atexit.register(shutil.rmtree, root, True)
+    os.makedirs(os.path.join(root, "train"))
+    tsv, _, _ = write_corpus(os.path.join(root, "train"), seed)
+    jobs, expected = imagenet_val_jobs(root)
+    write_pngs(jobs, seed)
+    _TRAINER_CORPORA[seed] = (tsv, root, expected)
+    return tsv, root, expected, time.perf_counter() - t0
+
+
 def macro_f1_numpy(preds: np.ndarray, labels: np.ndarray) -> float:
     """WILDS's macro F1: the mean over the classes in the labels or the
     predictions of 2 tp / (2 tp + fp + fn)."""
@@ -1759,19 +1789,14 @@ def phase_trainer(card: str, seed: int = 0) -> dict:
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        os.makedirs(os.path.join(root, "train"))
-        tsv, _, _ = write_corpus(os.path.join(root, "train"), seed)
-        jobs, expected = imagenet_val_jobs(root)
-        write_pngs(jobs, seed)
-        out["corpus_s"] = time.perf_counter() - t0
-        log(f"trainer: corpus of {INPUT_BATCH * INPUT_BATCHES} TSV rows and {len(jobs)} ImageNet val PNGs in "
-            f"{out['corpus_s']:.1f} s")
+        tsv, data, expected, out["corpus_s"] = trainer_corpus(seed)
+        log(f"trainer: corpus of {INPUT_BATCH * INPUT_BATCHES} TSV rows and {len(expected['ImageNet']['labels'])} "
+            f"ImageNet val PNGs in {out['corpus_s']:.1f} s")
         argv = ["--ft_data", tsv, "--batch-size", str(INPUT_BATCH), "--data_backend", "native", "--workers",
                 str(INPUT_WORKERS), "--model", MODEL, "--seed", str(seed), "--curriculum", "--epochs",
                 str(TRAINER_EPOCHS), "--lr", "1e-5", "--warmup_length", "500", "--adam_moment_dtype", "bfloat16",
                 "--train-dataset", "ImageNet", "--template", "openai_imagenet_template", "--eval-datasets",
-                "ImageNet", "--data-location", root, "--save", os.path.join(root, "ckpt")]
+                "ImageNet", "--data-location", data, "--save", os.path.join(root, "ckpt")]
         prompts = 1000 * 80
         head_b3 = layers_t * math.ceil(prompts / 1024)
         eval_b3 = layers_v * math.ceil(len(expected["ImageNet"]["labels"]) / INPUT_BATCH)
@@ -1860,7 +1885,7 @@ def phase_trainer(card: str, seed: int = 0) -> dict:
             cfg = cli_main.parse_main_arguments([
                 "--clip_load", os.path.join(runs["a"]["save"], f"checkpoint_{TRAINER_EPOCHS - 1}"), "--model", MODEL,
                 "--train-dataset", "ImageNet", "--template", "openai_imagenet_template", "--eval-datasets", "ImageNet",
-                "--data-location", root, "--batch-size", str(INPUT_BATCH), "--workers", str(INPUT_WORKERS),
+                "--data-location", data, "--batch-size", str(INPUT_BATCH), "--workers", str(INPUT_WORKERS),
                 "--save", os.path.join(root, "head")])
             cfg.log_dir = os.path.join(root, "logs", "zeroshot")
             import io
@@ -2154,17 +2179,12 @@ def rn_trainer(card: str, layers_t: int, seed: int = 0) -> dict:
     out = {}
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        os.makedirs(os.path.join(root, "train"))
-        tsv, _, _ = write_corpus(os.path.join(root, "train"), seed)
-        jobs, _ = imagenet_val_jobs(root)
-        write_pngs(jobs, seed)
-        out["corpus_s"] = time.perf_counter() - t0
+        tsv, data, _, out["corpus_s"] = trainer_corpus(seed)
         argv = ["--ft_data", tsv, "--batch-size", str(INPUT_BATCH), "--data_backend", "native", "--workers",
                 str(INPUT_WORKERS), "--model", RN_MODEL, "--seed", str(seed), "--curriculum", "--epochs", "1",
                 "--lr", "1e-5", "--warmup_length", "500", "--adam_moment_dtype", "bfloat16", "--grad_cache_chunks",
                 str(RN_CHUNKS), "--train-dataset", "ImageNet", "--template", "openai_imagenet_template",
-                "--eval-datasets", "ImageNet", "--data-location", root, "--save", os.path.join(root, "ckpt")]
+                "--eval-datasets", "ImageNet", "--data-location", data, "--save", os.path.join(root, "ckpt")]
         head_b3 = layers_t * math.ceil(1000 * 80 / 1024)  # the image tower has no attention blocks
         per_step = {"B1": layers_t * RN_CHUNKS * 2, "B2": layers_t * RN_CHUNKS}
         runs, launches = {}, {}
@@ -2206,7 +2226,7 @@ def rn_trainer(card: str, layers_t: int, seed: int = 0) -> dict:
         reset_counts()
         cfg = cli_main.parse_main_arguments([
             "--clip_load", a, "--model", RN_MODEL, "--train-dataset", "ImageNet", "--template",
-            "openai_imagenet_template", "--eval-datasets", "ImageNet", "--data-location", root, "--batch-size",
+            "openai_imagenet_template", "--eval-datasets", "ImageNet", "--data-location", data, "--batch-size",
             str(INPUT_BATCH), "--workers", str(INPUT_WORKERS)])
         cfg.log_dir = os.path.join(root, "logs", "zeroshot")
         with contextlib.redirect_stdout(io.StringIO()):
@@ -3612,10 +3632,8 @@ def _phase_parallel_trainer(card: str, out: dict) -> dict:
     cwd = os.getcwd()
     _, layers_v, layers_t = model_shape()
     with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        os.makedirs(os.path.join(root, "train"))
-        tsv, _, _ = write_corpus(os.path.join(root, "train"), 0)
-        log(f"parallel: corpus in {time.perf_counter() - t0:.1f} s")
+        tsv, _, _, corpus_s = trainer_corpus(0)
+        log(f"parallel: corpus in {corpus_s:.1f} s")
         runs_dir = os.path.join(root, "runs")
         os.makedirs(runs_dir)
         workers = max(1, (os.cpu_count() or 2) // world)
@@ -4723,6 +4741,305 @@ def phase_surface(card: str, http: dict) -> dict:
     return out
 
 
+# Phase 15: the measurement and check tools (flyp_tpu_torch/tools/), ViT-L/14
+# trained and served at full width on the default route.
+VIT_L = "ViT-L/14"
+VIT_L_336 = "ViT-L/14@336px"
+VIT_L_TRAIN = (256, 3)  # the recipe's batch (with --remat), timed steps after one warm-up
+VIT_L_CHUNKED = (512, 8, 2)  # grad_cache_bench: global batch, chunks, timed steps after one warm-up
+VIT_L_SERVE = ((8, 256), 10)  # serving_bench: batch sizes, iterations after one warm-up
+VIT_L_336_SERVE = ((64,), 5)
+BREAKDOWNS = {VIT_L: dict(iters=5, step_iters=2), "ViT-B/32": dict(iters=10, step_iters=3)}
+RN_BREAKDOWN_ITERS = 10
+CONVERGENCE_STEPS = 120
+DRIFT = dict(steps=60, batch=64, pool=64)
+SYNC_AB = dict(blocks=1, steps=5)
+EVAL_AB = dict(blocks=1, steps=3)
+HOST_DECODE = dict(n_images=16, px=224, iters=2)
+E2E_ARGV = ["--epochs", "1", "--batch-size", "64", "--images-per-class", "32"]
+
+
+def layers_of(name: str) -> tuple:
+    c = MODEL_CONFIGS[name]
+    return c.vision.layers, c.text.layers
+
+
+def plain_cosine(fn, x) -> float:
+    """Least row cosine of ``fn(x)`` on the default route against the plain
+    route's, with B3 once a vision block of the default call."""
+    with torch.inference_mode():
+        got = fn(x).float().cpu().numpy()
+        with plain_route():
+            ref = fn(x).float().cpu().numpy()
+    return float(cosine(got, ref).min())
+
+
+def measure_vit_l_train(card: str) -> tuple:
+    """ViT-L/14 at the recipe's batch 256 with --remat on the default route:
+    one step's loss and gradients against the plain route on the card, the
+    timed direct step (it must fit: any error raises), MFU, peak memory and
+    a profiled step (B2's share).  Returns (results, the trained model)."""
+    from flyp_tpu_torch.tools._bench import build_bench_step
+
+    B, steps = VIT_L_TRAIN
+    layers_v, layers_t = layers_of(VIT_L)
+    per_step = layers_v + layers_t
+    out = {}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    step, state, images, tokens, _ = build_bench_step(B, VIT_L, remat=True)
+    model = state.model
+    out["build_s"] = time.perf_counter() - t0
+
+    reset_counts()
+    loss, grads = loss_and_grads(model, images, tokens)
+    expect_counts("ViT-L/14 loss and gradients", B1=per_step, B2=per_step)
+    with plain_route():
+        ref_loss, ref_grads = loss_and_grads(model, images, tokens)
+    expect_counts("ViT-L/14 loss and gradients, then the plain route", B1=per_step, B2=per_step)
+    cos = grad_cosines(grads, ref_grads)
+    rel = abs(loss - ref_loss) / abs(ref_loss)
+    del grads, ref_grads
+    log(f"ViT-L/14 step at {B}, bf16, remat: loss {loss:.5f} against the plain route's {ref_loss:.5f} (rel err "
+        f"{rel:.3g}), least gradient cosine {min(cos):.6f}")
+    if rel > 2e-2 or min(cos) < 0.99:
+        names = [n for n, _ in model.named_parameters()]
+        raise AssertionError(f"ViT-L/14's step drifts from the plain route: loss rel err {rel}, worst "
+                             f"{sorted(zip(cos, names))[:5]}")
+    out.update(loss=loss, plain_loss=ref_loss, loss_rel_err=rel, min_grad_cosine=min(cos))
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    # ---- the ViT-L/14 training path: counts start at 0 here ------------------
+    state, metrics = step(state, images, tokens)
+    first = float(metrics["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step(state, images, tokens)
+    last = float(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launches = counts()
+    # ---- end of the ViT-L/14 training path -----------------------------------
+    expect_counts(f"ViT-L/14 training, {1 + steps} steps", B1=per_step * (1 + steps), B2=per_step * (1 + steps))
+    if not (math.isfinite(first) and math.isfinite(last)):
+        raise AssertionError(f"ViT-L/14: non-finite loss {first}, {last}")
+    flops = clip_flops(model, images, tokens, train=True)
+    out.update(step_ms=dt * 1e3, img_s=B / dt, losses=[first, last], launches=launches, step_tflop=flops / 1e12,
+               mfu=mfu(flops, dt), peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    out["profile"] = device_profile(lambda: step(state, images, tokens),
+                                    {"B1": B1_KERNELS, "B2": B2_KERNELS, "B2_attention": B2_ATTENTION,
+                                     "port_kernels": PORT_KERNELS})
+    log(f"ViT-L/14 train at {B}, bf16, --remat: {out['img_s']:.2f} img/s ({out['step_ms']:.1f} ms/step), "
+        f"{out['step_tflop']:.3f} TFLOP a step, MFU {out['mfu']:.4f}, peak {out['peak_gib']:.2f} GiB, B2 "
+        f"{out['profile'].get('B2_share')} of device time; launches {launches} on {card}")
+    del step, state, images, tokens
+    return out, model
+
+
+def measure_vit_l_chunked(card: str) -> dict:
+    """``grad_cache_bench`` at 512 = 8 x 64 with --remat: the direct attempt
+    (a caught out-of-memory is "does not fit"), then the chunked run after
+    the memory is released, launches exact in each."""
+    from flyp_tpu_torch.tools import grad_cache_bench as gcb
+
+    B, chunks, steps = VIT_L_CHUNKED
+    per_step = sum(layers_of(VIT_L))
+    out = {"model": VIT_L, "batch": B, "chunks": chunks, "remat": True, "device": torch.cuda.get_device_name(0)}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out["direct"] = gcb.try_direct(B, VIT_L, True)
+    out["direct_launches"] = counts()
+    out["direct_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if out["direct"]["fits"]:
+        expect_counts(f"the direct ViT-L/14 step at {B}", B1=per_step, B2=per_step)
+    gcb.release("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out["held_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    reset_counts()
+    out["chunked"] = gcb.chunked_run(B, VIT_L, True, chunks, steps, 1)
+    # Per step and chunk: B1 in the feature pass and again in the gradient
+    # pass, B2 in the gradient pass (remat recomputes the MLP sub-blocks).
+    expect_counts(f"the chunked ViT-L/14 step at {B} = {chunks} x {B // chunks}, {1 + steps} steps",
+                  B1=2 * chunks * per_step * (1 + steps), B2=chunks * per_step * (1 + steps))
+    out["chunked_launches"] = counts()
+    out["chunked_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # The model's FLOPs at the global batch (the feature pass it repeats is
+    # not counted), on a meta model and the bench batch's shapes.
+    from flyp_tpu_torch.models import CLIPModel
+
+    with torch.device("meta"):
+        meta_model = CLIPModel(MODEL_CONFIGS[VIT_L], torch.bfloat16)
+    images, tokens = bench_batch(B, MODEL_CONFIGS[VIT_L].vision.image_size)
+    flops = clip_flops(meta_model, torch.from_numpy(images), torch.from_numpy(tokens), train=True)
+    out.update(chunked_tflop=flops / 1e12, chunked_mfu=mfu(flops, out["chunked"]["step_time_s"]))
+    if not math.isfinite(out["chunked"]["loss"]):
+        raise AssertionError(f"the chunked ViT-L/14 step's loss {out['chunked']['loss']}")
+    gcb.release("cuda")
+    log(json.dumps({k: out[k] for k in ("model", "batch", "chunks", "remat", "device", "direct", "chunked")}))
+    log(f"grad_cache_bench ViT-L/14 {B} = {chunks} x {B // chunks}: direct {out['direct']}, peak "
+        f"{out['direct_peak_gib']:.2f} GiB; chunked {out['chunked']}, peak {out['chunked_peak_gib']:.2f} GiB "
+        f"(held before it {out['held_gib']:.2f} GiB), {out['chunked_tflop']:.3f} TFLOP a step, MFU "
+        f"{out['chunked_mfu']:.4f} on {card}")
+    return out
+
+
+def measure_serving(name: str, model, sizes, iters: int, card: str) -> dict:
+    """``serving_bench`` over ``model`` at ``sizes`` (B3 exact), then each
+    size's features held to the plain route's (phase 4's bf16 bound)."""
+    from flyp_tpu_torch.tools import serving_bench
+
+    layers_v, _ = layers_of(name)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    rows = serving_bench.main(name, sizes, iters=iters, model=model)
+    expect_counts(f"serving_bench {name} at {sizes}", B3=layers_v * (1 + iters) * len(sizes))
+    out = {"rows": rows, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "cos_plain": {}}
+    px = model.config.vision.image_size
+    for bs in sizes:
+        srv = ClipServer(model, image_buckets=(bs,))
+        x = torch.from_numpy(np.random.default_rng(bs).standard_normal((bs, px, px, 3)).astype(np.float32))
+        x = x.cuda().to(model.compute_dtype)
+        reset_counts()
+        out["cos_plain"][bs] = plain_cosine(srv._img_fn, x)
+        expect_counts(f"{name} features at {bs}, default then plain route", B3=layers_v)
+        if out["cos_plain"][bs] < 0.99:
+            raise AssertionError(f"{name} features at {bs} drift from the plain route: cosine {out['cos_plain'][bs]}")
+    log(f"serving_bench {name}: {rows}, peak {out['peak_gib']:.2f} GiB; least cosine to the plain route "
+        f"{out['cos_plain']} on {card}")
+    return out
+
+
+def measure_breakdowns(card: str) -> dict:
+    """``kernel_breakdown`` at ViT-L/14 and ViT-B/32 (batch 256), launches
+    exact, and ``rn50_breakdown`` at 256 (plain attention: no launch)."""
+    from flyp_tpu_torch.tools import kernel_breakdown, rn50_breakdown
+
+    out = {}
+    for name, kw in BREAKDOWNS.items():
+        per_step = sum(layers_of(name))
+        n, s = 1 + kw["iters"], 1 + kw["step_iters"]
+        t0 = time.perf_counter()
+        reset_counts()
+        out[name] = kernel_breakdown.main(256, name, **kw)
+        # Per tower: B3 (inference forward), B1 (training forward), B1 + B2
+        # (forward and backward), each over n calls; then s bench steps.
+        expect_counts(f"kernel_breakdown {name}", B3=2 * n, B1=4 * n + per_step * s, B2=2 * n + per_step * s)
+        out[name]["s"] = time.perf_counter() - t0
+        gc_cuda()
+    t0 = time.perf_counter()
+    reset_counts()
+    out["RN50"] = {"rows": rn50_breakdown.main(256, iters=RN_BREAKDOWN_ITERS)}
+    expect_counts("rn50_breakdown")
+    out["RN50"]["s"] = time.perf_counter() - t0
+    gc_cuda()
+    log(f"breakdowns: {json.dumps(out)} on {card}")
+    return out
+
+
+def gc_cuda():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def measure_checks(card: str, chip_rates=None) -> dict:
+    """The check tools and the A/Bs: ``convergence_check`` (the default
+    route's bf16 trajectory and the plain route's), ``bf16_drift``,
+    ``loop_sync_ab``, ``eval_sync_ab``, ``host_decode_bench`` and
+    ``e2e_check`` (ViT-B/16 at ``TRAINER_DEPTH``, one epoch)."""
+    from flyp_tpu_torch.tools import (bf16_drift, convergence_check, e2e_check, eval_sync_ab, host_decode_bench,
+                                      loop_sync_ab)
+    from flyp_tpu_torch.tools.bf16_drift import tool_config
+
+    out, s = {}, {}
+    tiny = tool_config()
+    tiny_per_step = tiny.vision.layers + tiny.text.layers
+    layers_v, layers_t = layers_of(MODEL)
+
+    t0 = time.perf_counter()
+    reset_counts()
+    out["convergence"] = convergence_check.main(CONVERGENCE_STEPS, 64)
+    # The default route's steps launch B1 and B2 once a block; the plain route's none.
+    expect_counts("convergence_check", B1=tiny_per_step * CONVERGENCE_STEPS, B2=tiny_per_step * CONVERGENCE_STEPS)
+    s["convergence"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    reset_counts()
+    out["bf16_drift"] = bf16_drift.main(**DRIFT)
+    expect_counts("bf16_drift (both legs on the plain route)")
+    s["bf16_drift"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    reset_counts()
+    out["loop_sync_ab"] = loop_sync_ab.main(256, MODEL, **SYNC_AB)
+    n = 3 + 2 * SYNC_AB["blocks"] * SYNC_AB["steps"]
+    expect_counts("loop_sync_ab", B1=n * (layers_v + layers_t), B2=n * (layers_v + layers_t))
+    s["loop_sync_ab"] = time.perf_counter() - t0
+    gc_cuda()
+
+    t0 = time.perf_counter()
+    reset_counts()
+    out["eval_sync_ab"] = eval_sync_ab.main(MODEL, 256, **EVAL_AB)
+    expect_counts("eval_sync_ab", B3=layers_v * (1 + 2 * EVAL_AB["blocks"] * EVAL_AB["steps"]))
+    s["eval_sync_ab"] = time.perf_counter() - t0
+    gc_cuda()
+
+    t0 = time.perf_counter()
+    out["host_decode"] = host_decode_bench.main(**HOST_DECODE, chip_rates=chip_rates)
+    s["host_decode"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with cut_depth(MODEL, **TRAINER_DEPTH[MODEL]):
+        _, cut_v, cut_t = model_shape()
+        reset_counts()
+        out["e2e"] = e2e_check.main(E2E_ARGV)
+        launches = counts()
+    # One epoch: 64 rows at batch 64 is one step; the head's prompts (2
+    # classes) fit one text chunk; the 64 val images are one batch.
+    expect_counts("e2e_check", B1=cut_v + cut_t, B2=cut_v + cut_t, B3=cut_t + cut_v)
+    out["e2e"]["launches"] = launches
+    s["e2e"] = time.perf_counter() - t0
+    gc_cuda()
+    out["s"] = s
+    log(f"checks: convergence {out['convergence']['losses']} (plain route {out['convergence']['plain_losses']}), "
+        f"bf16 drift {out['bf16_drift']}, seconds {s} on {card}")
+    return out
+
+
+def phase_measure(card: str, chip_rates=None) -> dict:
+    """Phase 15: (a) ViT-L/14 trained and served at full width, (b) the two
+    breakdowns, (c) the check tools and the A/Bs."""
+    t_phase = time.perf_counter()
+    out, s = {"card": card}, {}
+    t0 = time.perf_counter()
+    out["vit_l_train"], model = measure_vit_l_train(card)
+    s["vit_l_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["vit_l_serve"] = measure_serving(VIT_L, model, *VIT_L_SERVE, card)
+    del model
+    gc_cuda()
+    cfg = SimpleNamespace(model=VIT_L_336, clip_load=None, compute_dtype="bfloat16", seed=0)
+    out["vit_l_336_serve"] = measure_serving(VIT_L_336, build_clip_model(cfg, device="cuda"), *VIT_L_336_SERVE, card)
+    gc_cuda()
+    s["vit_l_serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["vit_l_chunked"] = measure_vit_l_chunked(card)
+    s["vit_l_chunked"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["breakdowns"] = measure_breakdowns(card)
+    s["breakdowns"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["checks"] = measure_checks(card, chip_rates)
+    s["checks"] = time.perf_counter() - t0
+    out["s"] = s
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"measure: seconds {s}; phase took {out['phase_s']:.1f} s on {card}")
+    return out
+
+
 def results_path(root: str, name: str) -> str:
     """The step checkpoint a run ended with (``checkpoint_0_step_{n-1}``)."""
     base = os.path.join(root, name, name)
@@ -4777,7 +5094,7 @@ def main() -> int:
     log(f"card: {card}")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
-    peaks = PEAKS["pcie" if "pcie" in card.lower() else "sxm"]
+    peaks = card_peaks(card)
 
     t0 = time.perf_counter()
     built = _kernels.build_all()
@@ -4835,6 +5152,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         log(json.dumps({"card": card, "surface": phase_surface(card, http)}))
         return 0
+    if "--measure" in sys.argv[1:]:
+        use_impl("auto")
+        log(json.dumps({"card": card, "measure": phase_measure(card)}))
+        return 0
 
     # The default route ("auto", the fused block) for the phases before the
     # route phase, whatever the environment says.
@@ -4865,6 +5186,9 @@ def main() -> int:
     research = phase_research(card)
     use_impl("auto")
     surface = phase_surface(card, serving["http"])
+    use_impl("auto")
+    measure = phase_measure(card, {"ViT-B/16 bs256": training["train_img_s"],
+                                   "RN50 bs256": resnet["bench"]["train_img_s"]})
 
     def line(name, source, replaces, launches, cases, pick=None):
         # B1-B6 are reported at the main path's vision shape, T1-T4 at the
@@ -4930,6 +5254,7 @@ def main() -> int:
     log(json.dumps({"card": card, "parallel": {k: v for k, v in parallel.items() if k != "kernels"}}))
     log(json.dumps({"card": card, "research": research}))
     log(json.dumps({"card": card, "surface": surface}))
+    log(json.dumps({"card": card, "measure": measure}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

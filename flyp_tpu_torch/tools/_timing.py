@@ -27,6 +27,12 @@ def fetch(out) -> float:
     return float(_first(out).reshape(-1)[0].float().item())
 
 
+def sync(device) -> None:
+    """Wait for the card's queued work (nothing to wait for on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def time_call(fn, *args, iters: int) -> float:
     """Seconds per call of ``fn(*args)``."""
     out = fn(*args)

@@ -1,12 +1,40 @@
-"""Profiling: a ``torch.profiler`` trace of a window of train steps, and
-synchronised step timing.
+"""Profiling: a ``torch.profiler`` trace of a window of train steps,
+synchronised step timing, and the FLOP count and MFU.
 
-Counterpart of ``flyp_tpu/utils/profiling.py`` without its MFU half
-(``compiled_flops`` reads XLA's cost analysis, ``mfu`` a TPU peak table):
+Counterpart of ``flyp_tpu/utils/profiling.py``:
 
 * :func:`trace` profiles a block into a Chrome trace under ``log_dir``;
 * :class:`StepWindowTrace` is ``--profile_dir``'s window of steps;
-* :class:`StepTimer` times steps, each ending in a host fetch of a scalar.
+* :class:`StepTimer` times steps, each ending in a host fetch of a scalar;
+* :func:`compiled_flops` counts the products of one call, :func:`mfu`
+  divides a rate by :func:`device_peak_flops`, the card's peak from
+  :data:`PEAKS`.
+
+What the count is.  The port's kernels are bound through ``ctypes``, so
+``torch.utils.flop_counter.FlopCounterMode`` cannot see into them.
+:func:`compiled_flops` therefore runs the call once on the plain route
+(``FLYP_ATTENTION_IMPL=xla``, every product a PyTorch op) under
+``FlopCounterMode``: matrix products, convolutions and attention products
+at ``2 M N K`` each, forward and (when the call runs one) backward.  Fed
+``meta`` tensors, as :func:`clip_flops` and :func:`meta_twin` arrange, it
+does no arithmetic, so a full-width model costs nothing to count.  Three
+differences from the JAX package's count, all stated where a number is
+reported:
+
+* XLA's cost analysis also counts elementwise work (LayerNorm, softmax,
+  GELU, the optimizer); this count has products only.
+* JAX's analytic count of the fused-block kernel pads L to a multiple of
+  16 (``tools/serving_bench.py::fwd_attn_flops``, ``pad=16``); this count
+  takes the unpadded L, the work the model needs.
+* A remat model's recomputed forward is not counted (:func:`meta_twin`
+  builds the twin without remat): the fused routes recompute the MLP
+  sub-block, the others whole blocks, so the count is the model's FLOPs
+  and :func:`mfu` is model-FLOP utilisation whatever the route.
+
+Every CLIP path the tools count runs on ``meta``: the towers, the
+contrastive loss and its backward, the ResNet's BatchNorm.  A host step
+(the tokenizer, ``.item()``, numpy) cannot, so callers count the model on
+tensors they already hold, never through a host-side wrapper.
 """
 
 from __future__ import annotations
@@ -18,6 +46,110 @@ import time
 from typing import Optional
 
 import torch
+
+
+# Dense peaks of one card (NVIDIA data sheets, at the full power limit):
+# bf16 and int8 tensor cores, fp32 CUDA cores, HBM bytes a second.
+PEAKS = {
+    "sxm": {torch.bfloat16: 989e12, torch.int8: 1979e12, torch.float32: 67e12, "bytes": 3.35e12},
+    "pcie": {torch.bfloat16: 756e12, torch.int8: 1513e12, torch.float32: 51e12, "bytes": 2.0e12},
+}
+
+
+def card_peaks(name: str) -> dict:
+    """The peak table of a card by its name (``nvidia-smi`` or
+    ``torch.cuda.get_device_name``): the PCIe part's, else the SXM part's."""
+    return PEAKS["pcie" if "pcie" in name.lower() else "sxm"]
+
+
+def device_peak_flops(device=None, dtype=torch.bfloat16) -> Optional[float]:
+    """Peak dense FLOP/s of ``device``'s card in ``dtype`` (bf16, as the
+    JAX table's), or None for a CPU: no peak is claimed for it, so an MFU
+    there is not measured."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type != "cuda":
+        return None
+    return card_peaks(torch.cuda.get_device_name(device))[dtype]
+
+
+def mfu(step_flops: float, step_time_s: float, device=None) -> Optional[float]:
+    """Model-FLOP utilisation: ``step_flops`` a ``step_time_s`` against the
+    card's bf16 peak; None off the card."""
+    peak = device_peak_flops(device)
+    if peak is None:
+        return None
+    return step_flops / step_time_s / peak if step_time_s > 0 else 0.0
+
+
+@contextlib.contextmanager
+def plain_route():
+    """``FLYP_ATTENTION_IMPL=xla`` for the block, the process's choice
+    restored after it (the route is read once and cached)."""
+    from flyp_tpu_torch.ops import attention
+
+    before = os.environ.get(attention._IMPL_ENV)
+    os.environ[attention._IMPL_ENV] = "xla"
+    attention._default_impl.cache_clear()
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop(attention._IMPL_ENV, None)
+        else:
+            os.environ[attention._IMPL_ENV] = before
+        attention._default_impl.cache_clear()
+
+
+def compiled_flops(fn, *args, **kwargs) -> float:
+    """FLOPs of the products in one call of ``fn(*args, **kwargs)`` on the
+    plain route (module docstring).  Pass ``meta`` (or CPU) tensors: the
+    call runs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with plain_route(), FlopCounterMode(display=False) as counter:
+        fn(*args, **kwargs)
+    return float(counter.get_total_flops())
+
+
+def meta_twin(model):
+    """A ``meta`` copy of a ``CLIPModel``'s structure (config, compute type,
+    mode; remat off, module docstring): no storage, no arithmetic."""
+    from flyp_tpu_torch.models.clip import CLIPModel
+
+    with torch.device("meta"):
+        twin = CLIPModel(model.config, model.compute_dtype)
+    return twin.train(model.training)
+
+
+def _meta(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if t is None else torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def clip_flops(model, images=None, tokens=None, *, train: bool = False, head_classes: int = 0) -> float:
+    """FLOPs of one call of ``model`` at these inputs' shapes, counted on
+    a meta twin.  ``train``: the train step's forward in training mode, the
+    contrastive loss and the backward to every parameter (the update is
+    elementwise and counts nothing).  Else the eval forward of the towers
+    given; ``head_classes`` adds the zero-shot head's product over the
+    image features (``Classifier``'s and ``ClipServer``'s logits)."""
+    from flyp_tpu_torch.ops.losses import clip_loss
+
+    twin = meta_twin(model).train(train)
+    images, tokens = _meta(images), _meta(tokens)
+
+    def call():
+        if train:
+            img_f, txt_f, scale = twin(images, tokens)
+            loss = clip_loss(img_f, txt_f, scale).mean()
+            return torch.autograd.grad(loss, list(twin.parameters()))
+        with torch.no_grad():
+            out = twin(images, tokens)
+            if head_classes:
+                w = torch.empty((head_classes, model.config.embed_dim), device="meta")
+                out = out.float() @ w.T
+            return out
+
+    return compiled_flops(call)
 
 
 def _activities():
