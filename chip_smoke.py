@@ -544,6 +544,8 @@ def phase_train_kernels(peaks):
                                   composite_ms=fwd_comp_ms, bound_ms=f_bound, bound_by=f_by))
             bwd_cases.append(dict(common, max_abs_err=dx_err, rel_err=rels, rel_err_autograd=auto_rels, ms=bwd_ms,
                                   plain_ms=bwd_plain_ms, composite_ms=bwd_comp_ms, bound_ms=b_bound, bound_by=b_by))
+            if L > 256 and dtype == torch.bfloat16:
+                fwd_cases[-1]["edge_key"] = edge_key_block_check(B, L, D, H, where)
             if L == STEP_L:
                 sdpa_f, sdpa_b = attention_yardstick_ms(B, L, D, H, causal, dtype)
                 with torch.no_grad():
@@ -744,17 +746,20 @@ def phase_serving(tmp: str, card: str) -> dict:
 # operands untransposed, the backward's do and dY hold B transposed and its
 # dWqkv A transposed.  ln_forward_kernel (y = LN(x), once per row) runs in
 # B1, B2 and B3 and is its own group in the training profile.  The
-# attention templates (attention.cuh) take kScaleQ (true for the attention block's kernels,
-# false for B5/B6) first and kTrain second in the forwards
+# attention templates (attention.cuh) take kScaleQ (true for the attention
+# block's kernels, false for B5/B6) first and kTrain second in the forwards
 # (attention_fwd_kernel, the register route of bf16 rows up to 256 keys;
-# attention_mma_kernel and attention_fma_kernel, the shared-memory route),
-# and kScaleQ last in the backward passes (attention_bwd_q_kernel and
-# attention_bwd_k_kernel; attention_bwd_dq_kernel and
-# attention_bwd_dkv_kernel).
+# attention_fwd_stream_kernel, the streamed route of longer bf16 rows;
+# attention_fma_kernel, fp32), and kScaleQ last in the backward passes
+# (attention_bwd_q_kernel and attention_bwd_k_kernel;
+# attention_bwd_q_stream_kernel and attention_bwd_k_stream_kernel;
+# attention_bwd_dq_kernel and attention_bwd_dkv_kernel).  The patterns name
+# no route, so they also read a tree whose routes are named otherwise (the
+# parent of an A/B).
 _FWD_GEMM = r"(gemm_fma_kernel<false, false, |gemm_sm90_kernel<\d+, false, true, )"
 LN_FORWARD = r"ln_forward_kernel"
-B3_ATTENTION = r"attention_(fwd|mma|fma)_kernel<true, false"
-B1_ATTENTION = r"attention_(fwd|mma|fma)_kernel<true, true"
+B3_ATTENTION = r"attention_\w+_kernel<true, false"
+B1_ATTENTION = r"attention_\w+_kernel<true, true"
 B2_ATTENTION = r"attention_bwd_\w+_kernel<[^>]*true>"
 B3_KERNELS = rf"({_FWD_GEMM}|{B3_ATTENTION}|{LN_FORWARD})"
 B1_KERNELS = rf"({_FWD_GEMM}|{B1_ATTENTION})"
@@ -1006,6 +1011,32 @@ def bench_training(model, impl: str, card: str):
         f"{first_loss:.5f} -> {last_loss:.5f}, peak memory {res['peak_mem_gb']:.2f} GiB, launches {launches} "
         f"on {card}")
     return state, step, images, tokens, res
+
+
+def default_route_rates(card: str) -> dict:
+    """ViT-B/16 on the default route, bf16, random weights from seed 0:
+    train img/s over ``bench_training``'s 13 steps at batch 256 (launches
+    exact) and serve img/s of ``ClipServer.classify`` at bucket 256 (10
+    calls after one, as phase 4 times it; B3 counted).  ``python3
+    chip_smoke.py --default-route`` prints only these: the quick A/B of a
+    change to code the default route shares."""
+    cfg = SimpleNamespace(model=MODEL, clip_load=None, compute_dtype="bfloat16", seed=0)
+    model = build_clip_model(cfg, device="cuda")
+    train = bench_training(model, "pallas_block", card)[-1]
+    srv = ClipServer.for_classification(model, CLASSNAMES, simple_template, image_buckets=(256,))
+    layers_v = model.config.vision.layers
+    px = model.config.vision.image_size
+    batch = np.random.default_rng(0).standard_normal((256, px, px, 3)).astype(np.float32)
+    srv.classify(batch)
+    reps = 10
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        srv.classify(batch)
+    serve = reps * 256 / (time.perf_counter() - t0)
+    expect_counts(f"{reps} classify calls of 256 images", B3=reps * layers_v)
+    log(f"default route: train {train['train_img_s']:.2f} img/s, serve {serve:.1f} img/s at bucket 256 on {card}")
+    return {"train_img_s": train["train_img_s"], "step_ms": train["step_ms"], "serve_img_s": serve}
 
 
 # The input phase's corpus: 512 source images with sides of 256-512 px
@@ -2471,8 +2502,88 @@ def phase_impl_kernels(peaks) -> dict:
                                          f"{caught}")
                 out["B6_bwd"][-1].setdefault("planted_fault_errs", {})[fault] = caught
                 log(f"planted fault ({fault}) caught", json.dumps({"where": list(map(str, where)), **caught}))
+            if dtype == torch.bfloat16 and L > 256:
+                out["B6_bwd"][-1]["long_row_checks"] = long_row_checks(ops, B, L, H, causal, where)
             del qkv, q, k, v, g, g4, ops, faults, ref, ref_o
     out["B4"] = mlp_cases(peaks)
+    return out
+
+
+def long_row_checks(ops, B, L, H, causal, where) -> dict:
+    """B5 and B6 on the streamed route (bf16 above 256 keys): a second
+    launch of each forward and backward equal bit for bit to the first; on
+    inputs whose last key carries most of each row's weight
+    (``testing.edge_key_qkv``), forward and backward within check_attention;
+    and the planted fault of a row sum without the last 64-key tile
+    (``testing.forward_without_last_tile``) failing it there."""
+    from flyp_tpu_torch.testing import attention_errors, check_attention, edge_key_qkv, forward_without_last_tile
+
+    dt, D = torch.bfloat16, H * _HEAD_DIM
+    out = {}
+    with torch.no_grad():
+        for name, (fwd, _, bwd, _, _) in ops.items():
+            first, second = (fwd(), *bwd()), (fwd(), *bwd())
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, second)):
+                raise AssertionError(f"{name} differs between two launches at {where}")
+        out["repeat_bit_for_bit"] = list(ops)
+        q, k, v, do = (torch.from_numpy(a).cuda().to(dt) for a in edge_key_qkv(B, L, H, seed=L + 3))
+        qkv = torch.cat([t.reshape(B, L, D) for t in (q, k, v)], dim=-1)
+        ref_o = fa.flash_attention_reference(q, k, v, causal)
+        ref = fa.flash_attention_backward_reference(q, k, v, do, causal)
+        got = {"B6": (fa.flash_attention(q, k, v, causal), *fa.flash_attention_backward(q, k, v, do, causal)),
+               "B5": (fq.fused_qkv_attention(qkv, H, causal).reshape(B, L, H, _HEAD_DIM),
+                      *fq._heads(fq.fused_qkv_attention_backward(qkv, do.reshape(B, L, D), H, causal), H))}
+        torch.cuda.synchronize()
+        for name, tensors in got.items():
+            out[f"edge_key_{name}"] = {n: check_attention(f"{name} {n} (edge key)", a, r, where)["max_abs"]
+                                       for n, a, r in zip(("o", "dq", "dk", "dv"), tensors, (ref_o, *ref))}
+        faulty = forward_without_last_tile(q, k, v, causal)
+        try:
+            check_attention("planted fault", faulty, ref_o, where)
+        except AssertionError:
+            out["planted_fault_errs"] = {"l without the last tile": attention_errors(faulty, ref_o)}
+        else:
+            raise AssertionError(f"the attention check let a planted fault (l without the last tile) pass at {where}")
+    log("long-row checks", json.dumps({"where": list(map(str, where)), **out}))
+    return out
+
+
+def edge_key_block_check(B, L, D, H, where) -> dict:
+    """B3, B1 and B2 on the streamed route, on inputs whose last row's key
+    carries most of each row's weight in every head
+    (``testing.edge_key_block_inputs``), against their plain versions at
+    TOL and BWD_TOL; a second launch of each equal bit for bit."""
+    from flyp_tpu_torch.testing import edge_key_block_inputs
+
+    dt = torch.bfloat16
+    arrays, cot = edge_key_block_inputs(B, L, D, seed=L + 5)
+    args = [torch.from_numpy(a).cuda() for a in arrays]
+    args[0] = args[0].to(dt)
+    x, ln_s, ln_b, wqkv, _, wout, _ = args
+    g = torch.from_numpy(cot).cuda().to(dt)
+    out = {}
+    with torch.no_grad():
+        runs = []
+        for _ in range(2):
+            b3 = ab.attention_block_inference(*args, H, False)
+            b1 = ab._fwd_kernel_call(*args, H, False, train=True)
+            b2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[2:], H, False)
+            runs.append({"B3": (b3,), "B1": b1, "B2": b2})
+        torch.cuda.synchronize()
+        for name in runs[0]:
+            if not all(torch.equal(a, b) for a, b in zip(runs[0][name], runs[1][name])):
+                raise AssertionError(f"{name} differs between two launches at {where} (edge key)")
+        b3, b1, b2 = (runs[0][n] for n in ("B3", "B1", "B2"))
+        out["B3"] = check_close("B3 (edge key)", b3[0], ab.attention_block_inference_reference(*args, H, False),
+                                TOL[dt], where)
+        ref = ab.attention_block_reference(*args, H, False)
+        out["B1"] = max(check_close(f"B1 {n} (edge key)", a, r, TOL[dt], where)
+                        for n, a, r in zip(("out", "o", "q", "k", "v"), b1, ref))
+        _, o, q, k, v, lse = b1
+        ref_b = ab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, False)
+        out["B2"] = check_close("B2 dx (edge key)", b2[0], ref_b[0], BWD_TOL[dt][0], where)
+    log("edge-key block check", json.dumps({"where": list(map(str, where)), **out}))
     return out
 
 
@@ -3024,15 +3135,27 @@ def digests() -> dict:
     return out
 
 
+# ViT-L/14's vision rows, on the streamed route (bf16 above 256 keys): at
+# 224 px (L = 257, the recipe's batch 256) and at 336 px (L = 577, the
+# serving bench's batch 64); D = 1024, H = 16.
+LONG_ROW_SHAPES = [(256, 257, 1024, 16), (64, 577, 1024, 16)]
+# (B, L, D, H, causal): the vision and text shapes of ViT-B/16's main path,
+# then ViT-L/14's long rows.
+ATTENTION_TIME_SHAPES = [(256, 197, 768, 12, False), (256, 32, 512, 8, True),
+                         *((B, L, D, H, False) for B, L, D, H in LONG_ROW_SHAPES)]
+
+
 def attention_times() -> dict:
-    """Device ms of the attention kernels alone at the vision shape (B=256,
-    L=197, D=768, H=12, bf16) and at text L=32 (B=256, D=512, H=8, causal):
-    B5 and B6 per op call, and the attention step inside B3, B1 and B2 (the
-    device time of their attention kernels under torch.profiler).
-    ``python3 chip_smoke.py --attention-times`` prints only these, for
+    """Device ms of the attention kernels alone, bf16, at
+    ATTENTION_TIME_SHAPES: B5 and B6 per op call, beside
+    ``F.scaled_dot_product_attention``'s forward and autograd backward on
+    the same q, k, v (``sdpa_fwd``, ``sdpa_bwd``: their library_ms), and the
+    attention step inside B3, B1 and B2 (the device time of their attention
+    kernels under torch.profiler).  ``python3 chip_smoke.py
+    --attention-times`` prints only these and ``long_row_cases``, for
     comparing kernel designs in one call."""
     out = {}
-    for B, L, D, H, causal in ((256, 197, 768, 12, False), (256, 32, 512, 8, True)):
+    for B, L, D, H, causal in ATTENTION_TIME_SHAPES:
         dt = torch.bfloat16
         gen = torch.Generator().manual_seed(L)
         q, k, v, do = (torch.randn(B, L, H, _HEAD_DIM, generator=gen).cuda().to(dt) for _ in range(4))
@@ -3051,7 +3174,107 @@ def attention_times() -> dict:
                                              B1_ATTENTION),
                    "B2_attention": kernel_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, bq, bk, bv,
                                                                          lse, H, causal), B2_ATTENTION)}
+        res["sdpa_fwd"], res["sdpa_bwd"] = sdpa_ms(q, k, v, g, causal)
         out[f"B={B} L={L} D={D} H={H}{' causal' if causal else ''} bfloat16"] = res
+        log("attention times", json.dumps({f"B={B} L={L}": res}))
+        del q, k, v, do, qkv, g, args, x, ln_s, ln_b, wqkv, wout, bq, bk, bv, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_row_cases(peaks) -> dict:
+    """B3, B1, B2 and B5/B6 (forward and backward) in bf16 at
+    LONG_ROW_SHAPES, the streamed route's main-path shapes: each call
+    checked against its plain version (B1-B3 at TOL and BWD_TOL, B5/B6 to
+    check_attention), then timed beside its plain version, the bound and
+    one library call (SDPA for B5/B6) or, for B1-B3, the composite
+    yardstick and their attention step alone under the profiler beside
+    SDPA's.  The plain versions run 3 times after a warm-up (they hold
+    [B, H, L, L] fp32 scores)."""
+    from flyp_tpu_torch.testing import check_attention
+
+    out = {name: [] for name in ("B3", "B1", "B2", "B5_fwd", "B5_bwd", "B6_fwd", "B6_bwd")}
+    dt = torch.bfloat16
+
+    def plain_ms(fn):
+        return cuda_ms(fn, iters=3, warmup=1)
+
+    for B, L, D, H in LONG_ROW_SHAPES:
+        t0 = time.perf_counter()
+        common = dict(B=B, L=L, D=D, H=H, causal=False, dtype="bfloat16")
+        where = (B, L, D, H, False, "bfloat16")
+        args = block_inputs(B, L, D, dt, seed=L + 7)
+        x, ln_s, ln_b, wqkv, _, wout, _ = args
+        g = torch.randn(B, L, D, generator=torch.Generator().manual_seed(L + 8)).cuda().to(dt)
+        sdpa_f, sdpa_b = attention_yardstick_ms(B, L, D, H, False, dt)
+        with torch.no_grad():
+            err3 = check_close("B3", ab.attention_block_inference(*args, H, False),
+                               ab.attention_block_inference_reference(*args, H, False), TOL[dt], where)
+            got = ab._fwd_kernel_call(*args, H, False, train=True)
+            ref = ab.attention_block_reference(*args, H, False)
+            err1 = max(check_close(f"B1 {n}", a, r, TOL[dt], where) for n, a, r in zip(("out", "o"), got, ref))
+            _, o, q, k, v, lse = got
+            bwd_args = (g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, False)
+            ref_b = ab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, False)
+            err2 = check_close("B2 dx", ab._bwd_kernel_call(*bwd_args)[0], ref_b[0], BWD_TOL[dt][0], where)
+            del ref, ref_b
+            torch.cuda.empty_cache()
+            rows = {
+                "B3": (err3, lambda: ab.attention_block_inference(*args, H, False),
+                       lambda: ab.attention_block_inference_reference(*args, H, False), B3_ATTENTION, sdpa_f,
+                       block_bound_ms(B, L, D, False, dt, peaks)),
+                "B1": (err1, lambda: ab._fwd_kernel_call(*args, H, False, train=True),
+                       lambda: ab.attention_block_reference(*args, H, False), B1_ATTENTION, sdpa_f,
+                       block_bound_ms(B, L, D, False, dt, peaks)),
+                "B2": (err2, lambda: ab._bwd_kernel_call(*bwd_args),
+                       lambda: ab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse,
+                                                                     H, False), B2_ATTENTION, sdpa_b,
+                       bwd_bound_ms(B, L, D, H, False, dt, peaks)),
+            }
+            for name, (err, fn, plain, pattern, sdpa, (bound, by)) in rows.items():
+                out[name].append(dict(common, max_abs_err=err, ms=cuda_ms(fn), plain_ms=plain_ms(plain),
+                                      bound_ms=bound, bound_by=by, attention_ms=kernel_ms(fn, pattern), sdpa_ms=sdpa))
+                torch.cuda.empty_cache()
+        yin = [t.detach().clone().requires_grad_(True) for t in args]
+        out["B3"][-1]["composite_ms"] = out["B1"][-1]["composite_ms"] = cuda_ms(lambda: yardstick(*yin, H, False))
+        yout = yardstick(*yin, H, False)
+        out["B2"][-1]["composite_ms"] = cuda_ms(lambda: torch.autograd.grad(yout, yin, g, retain_graph=True))
+        del yin, yout, args, x, wqkv, wout, got, o, q, k, v, lse, bwd_args, rows
+        torch.cuda.empty_cache()
+
+        gen = torch.Generator().manual_seed(L + 9)
+        qkv = torch.randn(B, L, 3 * D, generator=gen).cuda().to(dt)
+        heads = [torch.randn(B, L, H, _HEAD_DIM, generator=gen).cuda().to(dt) for _ in range(3)]
+        g4 = g.reshape(B, L, H, _HEAD_DIM)
+        ops = {
+            "B5": (lambda: fq.fused_qkv_attention(qkv, H, False),
+                   lambda: fq.fused_qkv_attention_reference(qkv, H, False),
+                   lambda: fq._heads(fq.fused_qkv_attention_backward(qkv, g, H, False), H),
+                   lambda: fq._heads(fq.fused_qkv_attention_backward_reference(qkv, g, H, False), H),
+                   fq._heads(qkv, H)),
+            "B6": (lambda: fa.flash_attention(*heads, False), lambda: fa.flash_attention_reference(*heads, False),
+                   lambda: fa.flash_attention_backward(*heads, g4, False),
+                   lambda: fa.flash_attention_backward_reference(*heads, g4, False), heads),
+        }
+        for name, (fwd, fwd_plain, bwd, bwd_plain, qkv_heads) in ops.items():
+            with torch.no_grad():
+                f_err = check_attention(f"{name} forward", fwd(), fwd_plain(), where)["max_abs"]
+                b_err = max(check_attention(f"{name} backward {n}", a, r, where)["max_abs"]
+                            for n, a, r in zip(("dq", "dk", "dv"), bwd(), bwd_plain()))
+                torch.cuda.empty_cache()
+                times = (cuda_ms(fwd), plain_ms(fwd_plain), cuda_ms(bwd), plain_ms(bwd_plain))
+            lib_f, lib_b = sdpa_ms(*qkv_heads, g, False)
+            for direction, err, ms, p_ms, lib, backward in (("fwd", f_err, times[0], times[1], lib_f, False),
+                                                            ("bwd", b_err, times[2], times[3], lib_b, True)):
+                bound, by = attention_bound_ms(B, L, D, False, dt, peaks, backward)
+                out[f"{name}_{direction}"].append(dict(common, max_abs_err=err, ms=ms, plain_ms=p_ms,
+                                                       library_ms=lib, bound_ms=bound, bound_by=by))
+            torch.cuda.empty_cache()
+        del qkv, heads, g, g4, ops
+        torch.cuda.empty_cache()
+        for name, rows_ in out.items():
+            log(f"long rows {name}", json.dumps(rows_[-1]))
+        log(f"long rows at B={B} L={L}: {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -5108,7 +5331,11 @@ def main() -> int:
         log(json.dumps({"card": card, "digests": digests()}))
         return 0
     if "--attention-times" in sys.argv[1:]:
-        log(json.dumps({"card": card, "attention_times": attention_times()}))
+        log(json.dumps({"card": card, "attention_times": attention_times(), "long_rows": long_row_cases(peaks)}))
+        return 0
+    if "--default-route" in sys.argv[1:]:
+        use_impl("auto")
+        log(json.dumps({"card": card, "default_route": default_route_rates(card)}))
         return 0
     if "--gemm" in sys.argv[1:]:
         log(json.dumps({"card": card, "gemm": phase_gemm(peaks)}))
@@ -5164,6 +5391,7 @@ def main() -> int:
     cases = phase_kernels(peaks)
     fwd_cases, bwd_cases = phase_train_kernels(peaks)
     impl_cases = phase_impl_kernels(peaks)
+    long_rows = long_row_cases(peaks)
     with tempfile.TemporaryDirectory() as tmp:
         serving = phase_serving(tmp, card)
     training = phase_training(card)
@@ -5190,12 +5418,13 @@ def main() -> int:
     measure = phase_measure(card, {"ViT-B/16 bs256": training["train_img_s"],
                                    "RN50 bs256": resnet["bench"]["train_img_s"]})
 
-    def line(name, source, replaces, launches, cases, pick=None):
+    def line(name, source, replaces, launches, cases, pick=None, long=None):
         # B1-B6 are reported at the main path's vision shape, T1-T4 at the
-        # case ``pick`` names.  B5, B6 and T1-T4 (T4 in fp32 moments) compute
-        # what one PyTorch call computes (library_ms); no single call computes
-        # B1-B4, so their library_ms is null and a composite yardstick stands
-        # beside.
+        # case ``pick`` names; ``long`` lists an attention kernel's calls at
+        # ViT-L/14's rows (LONG_ROW_SHAPES, the streamed route).  B5, B6 and
+        # T1-T4 (T4 in fp32 moments) compute what one PyTorch call computes
+        # (library_ms); no single call computes B1-B4, so their library_ms is
+        # null and a composite yardstick stands beside.
         c = next(c for c in cases if (pick(c) if pick else (c["B"], c["L"], c["dtype"]) == MAIN_SHAPE
                                                         and "shards" not in c))
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -5203,7 +5432,7 @@ def main() -> int:
                 "library_ms": c.get("library_ms"), "composite_ms": c.get("composite_ms"),
                 **{k: c[k] for k in ("attention_ms", "sdpa_ms") if k in c},
                 "shape": c.get("shape") or f"B={c['B']} L={c['L']} D={c['D']} H={c['H']} {c['dtype']}",
-                "cases": cases}
+                "cases": cases, **({"long_rows": long} if long else {})}
 
     def route(impl, kernel):  # launches on the route's 13-step training path
         return impls[impl]["train_launches"][kernel]
@@ -5216,21 +5445,26 @@ def main() -> int:
 
     kernels = [
         line("attention_block_inference", "flyp_tpu_torch/csrc/attention_block.cu",
-             "flyp_tpu/ops/attention_block.py:303", serving["launches"], cases + shard_cases["B3"]),
+             "flyp_tpu/ops/attention_block.py:303", serving["launches"], cases + shard_cases["B3"],
+             long=long_rows["B3"]),
         line("attention_block_train_forward", "flyp_tpu_torch/csrc/attention_block.cu",
-             "flyp_tpu/ops/attention_block.py:118", route("pallas_block", "B1"), fwd_cases + shard_cases["B1"]),
+             "flyp_tpu/ops/attention_block.py:118", route("pallas_block", "B1"), fwd_cases + shard_cases["B1"],
+             long=long_rows["B1"]),
         line("attention_block_train_backward", "flyp_tpu_torch/csrc/attention_block_bwd.cu",
-             "flyp_tpu/ops/attention_block.py:185", route("pallas_block", "B2"), bwd_cases + shard_cases["B2"]),
+             "flyp_tpu/ops/attention_block.py:185", route("pallas_block", "B2"), bwd_cases + shard_cases["B2"],
+             long=long_rows["B2"]),
         line("mlp_block_forward", "flyp_tpu_torch/csrc/mlp_block.cu", "flyp_tpu/ops/mlp_block.py:45",
              route("pallas_block_mlp", "B4"), impl_cases["B4"]),
         line("fused_qkv_attention_forward", "flyp_tpu_torch/csrc/attention.cu",
-             "flyp_tpu/ops/fused_qkv_attention.py:62", route("pallas_qkv", "B5_fwd"), impl_cases["B5_fwd"]),
+             "flyp_tpu/ops/fused_qkv_attention.py:62", route("pallas_qkv", "B5_fwd"), impl_cases["B5_fwd"],
+             long=long_rows["B5_fwd"]),
         line("fused_qkv_attention_backward", "flyp_tpu_torch/csrc/attention.cu",
-             "flyp_tpu/ops/fused_qkv_attention.py:74", route("pallas_qkv", "B5_bwd"), impl_cases["B5_bwd"]),
+             "flyp_tpu/ops/fused_qkv_attention.py:74", route("pallas_qkv", "B5_bwd"), impl_cases["B5_bwd"],
+             long=long_rows["B5_bwd"]),
         line("flash_attention_forward", "flyp_tpu_torch/csrc/attention.cu", "flyp_tpu/ops/flash_attention.py:36",
-             route("pallas", "B6_fwd"), impl_cases["B6_fwd"]),
+             route("pallas", "B6_fwd"), impl_cases["B6_fwd"], long=long_rows["B6_fwd"]),
         line("flash_attention_backward", "flyp_tpu_torch/csrc/attention.cu", "flyp_tpu/ops/flash_attention.py:53",
-             route("pallas", "B6_bwd"), impl_cases["B6_bwd"]),
+             route("pallas", "B6_bwd"), impl_cases["B6_bwd"], long=long_rows["B6_bwd"]),
         line("probe_gemm_bf16", gemm, "tools/int8_matmul_probe.py:73", tool("T1_bf16"), probes["T1_bf16"],
              lambda c: c["shape"].startswith("qkv")),
         line("probe_gemm_int8", gemm, "tools/int8_matmul_probe.py:73", tool("T1_int8"), probes["T1_int8"],

@@ -29,17 +29,22 @@
 // Which kernels run (attention.cuh): bf16 at L <= 256, the register route
 // (attention_fwd_kernel; attention_bwd_q_kernel then attention_bwd_k_kernel:
 // scores, probabilities and products in mma.sync registers, k/v or q/do
-// tiles by cp.async); fp32 at every L and bf16 at 257-1024, the
-// shared-memory route (attention_fma_kernel or attention_mma_kernel;
-// attention_bwd_dq_kernel then attention_bwd_dkv_kernel).
+// tiles by cp.async); bf16 at 257-1024, the streamed route
+// (attention_fwd_stream_kernel; attention_bwd_q_stream_kernel then
+// attention_bwd_k_stream_kernel: the same registers, the opposite side
+// streamed through a two-slot cp.async ring); fp32 at every L, the fp32
+// route (attention_fma_kernel; attention_bwd_dq_kernel then
+// attention_bwd_dkv_kernel, scores in shared memory).
 //
 // What bounds it on the H100: per (batch item, head) the forward does 4 L^2
 // 64 FLOPs against 4 L 64 elements it must move (~L/2 FLOPs per byte in
 // bf16, under the card's ~295 at CLIP's L <= 1024), so an ideal kernel is
 // bound by memory: 0.092 ms forward and 0.162 ms backward at B=256, L=197,
-// D=768 in bf16.  The register route is bound by issue instead (mma.sync,
-// exp and the softmax's fragment arithmetic); its registers and shared
-// memory per block are in attention.cuh's header, its times in PERF.md.
+// D=768 in bf16 (0.161 ms and 0.282 ms at ViT-L/14's B=256, L=257,
+// D=1024).  The register and streamed routes are bound by issue instead
+// (mma.sync, exp and the softmax's fragment arithmetic); their registers
+// and shared memory per block are in attention.cuh's header, their times
+// in PERF.md.
 
 #include "attention.cuh"
 

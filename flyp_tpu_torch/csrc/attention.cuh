@@ -28,12 +28,12 @@
 // (masked) keys and rows past L get p = 0, as exp of the TPU kernels' -1e30
 // bias is.
 //
-// Two routes, picked per call by type and length; each output element is
+// Three routes, picked per call by type and length; each output element is
 // written by one block, with no atomics, so a run repeats bit for bit.
 //
 // The register route (bf16, L <= 256 keys, kRegKeys: ViT-B's 197 and the
 // text tower's 77, but not ViT-L/14's 257 or ViT-L/14@336px's 577, which
-// take the shared-memory route).  Blocks of four warps own 64 rows, each warp 16;
+// take the streamed route).  Blocks of four warps own 64 rows, each warp 16;
 // the block's rows and the whole opposite side of its (head, item) (at most
 // 256 rows of k and v, or of q and do) land in shared memory by cp.async,
 // one group per 64-row tile, and each tile's products start once it has
@@ -74,26 +74,69 @@
 // (a) (128 + 128 NT) x 144 B = 92,160 B, pass (b) that plus 1,024 NT B of
 // row statistics = 96,256 B.
 //
-// The shared-memory route (fp32 at every L, bf16 above 256 keys, up to
-// 1024 for B5/B6 and B2).  One block per (query tile, head, batch
-// item) keeps the tile's scores over its whole key range in fp32 shared
-// memory, so the softmax is normalised before p is cast, as on the TPU (an
-// online softmax would cast before it normalises).  bf16 runs every product
-// on the tensor cores; fp32 tiles FMA on the CUDA cores, since the tensor
-// cores would round fp32 operands to TF32.  Query tiles: the largest of 64,
-// 32 (bf16 forward) or 64, 32, 16 rows (backward; one warp per 16 rows)
-// whose shared memory fits a block's 227 KB, and 32 rows for the fp32
-// forward, so every L <= 1024 fits.  The launches, on the caller's stream:
+// The streamed route (bf16 above 256 keys: ViT-L/14's 257, @336px's 577,
+// up to the ops' 1024) serves the same TPU kernels at long rows:
+// flyp_tpu/ops/attention_block.py::_fwd_infer_kernel :303 (B3), _fwd_kernel
+// :118 (B1), _bwd_kernel :185 (B2); fused_qkv_attention.py::_fwd_kernel,
+// _bwd_kernel :62, :74 (B5); flash_attention.py::_fwd_kernel, _bwd_kernel
+// :36, :53 (B6).  Blocks of four warps own 64 rows as on the register route,
+// with their own rows' A fragments in registers, but the opposite side
+// streams through a ring of kStreamStages = 2 slots of two 64-row tiles (k
+// and v, or q and do), one cp.async group a tile pair, the next in flight
+// while a warp works on the last; so a block's shared memory no longer grows
+// with L, and no score, probability or row statistic reaches shared memory:
+// they stay in mma.sync registers a 64-key tile or a 16-key chunk at a time.
 //
-//   forward:  s tile by tile, the softmax row by row (p written over the
-//             front of its own score row), o = sum over key tiles of p v;
+//   forward (attention_fwd_stream_kernel), per 64-row query tile: sweep 1
+//     streams the k tiles for each row's max m and sum l of exp(s - m) (l
+//     rescaled when m moves); sweep 2 streams k and v, recomputes s and adds
+//     T(p) v with p = exp(s - m) / l normalised in fp32 before its cast, so
+//     the rule above holds (a one-sweep online softmax would cast e under a
+//     running max).  kTrain takes only m in sweep 1 and sums l from the e it
+//     casts in sweep 2, o = (T(e) v) / l, lse = m + log l;
+//   backward pass (a) (attention_bwd_q_stream_kernel), per 64-row query
+//     tile: (m, l) from a stats sweep as the forward's sweep 1 (B5/B6, which
+//     keep no lse), a sweep for delta = sum p dp, a sweep for ds and
+//     dq += T(ds) k, p and dp a 16-key chunk at a time;
+//   backward pass (b) (attention_bwd_k_stream_kernel), per 64-key tile: each
+//     warp keeps its 16 keys' k, v fragments and dk, dv in registers, the
+//     q/do tiles stream through the ring and every row's statistics (lse or
+//     (m, l, 1/l), and delta) are read once into shared memory (16 B a row).
+//
+// Products are mma.sync m16n8k16, not wgmma: the register route's fragment
+// helpers carry over unchanged (an accumulator cast to bf16 is the next
+// product's A fragment; the k- and q-side transposes of p v, T(p)^T do and
+// T(ds)^T q come from ldmatrix.trans), where wgmma wants its B operand in
+// shared memory in its own swizzled layout and 64-row warpgroup tiles.  At
+// ViT-L/14 (B = 256, L = 257, D = 1024) the bound is bytes: 0.161 ms
+// forward, 0.282 ms backward at 3.35 TB/s (q, k, v (and do) read, o (dq,
+// dk, dv) written once); the kernels run at several times that (times in
+// PERF.md), bound by the mma chains, exp and the softmax arithmetic of their
+// warps.  ptxas -v (sm_90a, no spills): forward 127 registers (B3, B5/B6),
+// 123 (B1); pass (a) 149 (B5/B6), 127 (B2); pass (b) 168.  Shared memory a
+// block: forward 46,080 B, pass (a) 55,296 B, pass (b) 55,296 B + 16 B a
+// row of 64 ceil(L / 64) (60,416 B at L = 257, 71,680 B at 1024); so four
+// blocks of 128 threads an SM in the forward, three or four in pass (a),
+// three in pass (b) (the launch bounds cap registers for that).  Each pass
+// recomputes p, so nothing of size L^2 reaches device memory.
+//
+// The fp32 route (every L).  One block per (query tile, head, batch item)
+// keeps the tile's scores over its whole key range in fp32 shared memory,
+// so the softmax is normalised before p is used, as on the TPU; products
+// run as FMA tiles on the CUDA cores, since the tensor cores would round
+// fp32 operands to TF32.  Query tiles: 32 rows in the forward; the largest
+// of 64, 32, 16 rows whose shared memory fits a block's 227 KB in pass (a),
+// so every L <= 1024 fits.  The launches, on the caller's stream:
+//
+//   forward:  s tile by tile, the softmax row by row, o = sum over key
+//             tiles of p v (attention_fma_kernel);
 //   backward: pass (a), per query tile: s and dp over the full key range, p,
-//             delta (to a [B, L, H] fp32 buffer), ds (over the front of its
-//             row), dq = ds k;
+//             delta (to a [B, L, H] fp32 buffer), ds (over p), dq = ds k
+//             (attention_bwd_dq_kernel);
 //             pass (b), per 64-key tile, over the query tiles that see its
 //             keys: p^T rebuilt from k q^T and the rows' statistics, dp^T =
-//             v do^T, ds^T from the rows' delta, dv += T(p)^T do,
-//             dk += ds^T q.
+//             v do^T, ds^T from the rows' delta, dv += p^T do, dk += ds^T q
+//             (attention_bwd_dkv_kernel).
 
 #pragma once
 
@@ -290,164 +333,26 @@ __global__ void __launch_bounds__(kFmaThreads) attention_fma_kernel(const AttnAr
 }
 
 // ---------------------------------------------------------------------------
-// Forward, bf16: mma.sync.m16n8k16 on the tensor cores, fp32 accumulate; one
-// block of QT / 16 warps per (QT-row query tile, head, item), each warp
-// owning 16 query rows.  Scores go through the tensor cores into fp32
-// shared memory ([QT, s_stride]); the softmax runs in fp32 and writes p as
-// bf16 over the front of its own score row; p @ v goes through the tensor
-// cores again.
+// Backward, fp32, pass (a): one block of 2 * QT threads per (QT-row query
+// tile, head, item).
 
-template <bool kScaleQ, bool kTrain, int QT>
-__global__ void __launch_bounds__(2 * QT) attention_mma_kernel(const AttnArgs a) {
-  constexpr int TS = TileLayout<bf16>::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float row_l[QT];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);             // [QT][TS]
-  bf16* KV = Qs + QT * TS;                                  // [64][TS]
-  float* S = reinterpret_cast<float*>(KV + kTile * TS);     // [QT][s_stride]
-
-  const int L = a.L, D = gridDim.y * kHeadDim, q0 = blockIdx.x * QT, s_stride = a.s_stride;
-  const float scale = a.scale;
-  const bf16* Q = head_rows<bf16>(a.q, a.in_b);
-  const bf16* K = head_rows<bf16>(a.k, a.in_b);
-  const bf16* V = head_rows<bf16>(a.v, a.in_b);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q_end = min(q0 + QT, L);
-  const int kv_len = a.causal ? q_end : L;  // keys any row of this tile may see
-  const int n_tiles = (kv_len + kTile - 1) / kTile;
-  const int wr = warp * 16;  // this warp's first row in the tile
-
-  // kScaleQ: q is scaled after its cast to bf16, and rounds to bf16 again.
-  load_tile<QT, 2 * QT>(Qs, Q, a.in_r, q0, L, kScaleQ ? scale : 0.f);
-  __syncthreads();
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) ldmatrix_x4(qa[ks], &Qs[(wr + lane % 16) * TS + ks * 16 + (lane / 16) * 8]);
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile<kTile, 2 * QT>(KV, K, a.in_r, k0, L);
-    __syncthreads();
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        // k rows are the columns of the 16 x 8 B tiles: no transpose.
-        uint32_t r[4];
-        ldmatrix_x4(r, &KV[(np * 16 + (lane & 7) + ((lane >> 4) << 3)) * TS + ks * 16 + ((lane >> 3) & 1) * 8]);
-        mma_bf16(s[2 * np], qa[ks], r[0], r[1]);
-        mma_bf16(s[2 * np + 1], qa[ks], r[2], r[3]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = kScaleQ ? s[nt][e] : __fmul_rn(s[nt][e], scale);
-      const int c = k0 + nt * 8 + (lane % 4) * 2;
-      const int r = wr + lane / 4;
-      *reinterpret_cast<float2*>(&S[r * s_stride + c]) = make_float2(s[nt][0], s[nt][1]);
-      *reinterpret_cast<float2*>(&S[(r + 8) * s_stride + c]) = make_float2(s[nt][2], s[nt][3]);
-    }
-  }
-  __syncwarp();
-
-  // Softmax of the warp's 16 rows.  p[j] (bf16) overwrites bytes 2j..2j+1
-  // of its own fp32 row, which only ever covers scores already read.
-  const int cols = n_tiles * kTile;
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = wr + rr, i = q0 + r;
-    float* row = S + (size_t)r * s_stride;
-    bf16* prow = reinterpret_cast<bf16*>(row);
-    const int visible = i < L ? (a.causal ? i + 1 : L) : 0;
-    float m, l;
-    row_softmax_stats(row, visible, m, l);
-    const float rl = __frcp_rn(l);
-    if (kTrain && lane == 0) {
-      row_l[r] = l;
-      if (i < L) a.stats[stat_index(i, L)] = m + logf(l);
-    }
-    for (int j0 = 0; j0 < cols; j0 += 32) {
-      const int j = j0 + lane;
-      const float v = row[j];
-      __syncwarp();
-      const float e = expf(v - m);
-      prow[j] = __float2bfloat16_rn(j < visible ? (kTrain ? e : div_rn_by(e, l, rl)) : 0.f);
-      __syncwarp();
-    }
-  }
-
-  float o[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
-  const bf16* P = reinterpret_cast<const bf16*>(S);
-  const int p_stride = 2 * s_stride;  // bf16 per row
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();
-    load_tile<kTile, 2 * QT>(KV, V, a.in_r, k0, L);
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      uint32_t pa[4];
-      ldmatrix_x4(pa, &P[(wr + lane % 16) * p_stride + k0 + ks * 16 + (lane / 16) * 8]);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, &KV[(ks * 16 + lane % 16) * TS + np * 16 + (lane / 16) * 8]);
-        mma_bf16(o[2 * np], pa, r[0], r[1]);
-        mma_bf16(o[2 * np + 1], pa, r[2], r[3]);
-      }
-    }
-  }
-
-  bf16* O = static_cast<bf16*>(a.o) + (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * kHeadDim;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int i = q0 + wr + lane / 4 + half * 8;
-    if (i >= L) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int d = nt * 8 + (lane % 4) * 2;
-      float v0 = o[nt][2 * half], v1 = o[nt][2 * half + 1];
-      if (kTrain) {
-        const float l = row_l[wr + lane / 4 + half * 8];
-        v0 = __fdiv_rn(v0, l);
-        v1 = __fdiv_rn(v1, l);
-      }
-      *reinterpret_cast<bf162*>(O + (size_t)i * D + d) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward pass (a): one block of 2 * QT threads per (QT-row query tile,
-// head, item).
-
-template <typename T, int QT, bool kScaleQ>
+template <int QT, bool kScaleQ>
 __global__ void __launch_bounds__(2 * QT) attention_bwd_dq_kernel(const AttnArgs a) {
-  constexpr int TS = TileLayout<T>::kStride;
+  constexpr int TS = TileLayout<float>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Qs = reinterpret_cast<T*>(smem_raw);                  // [QT][TS]: q, or T(q * scale)
-  T* dOs = Qs + QT * TS;                                   // [QT][TS]
-  T* KVs = dOs + QT * TS;                                  // [64][TS]: k, then v, then k again
-  float* S = reinterpret_cast<float*>(KVs + kTile * TS);   // [QT][s_stride]: s, then p, then ds
-  float* DP = S + QT * a.s_stride;                         // [QT][s_stride]: dp, then the dq sums
-  __shared__ float row_lse[QT];                            // kScaleQ: the rows' lse
+  float* Qs = reinterpret_cast<float*>(smem_raw);  // [QT][TS]: q, or q * scale
+  float* dOs = Qs + QT * TS;                       // [QT][TS]
+  float* KVs = dOs + QT * TS;                      // [64][TS]: k, then v, then k again
+  float* S = KVs + kTile * TS;                     // [QT][s_stride]: s, then p, then ds
+  float* DP = S + QT * a.s_stride;                 // [QT][s_stride]: dp, then the dq sums
+  __shared__ float row_lse[QT];                    // kScaleQ: the rows' lse
 
   const int L = a.L, h = blockIdx.y, b = blockIdx.z, i0 = blockIdx.x * QT;
   const int D = gridDim.y * kHeadDim;
-  const T* Q = head_rows<T>(a.q, a.in_b);
-  const T* K = head_rows<T>(a.k, a.in_b);
-  const T* V = head_rows<T>(a.v, a.in_b);
-  const T* dO = head_rows<T>(a.dout, (long long)L * D);
+  const float* Q = head_rows<float>(a.q, a.in_b);
+  const float* K = head_rows<float>(a.k, a.in_b);
+  const float* V = head_rows<float>(a.v, a.in_b);
+  const float* dO = head_rows<float>(a.dout, (long long)L * D);
   const int kv_len = a.causal ? min(i0 + QT, L) : L;
   const int n_tiles = (kv_len + kTile - 1) / kTile, cols = n_tiles * kTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -471,10 +376,7 @@ __global__ void __launch_bounds__(2 * QT) attention_bwd_dq_kernel(const AttnArgs
   }
   __syncthreads();
 
-  // One warp per row: p, delta (to a.delta for pass (b)), ds.  ds[j] in T
-  // overwrites the front of the row (bf16: bytes 2j..2j+1, which only ever
-  // cover entries already read).
-  const int ds_stride = a.s_stride * (int)(sizeof(float) / sizeof(T));
+  // One warp per row: p, delta (to a.delta for pass (b)), then ds over p.
   for (int r = warp; r < QT; r += QT / 16) {
     const int i = i0 + r;
     const int visible = i < L ? (a.causal ? i + 1 : L) : 0;
@@ -497,54 +399,48 @@ __global__ void __launch_bounds__(2 * QT) attention_bwd_dq_kernel(const AttnArgs
     }
     delta = warp_sum(delta);
     if (lane == 0 && i < L) a.delta[stat_index(i, L)] = delta;
-    T* dsrow = reinterpret_cast<T*>(srow);
-    for (int j0 = 0; j0 < cols; j0 += 32) {
-      const int j = j0 + lane;
+    for (int j = lane; j < cols; j += 32) {
       const float pd = __fmul_rn(srow[j], __fsub_rn(dprow[j], delta));
-      const T ds = from_f<T>(kScaleQ ? pd : __fmul_rn(pd, a.scale));
-      __syncwarp();
-      dsrow[j] = ds;
-      __syncwarp();
+      srow[j] = kScaleQ ? pd : __fmul_rn(pd, a.scale);
     }
   }
 
   // dq sums over the key tiles, into the (now free) dp rows.
-  const T* dS = reinterpret_cast<const T*>(S);
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kTile;
     __syncthreads();
     load_tile<kTile, 2 * QT>(KVs, K, a.in_r, k0, L);
     __syncthreads();
-    tile_product<false, false, QT>(DP, a.s_stride, dS + k0, ds_stride, KVs, TS, t > 0);  // ds k
+    tile_product<false, false, QT>(DP, a.s_stride, S + k0, a.s_stride, KVs, TS, t > 0);  // ds k
   }
   __syncthreads();
-  T* dQ = static_cast<T*>(a.dq) + (size_t)b * a.out_b + (size_t)h * kHeadDim;
+  float* dQ = static_cast<float*>(a.dq) + (size_t)b * a.out_b + (size_t)h * kHeadDim;
   for (int e = threadIdx.x; e < QT * kHeadDim; e += 2 * QT) {
     const int r = e / kHeadDim, c = e % kHeadDim;
     const float dq = DP[r * a.s_stride + c];
-    if (i0 + r < L) dQ[(size_t)(i0 + r) * a.out_r + c] = from_f<T>(kScaleQ ? __fmul_rn(dq, a.scale) : dq);
+    if (i0 + r < L) dQ[(size_t)(i0 + r) * a.out_r + c] = kScaleQ ? __fmul_rn(dq, a.scale) : dq;
   }
 }
 
-// Backward pass (b): one block of 128 threads per (64-key tile, head, item),
-// walking the 64-row query tiles that can see its keys: p^T rebuilt from
-// k q^T and the rows' statistics, dp^T = v do^T, ds^T from p, dp and the
-// rows' delta, dv += T(p)^T do and dk += ds^T q.
+// Backward, fp32, pass (b): one block of 128 threads per (64-key tile, head,
+// item), walking the 64-row query tiles that can see its keys: p^T rebuilt
+// from k q^T and the rows' statistics, dp^T = v do^T, ds^T from p, dp and
+// the rows' delta, dv += p^T do and dk += ds^T q.
 
 constexpr int kDkvThreads = 2 * kTile;
 
-template <typename T, bool kScaleQ>
+template <bool kScaleQ>
 __global__ void __launch_bounds__(kDkvThreads) attention_bwd_dkv_kernel(const AttnArgs a) {
-  constexpr int TS = TileLayout<T>::kStride, TE = TileLayout<T>::kElems, kThreads = kDkvThreads;
+  constexpr int TS = TileLayout<float>::kStride, TE = TileLayout<float>::kElems, kThreads = kDkvThreads;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Ks = reinterpret_cast<T*>(smem_raw);  // k rows j0..
-  T* Vs = Ks + TE;                         // v rows j0..
-  T* Qs = Vs + TE;                         // q (or T(q * scale)) rows i0..
-  T* dOs = Qs + TE;                        // do rows i0..
-  T* dSt = dOs + TE;                       // T(ds)[j][i]
-  T* Pt = dSt + TE;                        // T(p)[j][i]
-  float* ST = reinterpret_cast<float*>(Pt + TE);  // s^T [64][kAccStride]
-  float* DPT = ST + kTile * kAccStride;    // dp^T
+  float* Ks = reinterpret_cast<float*>(smem_raw);  // k rows j0..
+  float* Vs = Ks + TE;                             // v rows j0..
+  float* Qs = Vs + TE;                             // q (or q * scale) rows i0..
+  float* dOs = Qs + TE;                            // do rows i0..
+  float* dSt = dOs + TE;                           // ds[j][i]
+  float* Pt = dSt + TE;                            // p[j][i]
+  float* ST = Pt + TE;                             // s^T [64][kAccStride]
+  float* DPT = ST + kTile * kAccStride;            // dp^T
   float* DV = DPT + kTile * kAccStride;
   float* DK = DV + kTile * kAccStride;
   float* row_m = DK + kTile * kAccStride;  // per query row i0..: lse (kScaleQ) or m
@@ -553,12 +449,12 @@ __global__ void __launch_bounds__(kDkvThreads) attention_bwd_dkv_kernel(const At
   float* row_d = row_rl + kTile;           // delta
 
   const int L = a.L, D = gridDim.y * kHeadDim, b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * kTile;
-  const T* Q = head_rows<T>(a.q, a.in_b);
-  const T* dO = head_rows<T>(a.dout, (long long)L * D);
+  const float* Q = head_rows<float>(a.q, a.in_b);
+  const float* dO = head_rows<float>(a.dout, (long long)L * D);
   const int tid = threadIdx.x;
 
-  load_tile<kTile, kThreads>(Ks, head_rows<T>(a.k, a.in_b), a.in_r, j0, L);
-  load_tile<kTile, kThreads>(Vs, head_rows<T>(a.v, a.in_b), a.in_r, j0, L);
+  load_tile<kTile, kThreads>(Ks, head_rows<float>(a.k, a.in_b), a.in_r, j0, L);
+  load_tile<kTile, kThreads>(Vs, head_rows<float>(a.v, a.in_b), a.in_r, j0, L);
   const int first = a.causal ? j0 : 0;
   for (int i0 = first; i0 < L; i0 += kTile) {
     __syncthreads();
@@ -590,22 +486,22 @@ __global__ void __launch_bounds__(kDkvThreads) attention_bwd_dkv_kernel(const At
         const float pd = __fmul_rn(p, __fsub_rn(DPT[r * kAccStride + c], row_d[c]));
         ds = kScaleQ ? pd : __fmul_rn(pd, a.scale);
       }
-      Pt[r * TS + c] = from_f<T>(p);
-      dSt[r * TS + c] = from_f<T>(ds);
+      Pt[r * TS + c] = p;
+      dSt[r * TS + c] = ds;
     }
     __syncthreads();
     const bool acc = i0 != first;
-    tile_product<false, false>(DV, kAccStride, Pt, TS, dOs, TS, acc);  // dv += T(p)^T do
+    tile_product<false, false>(DV, kAccStride, Pt, TS, dOs, TS, acc);  // dv += p^T do
     tile_product<false, false>(DK, kAccStride, dSt, TS, Qs, TS, acc);  // dk += ds^T q
   }
   __syncthreads();
-  T* dK = static_cast<T*>(a.dk) + (size_t)b * a.out_b + (size_t)h * kHeadDim;
-  T* dV = static_cast<T*>(a.dv) + (size_t)b * a.out_b + (size_t)h * kHeadDim;
+  float* dK = static_cast<float*>(a.dk) + (size_t)b * a.out_b + (size_t)h * kHeadDim;
+  float* dV = static_cast<float*>(a.dv) + (size_t)b * a.out_b + (size_t)h * kHeadDim;
   for (int e = tid; e < kTile * kHeadDim; e += kThreads) {
     const int r = e / kHeadDim, c = e % kHeadDim, j = j0 + r;
     if (j < L) {
-      dK[(size_t)j * a.out_r + c] = from_f<T>(DK[r * kAccStride + c]);
-      dV[(size_t)j * a.out_r + c] = from_f<T>(DV[r * kAccStride + c]);
+      dK[(size_t)j * a.out_r + c] = DK[r * kAccStride + c];
+      dV[(size_t)j * a.out_r + c] = DV[r * kAccStride + c];
     }
   }
 }
@@ -1116,6 +1012,467 @@ __global__ void __launch_bounds__(kRegThreads, 2) attention_bwd_k_kernel(const A
 }
 
 // ---------------------------------------------------------------------------
+// The streamed route: bf16 above kRegKeys keys (the header's note).  Its
+// kernels reuse the register route's fragment helpers and launch over the
+// same 64-row blocks of kRegThreads.
+
+constexpr int kStreamStages = 2;  // ring slots: the next load is in flight while a tile is used
+constexpr int kSlotElems = 2 * kTile * TileLayout<bf16>::kStride;
+
+__device__ __forceinline__ bf16* ring_slot(bf16* ring, int u) { return ring + (u % kStreamStages) * kSlotElems; }
+
+// The ring runs a kernel's sequence of n loads in order; issue(u) copies
+// load u's tiles into ring_slot(u) by cp.async (one group a load, an empty
+// one past the end, so the wait count stays constant).  ring_start issues
+// the first kStreamStages - 1.
+template <typename Issue>
+__device__ __forceinline__ void ring_start(const Issue& issue, int n) {
+#pragma unroll
+  for (int u = 0; u < kStreamStages - 1; ++u) {
+    if (u < n) issue(u);
+    cp_async_commit();
+  }
+}
+
+// Makes load u visible to the block, then issues load u + kStreamStages - 1
+// into the slot of load u - 1, which every warp has finished with once it
+// reaches this barrier.  landed(u) runs between the wait and the barrier,
+// when a thread's own copies of load u are visible to it.
+template <typename Issue, typename Landed>
+__device__ __forceinline__ void ring_next(const Issue& issue, int u, int n, const Landed& landed) {
+  cp_async_wait(kStreamStages - 2);
+  landed(u);
+  __syncthreads();
+  if (u + kStreamStages - 1 < n) issue(u + kStreamStages - 1);
+  cp_async_commit();
+}
+template <typename Issue>
+__device__ __forceinline__ void ring_next(const Issue& issue, int u, int n) {
+  ring_next(issue, u, n, [](int) {});
+}
+
+// s (8 x 16 x 8 accumulators: a warp's 16 rows x the 64 keys k0.. of tile
+// kt) = A k^T, scaled unless kScaleQ; 16-key chunks at or past kv_warp stay 0.
+template <bool kScaleQ>
+__device__ __forceinline__ void tile_scores(float (&s)[8][4], const uint32_t (&qa)[4][4], const bf16* kt, int k0,
+                                            int kv_warp, float scale) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    if (k0 + 16 * c < kv_warp) mma_nt(&s[2 * c], qa, kt, 16 * c);
+  if (!kScaleQ) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = __fmul_rn(s[n][e], scale);
+  }
+}
+
+// Folds the scores of the 64 keys k0.. into the rows' running max m and,
+// with kSum, sum l of exp(s - m) over the visible keys (vis[h]: keys row
+// lane/4 + 8h sees), l rescaled when m moves.  Over the whole key range
+// this gives the softmax's exact max and its sum up to fp32 rounding.
+template <bool kSum>
+__device__ __forceinline__ void fold_stats(const float (&s)[8][4], const int (&vis)[2], int k0, float (&m)[2],
+                                           float (&l)[2]) {
+  const int lane = threadIdx.x % 32;
+  float tm[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (k0 + n * 8 + (lane % 4) * 2 + (e & 1) < vis[e >> 1]) tm[e >> 1] = fmaxf(tm[e >> 1], s[n][e]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(m[h], quad_max(tm[h]));
+    if (kSum && mn != m[h]) l[h] *= expf(m[h] - mn);  // from m = -inf, l = 0 stays 0
+    m[h] = mn;
+  }
+  if (kSum) {
+    float part[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k0 + n * 8 + (lane % 4) * 2 + (e & 1) < vis[e >> 1]) part[e >> 1] += expf(s[n][e] - m[e >> 1]);
+    l[0] += quad_sum(part[0]);
+    l[1] += quad_sum(part[1]);
+  }
+}
+
+// Forward: one block per (64-row query tile, head, item).  Sweep 1 streams
+// the k tiles for each row's max m (and, unless kTrain, its sum l); sweep 2
+// streams k and v, recomputes s, and accumulates o += T(p) v with p = exp(s
+// - m) / l normalised in fp32 before its cast (kTrain: e = exp(s - m), its
+// sum l taken here, and o = (T(e) v) / l at the end, with lse = m + log l).
+template <bool kScaleQ, bool kTrain>
+__global__ void __launch_bounds__(kRegThreads, 4) attention_fwd_stream_kernel(const AttnArgs a) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][TS]
+  bf16* ring = Qs + kRegRows * TS;               // slots of [k; v]
+
+  const int L = a.L, D = gridDim.y * kHeadDim, q0 = blockIdx.x * kRegRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wr = warp * 16;
+  const bf16* K = head_rows<bf16>(a.k, a.in_b);
+  const bf16* V = head_rows<bf16>(a.v, a.in_b);
+  const int n = ((a.causal ? min(q0 + kRegRows, L) : L) + kTile - 1) / kTile;  // key tiles
+  // Loads 0..n-1: k tile u (sweep 1); n..2n-1: k and v tile u - n (sweep 2).
+  auto issue = [&](int u) {
+    bf16* slot = ring_slot(ring, u);
+    const int k0 = (u < n ? u : u - n) * kTile;
+    cp_async_rows<kTile>(slot, K, a.in_r, k0, L);
+    if (u >= n) cp_async_rows<kTile>(slot + kTile * TS, V, a.in_r, k0, L);
+  };
+
+  cp_async_rows<kRegRows>(Qs, head_rows<bf16>(a.q, a.in_b), a.in_r, q0, L);
+  cp_async_commit();
+  ring_start(issue, 2 * n);
+  cp_async_wait(kStreamStages - 1);
+  if (kScaleQ) scale_rows<kRegRows>(Qs, q0, L, a.scale);  // q rounds to T(q * scale)
+  __syncthreads();
+  uint32_t qa[4][4];
+  load_a_frags(qa, Qs, wr);
+
+  // Rows r (lane/4) and r + 8 of the warp's 16; a warp wholly past L skips
+  // every product (kv_warp = 0) but still takes part in the barriers.
+  const int r = q0 + wr + lane / 4;
+  const int kv_warp = q0 + wr >= L ? 0 : a.causal ? min(q0 + wr + 16, L) : L;
+  int vis[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) vis[h] = r + 8 * h < L ? (a.causal ? r + 8 * h + 1 : L) : 0;
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int t = 0; t < n; ++t) {
+    ring_next(issue, t, 2 * n);
+    float s[8][4];
+    tile_scores<kScaleQ>(s, qa, ring_slot(ring, t), t * kTile, kv_warp, a.scale);
+    fold_stats<!kTrain>(s, vis, t * kTile, m, l);
+  }
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+
+  float o[8][4] = {}, le[2] = {0.f, 0.f};
+  for (int t = 0; t < n; ++t) {
+    ring_next(issue, n + t, 2 * n);
+    const bf16* kt = ring_slot(ring, n + t);
+    float s[8][4];
+    tile_scores<kScaleQ>(s, qa, kt, t * kTile, kv_warp, a.scale);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (t * kTile + 16 * c >= kv_warp) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float x = 0.f;
+          if (t * kTile + (2 * c + u) * 8 + (lane % 4) * 2 + (e & 1) < vis[h]) {
+            x = expf(s[2 * c + u][e] - m[h]);
+            if (kTrain) le[h] += x;
+            else x = div_rn_by(x, l[h], rl[h]);  // p normalised in fp32 before its cast
+          }
+          s[2 * c + u][e] = x;
+        }
+      uint32_t pa[4];
+      acc_to_a(pa, s[2 * c], s[2 * c + 1]);
+      mma_rows_nn(o, pa, kt + kTile * TS, 16 * c);
+    }
+  }
+
+  if (kTrain) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = quad_sum(le[h]);
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r + 8 * h < L) a.stats[stat_index(r + 8 * h, L)] = m[h] + logf(l[h]);
+    }
+  }
+  bf16* O = static_cast<bf16*>(a.o) + (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * kHeadDim;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r + 8 * h;
+    if (i >= L) continue;
+    const float rlh = kTrain ? __frcp_rn(l[h]) : 0.f;  // l summed in sweep 2
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float v0 = o[nt][2 * h], v1 = o[nt][2 * h + 1];
+      if (kTrain) {
+        v0 = div_rn_by(v0, l[h], rlh);
+        v1 = div_rn_by(v1, l[h], rlh);
+      }
+      *reinterpret_cast<bf162*>(O + (size_t)i * D + nt * 8 + (lane % 4) * 2) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// Backward pass (a): one block per (64-row query tile, head, item), q and
+// do fragments in registers.  Unless kScaleQ (B5/B6 keep no lse), a stats
+// sweep over the k tiles gives each row's (m, l) as the forward's sweep 1
+// does, written for pass (b); a sweep over k and v sums delta = sum p dp
+// in fp32, with p and dp a 16-key chunk at a time; a last sweep forms ds
+// and dq += T(ds) k.  It writes dq, the statistics and delta.
+template <bool kScaleQ>
+__global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_q_stream_kernel(const AttnArgs a) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][TS]: q, or T(q * scale)
+  bf16* dOs = Qs + kRegRows * TS;                // [64][TS]
+  bf16* ring = dOs + kRegRows * TS;              // slots of [k; v]
+
+  const int L = a.L, D = gridDim.y * kHeadDim, i0 = blockIdx.x * kRegRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wr = warp * 16;
+  const bf16* K = head_rows<bf16>(a.k, a.in_b);
+  const bf16* V = head_rows<bf16>(a.v, a.in_b);
+  const int n = ((a.causal ? min(i0 + kRegRows, L) : L) + kTile - 1) / kTile;  // key tiles
+  const int n_stats = kScaleQ ? 0 : n, n_loads = n_stats + 2 * n;
+  // Loads 0..n_stats-1: k tiles (stats sweep); then k and v tiles, twice.
+  auto issue = [&](int u) {
+    bf16* slot = ring_slot(ring, u);
+    const int k0 = (u < n_stats ? u : (u - n_stats) % n) * kTile;
+    cp_async_rows<kTile>(slot, K, a.in_r, k0, L);
+    if (u >= n_stats) cp_async_rows<kTile>(slot + kTile * TS, V, a.in_r, k0, L);
+  };
+
+  cp_async_rows<kRegRows>(Qs, head_rows<bf16>(a.q, a.in_b), a.in_r, i0, L);
+  cp_async_rows<kRegRows>(dOs, head_rows<bf16>(a.dout, (long long)L * D), D, i0, L);
+  cp_async_commit();
+  ring_start(issue, n_loads);
+  cp_async_wait(kStreamStages - 1);
+  if (kScaleQ) scale_rows<kRegRows>(Qs, i0, L, a.scale);
+  __syncthreads();
+  uint32_t qa[4][4], da[4][4];
+  load_a_frags(qa, Qs, wr);
+  load_a_frags(da, dOs, wr);
+
+  const int r = i0 + wr + lane / 4;
+  const int kv_warp = i0 + wr >= L ? 0 : a.causal ? min(i0 + wr + 16, L) : L;
+  int vis[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) vis[h] = r + 8 * h < L ? (a.causal ? r + 8 * h + 1 : L) : 0;
+
+  // kScaleQ: m holds lse and p = exp(s - lse); else p = exp(s scale - m) / l.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  if (kScaleQ) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) m[h] = r + 8 * h < L ? a.stats[stat_index(r + 8 * h, L)] : 0.f;
+  } else {
+    for (int t = 0; t < n; ++t) {
+      ring_next(issue, t, n_loads);
+      float s[8][4];
+      tile_scores<false>(s, qa, ring_slot(ring, t), t * kTile, kv_warp, a.scale);
+      fold_stats<true>(s, vis, t * kTile, m, l);
+    }
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (r + 8 * h < L) reinterpret_cast<float2*>(a.stats)[stat_index(r + 8 * h, L)] = make_float2(m[h], l[h]);
+    }
+  }
+  const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+
+  // p and dp of the 16 keys key0.. (chunk c of a tile kt, v at kt + 64 rows).
+  auto chunk = [&](float (&p)[2][4], float (&dp)[2][4], const bf16* kt, int c, int key0) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[u][e] = dp[u][e] = 0.f;
+    mma_nt(p, qa, kt, 16 * c);
+    mma_nt(dp, da, kt + kTile * TS, 16 * c);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float x = 0.f;
+        if (key0 + u * 8 + (lane % 4) * 2 + (e & 1) < vis[h]) {
+          x = kScaleQ ? expf(p[u][e] - m[h]) : div_rn_by(expf(__fmul_rn(p[u][e], a.scale) - m[h]), l[h], rl[h]);
+        }
+        p[u][e] = x;
+      }
+  };
+
+  float delta[2] = {0.f, 0.f};
+  for (int t = 0; t < n; ++t) {
+    const int u = n_stats + t;
+    ring_next(issue, u, n_loads);
+    const bf16* kt = ring_slot(ring, u);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key0 = t * kTile + 16 * c;
+      if (key0 >= kv_warp) continue;
+      float p[2][4], dp[2][4];
+      chunk(p, dp, kt, c, key0);
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) delta[e >> 1] += p[v][e] * dp[v][e];
+    }
+  }
+  delta[0] = quad_sum(delta[0]);
+  delta[1] = quad_sum(delta[1]);
+  if (lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (r + 8 * h < L) a.delta[stat_index(r + 8 * h, L)] = delta[h];
+  }
+
+  float dq[8][4] = {};
+  for (int t = 0; t < n; ++t) {
+    const int u = n_stats + n + t;
+    ring_next(issue, u, n_loads);
+    const bf16* kt = ring_slot(ring, u);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key0 = t * kTile + 16 * c;
+      if (key0 >= kv_warp) continue;
+      float p[2][4], dp[2][4];
+      chunk(p, dp, kt, c, key0);
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pd = __fmul_rn(p[v][e], __fsub_rn(dp[v][e], delta[e >> 1]));
+          dp[v][e] = kScaleQ ? pd : __fmul_rn(pd, a.scale);  // ds
+        }
+      uint32_t dsa[4];
+      acc_to_a(dsa, dp[0], dp[1]);
+      mma_rows_nn(dq, dsa, kt, 16 * c);  // dq += T(ds) k
+    }
+  }
+
+  bf16* dQ = static_cast<bf16*>(a.dq) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * kHeadDim;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = r + 8 * h;
+    if (i >= L) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      float v0 = dq[nt][2 * h], v1 = dq[nt][2 * h + 1];
+      if (kScaleQ) {
+        v0 = __fmul_rn(v0, a.scale);
+        v1 = __fmul_rn(v1, a.scale);
+      }
+      *reinterpret_cast<bf162*>(dQ + (size_t)i * a.out_r + nt * 8 + (lane % 4) * 2) = __floats2bfloat162_rn(v0, v1);
+    }
+  }
+}
+
+// Backward pass (b): one block per (64-key tile, head, item).  Each warp
+// keeps its 16 keys' k and v fragments and dk, dv in registers; the query
+// tiles that see those keys stream through the ring as [q; do] slots, and
+// every row's statistics (lse or (m, l, 1/l), and delta) sit in shared
+// memory, read once at the start.  Per 16 query rows: s^T = k q^T, dp^T =
+// v do^T, p^T, ds^T, dv += T(p)^T do and dk += T(ds)^T q, as on the
+// register route.
+template <bool kScaleQ>
+__global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_k_stream_kernel(const AttnArgs a) {
+  constexpr int TS = TileLayout<bf16>::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][TS]
+  bf16* Vs = Ks + kRegRows * TS;                 // [64][TS]
+  bf16* ring = Vs + kRegRows * TS;               // slots of [q, or T(q * scale); do]
+  // Per query row: (lse, -, -, delta) with kScaleQ, else (m, l, 1 / l, delta).
+  float4* row_st = reinterpret_cast<float4*>(ring + kStreamStages * kSlotElems);
+
+  const int L = a.L, D = gridDim.y * kHeadDim, j0 = blockIdx.x * kRegRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wr = warp * 16;
+  const bf16* Q = head_rows<bf16>(a.q, a.in_b);
+  const bf16* dO = head_rows<bf16>(a.dout, (long long)L * D);
+  const int first = a.causal ? (int)blockIdx.x : 0;  // the first query tile that sees these keys
+  const int n = (L + kTile - 1) / kTile - first;     // query tiles
+  auto issue = [&](int u) {
+    bf16* slot = ring_slot(ring, u);
+    const int i0 = (first + u) * kTile;
+    cp_async_rows<kTile>(slot, Q, a.in_r, i0, L);
+    cp_async_rows<kTile>(slot + kTile * TS, dO, D, i0, L);
+  };
+
+  cp_async_rows<kRegRows>(Ks, head_rows<bf16>(a.k, a.in_b), a.in_r, j0, L);
+  cp_async_rows<kRegRows>(Vs, head_rows<bf16>(a.v, a.in_b), a.in_r, j0, L);
+  cp_async_commit();
+  ring_start(issue, n);
+  for (int i = first * kTile + threadIdx.x; i < (first + n) * kTile; i += kRegThreads) {
+    float m = 0.f, l = 1.f, d = 0.f;
+    if (i < L) {
+      if (kScaleQ) {
+        m = a.stats[stat_index(i, L)];
+      } else {
+        const float2 ml = reinterpret_cast<const float2*>(a.stats)[stat_index(i, L)];
+        m = ml.x;
+        l = ml.y;
+      }
+      d = a.delta[stat_index(i, L)];
+    }
+    row_st[i] = make_float4(m, l, __frcp_rn(l), d);
+  }
+  cp_async_wait(kStreamStages - 1);
+  __syncthreads();
+
+  const int jw = j0 + wr;       // the warp's first key
+  const int j = jw + lane / 4;  // keys j (accumulator rows lane/4) and j + 8
+  uint32_t ka[4][4], va[4][4];
+  load_a_frags(ka, Ks, wr);
+  load_a_frags(va, Vs, wr);
+  float dk[8][4] = {}, dv[8][4] = {};
+  for (int u = 0; u < n; ++u) {
+    const int t = first + u;
+    bf16* qt = ring_slot(ring, u);
+    ring_next(issue, u, n, [&](int) {
+      if (kScaleQ) scale_rows<kTile>(qt, t * kTile, L, a.scale);  // the pieces this thread copied
+    });
+    if (jw >= L) continue;
+    const bf16* dot = qt + kTile * TS;
+#pragma unroll
+    for (int qc = 0; qc < 4; ++qc) {
+      const int ib = t * kTile + qc * 16;  // the chunk's first query row
+      if (ib >= L || (a.causal && ib + 15 < jw)) continue;
+      float st[2][4] = {}, dpt[2][4] = {};
+      mma_nt(st, ka, qt, qc * 16);    // s^T = k q^T
+      mma_nt(dpt, va, dot, qc * 16);  // dp^T = v do^T
+#pragma unroll
+      for (int v = 0; v < 2; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = ib + v * 8 + (lane % 4) * 2 + (e & 1), jj = j + 8 * (e >> 1);
+          float pv = 0.f, ds = 0.f;
+          if (jj < L && i < L && (!a.causal || jj <= i)) {
+            const float4 st_i = row_st[i];
+            pv = kScaleQ ? expf(st[v][e] - st_i.x)
+                         : div_rn_by(expf(__fmul_rn(st[v][e], a.scale) - st_i.x), st_i.y, st_i.z);
+            const float pd = __fmul_rn(pv, __fsub_rn(dpt[v][e], st_i.w));
+            ds = kScaleQ ? pd : __fmul_rn(pd, a.scale);
+          }
+          st[v][e] = pv;
+          dpt[v][e] = ds;
+        }
+      uint32_t pa[4], dsa[4];
+      acc_to_a(pa, st[0], st[1]);
+      acc_to_a(dsa, dpt[0], dpt[1]);
+      mma_rows_nn(dv, pa, dot, qc * 16);  // dv += T(p)^T do
+      mma_rows_nn(dk, dsa, qt, qc * 16);  // dk += T(ds)^T q
+    }
+  }
+
+  bf16* dK = static_cast<bf16*>(a.dk) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * kHeadDim;
+  bf16* dV = static_cast<bf16*>(a.dv) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * kHeadDim;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int jj = j + 8 * h;
+    if (jj >= L) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const size_t off = (size_t)jj * a.out_r + nt * 8 + (lane % 4) * 2;
+      *reinterpret_cast<bf162*>(dK + off) = __floats2bfloat162_rn(dk[nt][2 * h], dk[nt][2 * h + 1]);
+      *reinterpret_cast<bf162*>(dV + off) = __floats2bfloat162_rn(dv[nt][2 * h], dv[nt][2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launches.
 
 // Whether a kernel with this much dynamic shared memory and qt fp32 of
@@ -1174,6 +1531,12 @@ cudaError_t attention_bwd_k_regs(const AttnArgs& a, int B, int H, cudaStream_t s
 }
 #undef FLYP_REG_LAUNCH
 
+// Bytes of the streamed route's shared memory: `own` 64-row tiles and the
+// ring.
+inline size_t stream_smem(int own) {
+  return ((size_t)own * kRegRows * TileLayout<bf16>::kStride + (size_t)kStreamStages * kSlotElems) * sizeof(bf16);
+}
+
 // The forward: a.o, and with kTrain lse into a.stats.
 template <typename T, bool kScaleQ, bool kTrain>
 cudaError_t attention_forward(const AttnArgs& a, int B, int H, cudaStream_t st) {
@@ -1183,16 +1546,8 @@ cudaError_t attention_forward(const AttnArgs& a, int B, int H, cudaStream_t st) 
     return launch_attention_kernel(attention_fma_kernel<kScaleQ, kTrain>, kFmaQT, kFmaThreads, smem, a, B, H, st);
   } else {
     if (a.L <= kRegKeys) return attention_forward_regs<kScaleQ, kTrain>(a, B, H, st);
-    auto smem = [&](int qt) {
-      return (size_t)(qt + kTile) * TileLayout<bf16>::kStride * sizeof(bf16) + (size_t)qt * a.s_stride * sizeof(float);
-    };
-    if (fits_block(smem(64), 64)) {
-      return launch_attention_kernel(attention_mma_kernel<kScaleQ, kTrain, 64>, 64, 128, smem(64), a, B, H, st);
-    }
-    if (fits_block(smem(32), 32)) {
-      return launch_attention_kernel(attention_mma_kernel<kScaleQ, kTrain, 32>, 32, 64, smem(32), a, B, H, st);
-    }
-    return cudaErrorInvalidValue;
+    return launch_attention_kernel(attention_fwd_stream_kernel<kScaleQ, kTrain>, kRegRows, kRegThreads,
+                                   stream_smem(1), a, B, H, st);
   }
 }
 
@@ -1207,27 +1562,35 @@ cudaError_t attention_backward(const AttnArgs& a, int B, int H, cudaStream_t st)
       if (err != cudaSuccess) return err;
       return attention_bwd_k_regs<kScaleQ>(a, B, H, st);
     }
-  }
-  constexpr int TS = TileLayout<T>::kStride;
-  auto dq_smem = [&](int qt) {
-    return (size_t)(2 * qt + kTile) * TS * sizeof(T) + 2 * (size_t)qt * a.s_stride * sizeof(float);
-  };
-  // The query tile: the largest of 64, 32, 16 rows whose footprint fits a
-  // block (64 up to L = 320; a 32-row pass (a), two blocks to an SM, ran
-  // slower on the H100: fewer rows reload each k and v tile more often).
-  if (fits_block(dq_smem(64), 64)) {
-    err = launch_attention_kernel(attention_bwd_dq_kernel<T, 64, kScaleQ>, 64, 128, dq_smem(64), a, B, H, st);
-  } else if (fits_block(dq_smem(32), 32)) {
-    err = launch_attention_kernel(attention_bwd_dq_kernel<T, 32, kScaleQ>, 32, 64, dq_smem(32), a, B, H, st);
-  } else if (fits_block(dq_smem(16), 16)) {
-    err = launch_attention_kernel(attention_bwd_dq_kernel<T, 16, kScaleQ>, 16, 32, dq_smem(16), a, B, H, st);
+    err = launch_attention_kernel(attention_bwd_q_stream_kernel<kScaleQ>, kRegRows, kRegThreads, stream_smem(2), a,
+                                  B, H, st);
+    if (err != cudaSuccess) return err;
+    const size_t rows = (size_t)(a.L + kTile - 1) / kTile * kTile;  // pass (b)'s row statistics
+    const size_t smem = stream_smem(2) + rows * sizeof(float4);
+    if (!fits_block(smem, 0)) return cudaErrorInvalidValue;
+    return launch_attention_kernel(attention_bwd_k_stream_kernel<kScaleQ>, kRegRows, kRegThreads, smem, a, B, H,
+                                   st);
   } else {
-    return cudaErrorInvalidValue;
+    constexpr int TS = TileLayout<float>::kStride;
+    auto dq_smem = [&](int qt) {
+      return (size_t)(2 * qt + kTile) * TS * sizeof(float) + 2 * (size_t)qt * a.s_stride * sizeof(float);
+    };
+    // The query tile: the largest of 64, 32, 16 rows whose footprint fits a
+    // block.
+    if (fits_block(dq_smem(64), 64)) {
+      err = launch_attention_kernel(attention_bwd_dq_kernel<64, kScaleQ>, 64, 128, dq_smem(64), a, B, H, st);
+    } else if (fits_block(dq_smem(32), 32)) {
+      err = launch_attention_kernel(attention_bwd_dq_kernel<32, kScaleQ>, 32, 64, dq_smem(32), a, B, H, st);
+    } else if (fits_block(dq_smem(16), 16)) {
+      err = launch_attention_kernel(attention_bwd_dq_kernel<16, kScaleQ>, 16, 32, dq_smem(16), a, B, H, st);
+    } else {
+      return cudaErrorInvalidValue;
+    }
+    if (err != cudaSuccess) return err;
+    const size_t dkv_smem = 6 * (size_t)TileLayout<float>::kElems * sizeof(float) +
+                            (4 * (size_t)kTile * kAccStride + 4 * kTile) * sizeof(float);
+    return launch_attention_kernel(attention_bwd_dkv_kernel<kScaleQ>, kTile, kDkvThreads, dkv_smem, a, B, H, st);
   }
-  if (err != cudaSuccess) return err;
-  const size_t dkv_smem = 6 * (size_t)TileLayout<T>::kElems * sizeof(T) +
-                          (4 * (size_t)kTile * kAccStride + 4 * kTile) * sizeof(float);
-  return launch_attention_kernel(attention_bwd_dkv_kernel<T, kScaleQ>, kTile, kDkvThreads, dkv_smem, a, B, H, st);
 }
 
 }  // namespace flyp

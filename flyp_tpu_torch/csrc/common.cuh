@@ -445,9 +445,8 @@ cudaError_t launch_gemm(const GemmArgs& g, int towers, cudaStream_t st) {
 
 // ---------------------------------------------------------------------------
 // Attention tiles: 64 rows (keys, or a query tile of kRows rows) x 64 head
-// features in shared memory, and the product of two such tiles.  Used by the
-// attention-block backward (attention_block_bwd.cu) and the attention kernels
-// (attention.cu).
+// features in shared memory (bf16 rows for the mma.sync routes of
+// attention.cuh), and the fp32 product of two such tiles (its fp32 route).
 
 constexpr int kTile = 64;
 
@@ -461,8 +460,8 @@ constexpr int kAccStride = kTile + 4;  // fp32 result tiles
 
 // C[kRows][64] (=, or += with acc) sum over k < 64 of opA[m][k] * opB[k][n]:
 // opA is A[m][k] (A held [k][m] with kAT), opB is B[k][n] (B held [n][k]
-// with kBT).  Call from all 2 * kRows threads of the block; each warp (bf16:
-// 16 rows) or thread (fp32: 8 rows x 4 columns) writes only its own outputs,
+// with kBT), in fp32 on the CUDA cores.  Call from all 2 * kRows threads of
+// the block; each thread (8 rows x 4 columns) writes only its own outputs,
 // so the caller syncs before reading C.
 template <bool kAT, bool kBT, int kRows = kTile>
 __device__ __forceinline__ void tile_product(float* C, int ldc, const float* A, int lda, const float* B, int ldb,
@@ -495,73 +494,24 @@ __device__ __forceinline__ void tile_product(float* C, int ldc, const float* A, 
     }
 }
 
-template <bool kAT, bool kBT, int kRows = kTile>
-__device__ __forceinline__ void tile_product(float* C, int ldc, const bf16* A, int lda, const bf16* B, int ldb,
-                                             bool acc) {
-  static_assert(kRows % 16 == 0, "one warp per 16 rows");
-  const int lane = threadIdx.x % 32, wr = (threadIdx.x / 32) * 16;  // this warp's 16 rows
-  float r[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) r[nt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < kTile / 16; ++ks) {
-    uint32_t af[4];
-    if (kAT) {
-      ldmatrix_x4_trans(af, &A[(ks * 16 + ldm_row(lane, true)) * lda + wr + ldm_col(lane, true)]);
-    } else {
-      ldmatrix_x4(af, &A[(wr + ldm_row(lane, false)) * lda + ks * 16 + ldm_col(lane, false)]);
-    }
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      if (kBT) {
-        ldmatrix_x4(b, &B[(np * 16 + ldm_row(lane, true)) * ldb + ks * 16 + ldm_col(lane, true)]);
-      } else {
-        ldmatrix_x4_trans(b, &B[(ks * 16 + ldm_row(lane, false)) * ldb + np * 16 + ldm_col(lane, false)]);
-      }
-      mma_bf16(r[2 * np], af, b[0], b[1]);
-      mma_bf16(r[2 * np + 1], af, b[2], b[3]);
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      float* c = &C[(wr + lane / 4 + half * 8) * ldc + nt * 8 + (lane % 4) * 2];
-      c[0] = acc ? c[0] + r[nt][2 * half] : r[nt][2 * half];
-      c[1] = acc ? c[1] + r[nt][2 * half + 1] : r[nt][2 * half + 1];
-    }
-}
-
-// kRows rows (row0.., zeros past L) x 64 head features of src (row stride ld
-// elements; rows 16-byte aligned) into a tile, in 16-byte pieces, by all
-// kThreads threads of the block; with scale, T(v * scale).  The block size
-// is a constant so the loop unrolls and its loads are all in flight at once.
-template <int kRows, int kThreads, typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, long long ld, int row0, int L,
+// kRows rows (row0.., zeros past L) x 64 fp32 head features of src (row
+// stride ld elements; rows 16-byte aligned) into a tile, in 16-byte pieces,
+// by all kThreads threads of the block; with scale, v * scale.  The block
+// size is a constant so the loop unrolls and its loads are all in flight at
+// once.
+template <int kRows, int kThreads>
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src, long long ld, int row0, int L,
                                           float scale = 0.f) {
-  constexpr int S = TileLayout<T>::kStride;
-  constexpr int kVec = 16 / sizeof(T), kPieces = kHeadDim / kVec;
+  constexpr int S = TileLayout<float>::kStride;
+  constexpr int kVec = 4, kPieces = kHeadDim / kVec;
 #pragma unroll
   for (int e = threadIdx.x; e < kRows * kPieces; e += kThreads) {
     const int r = e / kPieces, c = (e % kPieces) * kVec, j = row0 + r;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (j < L) u = __ldg(reinterpret_cast<const uint4*>(src + (size_t)j * ld + c));
-    if constexpr (S * sizeof(T) % 16 == 0) {  // bf16 tile rows: one 16-byte store
-      if (scale == 0.f) {
-        *reinterpret_cast<uint4*>(&dst[r * S + c]) = u;
-        continue;
-      }
-    }
-    const T* v = reinterpret_cast<const T*>(&u);
+    float4 u = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j < L) u = __ldg(reinterpret_cast<const float4*>(src + (size_t)j * ld + c));
+    const float v[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      float f = to_f(v[i]);
-      if (scale != 0.f) f = __fmul_rn(f, scale);
-      dst[r * S + c + i] = from_f<T>(f);
-    }
+    for (int i = 0; i < kVec; ++i) dst[r * S + c + i] = scale != 0.f ? __fmul_rn(v[i], scale) : v[i];
   }
 }
 

@@ -29,7 +29,10 @@ The planted faults the tests hold the bounds against:
 three bounds catch it), :func:`forward_cast_before_normalising` (``p`` cast
 to bf16 before it is normalised) and :func:`backward_delta_from_o`
 (``delta = rowsum(do T(o))``); the last two move a quarter to a half of
-the bf16 outputs by an ulp, and only the fourth bound catches them.
+the bf16 outputs by an ulp, and only the fourth bound catches them.  At
+long rows, :func:`forward_without_last_tile` (each row's sum without its
+last 64-key tile) on :func:`edge_key_qkv`'s inputs, whose last key carries
+most of each row's weight, moves ``o`` far past every bound.
 
 :func:`reference_stand_in` is the source of a stand-in for the upstream
 ``clip/model.py`` that ``tools/validate_checkpoint.py::activation_crosscheck``
@@ -39,6 +42,7 @@ is at hand.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from flyp_tpu_torch.ops.attention_block import _NEG
@@ -190,6 +194,68 @@ def backward_delta_from_o(q, k, v, do, causal: bool = False):
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()).to(dtype)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()).to(dtype)
     return dq, dk, dv
+
+
+def forward_without_last_tile(q, k, v, causal: bool = False):
+    """A planted fault: ``flash_attention_reference`` with each row's sum
+    ``l`` taken without the keys of the last 64-key tile (keys ``64
+    floor((L - 1) / 64)`` on; all keys at ``L <= 64``), while ``p = exp(s -
+    m) / l`` still covers every key: what a streamed softmax that drops its
+    last tile from the sum computes."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    L = q.shape[1]
+    if causal:
+        s = torch.where(torch.ones(L, L, dtype=torch.bool, device=q.device).tril(), s, _NEG)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    last = (L - 1) // 64 * 64
+    l = e[..., :last].sum(dim=-1, keepdim=True) if last else e.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bkhd->bqhd", (e / l).to(q.dtype).float(), v.float()).to(q.dtype)
+
+
+# The last key's score in the edge-key inputs, and its value: every row that
+# sees it gives it ~0.97-0.99 of its weight at L <= 1024.
+EDGE_SCORE, EDGE_VALUE = 10.0, 3.0
+
+
+def edge_key_qkv(B: int, L: int, H: int, seed: int):
+    """numpy float32 q, k, v ``[B, L, H, 64]`` and a cotangent in which the
+    last key carries most of each row's weight: q = 1 + 0.1 N(0, 1), k =
+    0.1 N(0, 1) but 1.25 on key ``L - 1`` (a score of ~10 against the
+    others' ~0.1 at scale 1/8), v = N(0, 1) but 3 on key ``L - 1``.  At L =
+    257, 321 or 577 that key sits alone in its 64-key tile; a kernel that
+    drops it or masks it wrongly moves ``o`` by ~3, where random inputs
+    would move it by ~0.4% (inside the bf16 bounds)."""
+    rng = np.random.default_rng(seed)
+    shape = (B, L, H, 64)
+    q = (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+    k = (0.1 * rng.standard_normal(shape)).astype(np.float32)
+    k[:, L - 1] = EDGE_SCORE / 8.0
+    v = rng.standard_normal(shape).astype(np.float32)
+    v[:, L - 1] = EDGE_VALUE
+    return q, k, v, rng.standard_normal(shape).astype(np.float32)
+
+
+def edge_key_block_inputs(B: int, L: int, D: int, seed: int):
+    """numpy float32 inputs of the attention block ``(x, ln_scale, ln_bias,
+    qkv_kernel, qkv_bias, out_kernel, out_bias)`` and a cotangent in which,
+    in every head, the last row's key carries most of each row's weight:
+    row ``L - 1`` of x is a balanced +-1 pattern s (so LN(x) keeps it), LN
+    is the identity, q = bq = 1, and every column of k is ``1.25 (y . s) /
+    D``: 1.25 on row ``L - 1`` (a score of ~10 after the 1/8 scale),
+    ``1.25 N(0, 1/D)`` on the others."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    x = rng.standard_normal((B, L, D)).astype(f32)
+    sign = np.repeat(np.array([1.0, -1.0], dtype=f32), D // 2)
+    x[:, L - 1] = rng.permutation(sign)
+    wqkv = np.zeros((3, D, D), dtype=f32)
+    wqkv[1] = np.repeat(x[0, L - 1][:, None] * (EDGE_SCORE / 8.0) / D, D, axis=1)
+    wqkv[2] = rng.standard_normal((D, D)) * D ** -0.5
+    bqkv = np.zeros((3, D), dtype=f32)
+    bqkv[0] = 1.0
+    bqkv[2] = 0.1 * rng.standard_normal(D)
+    return ((x, np.ones(D, f32), np.zeros(D, f32), wqkv, bqkv, (rng.standard_normal((D, D)) * D ** -0.5).astype(f32),
+             (0.1 * rng.standard_normal(D)).astype(f32)), rng.standard_normal((B, L, D)).astype(f32))
 
 
 def check_mlp_hidden(h, h_pre, where=None) -> dict:

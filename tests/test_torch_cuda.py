@@ -336,11 +336,15 @@ def _strided_views(B, L, H, dt, seed, card):
     return [qkv[..., t * D:(t + 1) * D].reshape(B, L, H, 64) for t in range(3)], g
 
 
-# (B, L, H, causal): CLIP's vision and text lengths, every query tile the
-# shared-memory route picks up to 1024, and the lengths that end a 16-row
-# warp tile or a 64-key tile on both sides of the register route's 256 keys.
+# bf16 rows the streamed route takes (above 256 keys): 257, 321 and 577 leave
+# one key alone in the last 64-key tile (ViT-L/14 at 224 and 336 px), 320
+# ends a tile, 1024 is the ops' limit.
+LONG_ROWS = (257, 320, 321, 577, 1024)
+# (B, L, H, causal): CLIP's vision and text lengths, the fp32 route's query
+# tiles up to 1024, the lengths that end a 16-row warp tile or a 64-key tile
+# on both sides of the register route's 256 keys, and the long rows.
 ATTENTION_SHAPES = [(4, 197, 12, False), (4, 77, 8, True), (3, 13, 2, True), (2, 577, 4, False), (1, 800, 2, False),
-                    (1, 1024, 2, True)] + [(2, L, 2, causal) for L in (1, 17, 63, 65, 197, 255, 256, 257)
+                    (1, 1024, 2, True)] + [(2, L, 2, causal) for L in (1, 17, 63, 65, 197, 255, 256, *LONG_ROWS)
                                            for causal in (False, True)]
 
 
@@ -398,7 +402,7 @@ def test_flash_kernel_reads_strided_heads(card):
 @pytest.mark.parametrize("L", [256, 257])
 def test_attention_block_at_the_register_route_boundary(card, L, causal):
     """B3, B1 and B2 in bf16 at 256 keys (the register route's last length)
-    and 257 (the shared-memory route's first), against their plain versions
+    and 257 (the streamed route's first), against their plain versions
     at the tolerances of test_kernel_matches_plain_on_card and
     test_training_kernels_match_plain_on_card."""
     B, D, H = 2, 128, 2
@@ -425,11 +429,11 @@ def test_attention_block_at_the_register_route_boundary(card, L, causal):
         assert _rel(a, b) < norm, (name, _rel(a, b))
 
 
-@pytest.mark.parametrize("L", [197, 77, 300])
+@pytest.mark.parametrize("L", [197, 77, 300, 257, 577, 1024])
 def test_attention_kernels_repeat_bit_for_bit(card, L):
     """Two launches of each of B3, B1, B2, B5 and B6 on the same inputs give
     the same bits (every output element written by one block, no atomics),
-    on the register route (L <= 256) and the shared-memory one (L = 300)."""
+    on the register route (L <= 256) and the streamed one (L > 256)."""
     B, D, H, causal, dt = 2, 256, 4, L == 77, torch.bfloat16
     x, *params = (torch.from_numpy(a).to(card) for a in _inputs(B, L, D, seed=L))
     x = x.to(dt)
@@ -454,6 +458,168 @@ def test_attention_kernels_repeat_bit_for_bit(card, L):
     for name in first:
         for a, b in zip(first[name], second[name]):
             assert torch.equal(a, b), name
+
+
+class _PoisonedOutputs:
+    """Within ``with``, ``torch.empty`` and ``torch.empty_like`` give a
+    NaN-filled view (uint8: 0xFF, NaN in any float view of it) of a buffer
+    with a guard of the same fill just past its end: every output, workspace
+    and scratch an op allocates.  An element a kernel leaves unwritten stays
+    NaN; ``guards_intact`` says whether anything was written past an end."""
+
+    GUARD = 4096
+
+    def __init__(self):
+        self.guards = []
+        self._real = (torch.empty, torch.empty_like)
+
+    def empty(self, *size, dtype=None, device=None, **_):
+        if len(size) == 1 and isinstance(size[0], (tuple, list, torch.Size)):
+            size = tuple(size[0])
+        dtype = dtype or torch.get_default_dtype()
+        n = int(np.prod(size))
+        buf = torch.full((n + self.GUARD,), 255 if dtype == torch.uint8 else float("nan"), dtype=dtype, device=device)
+        self.guards.append(buf[n:])
+        return buf[:n].view(size)
+
+    def empty_like(self, t, dtype=None, **_):
+        return self.empty(tuple(t.shape), dtype=dtype or t.dtype, device=t.device)
+
+    def guards_intact(self) -> bool:
+        return all(bool((g == 255).all() if g.dtype == torch.uint8 else torch.isnan(g).all()) for g in self.guards)
+
+    def __enter__(self):
+        torch.empty, torch.empty_like = self.empty, self.empty_like
+        return self
+
+    def __exit__(self, *exc):
+        torch.empty, torch.empty_like = self._real
+
+
+def _counts():
+    return (tab.attention_block_inference.launches, tab.attention_block.fwd_launches,
+            tab.attention_block.bwd_launches, tfq.fused_qkv_attention.fwd_launches,
+            tfq.fused_qkv_attention.bwd_launches, tfa.flash_attention.fwd_launches, tfa.flash_attention.bwd_launches)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", LONG_ROWS)
+def test_streamed_route_over_poisoned_outputs(card, L, causal):
+    """The streamed route through every op that runs it, in bf16: B3, B1, B2,
+    B5 and B6 (B6 over strided head views of one projection), every output
+    and workspace NaN-poisoned with a guard past its end.  Each kernel's
+    outputs against its plain version at the tolerances of
+    test_kernel_matches_plain_on_card, test_training_kernels_match_plain_on_card
+    and check_attention; nothing written past an end; a second launch equal
+    bit for bit; one launch a call on each counter."""
+    B, D, H, dt = 2, 128, 2, torch.bfloat16
+    elem, norm = TRAIN_TOL["bfloat16"]
+    x, *params = (torch.from_numpy(a).to(card) for a in _inputs(B, L, D, seed=L + causal))
+    x = x.to(dt)
+    ln_s, ln_b, wqkv, _, wout, _ = params
+    rng = np.random.default_rng(L)
+    g = torch.from_numpy(rng.standard_normal((B, L, D)).astype(np.float32)).to(card).to(dt)
+    qkv = torch.from_numpy(rng.standard_normal((B, L, 3 * D)).astype(np.float32)).to(card).to(dt)
+    views = [qkv[..., t * D:(t + 1) * D].reshape(B, L, H, 64) for t in range(3)]
+    g4 = g.reshape(B, L, H, 64)
+    before = _counts()
+
+    def run():
+        with _PoisonedOutputs() as poison, torch.no_grad():
+            b3 = tab.attention_block_inference(x, *params, H, causal)
+            b1 = tab._fwd_kernel_call(x, *params, H, causal, train=True)
+            _, _, q, k, v, lse = b1
+            b2 = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+            b5 = (tfq.fused_qkv_attention(qkv, H, causal), tfq.fused_qkv_attention_backward(qkv, g, H, causal))
+            b6 = (tfa.flash_attention(*views, causal), *tfa.flash_attention_backward(*views, g4, causal))
+            torch.cuda.synchronize()
+        assert poison.guards_intact(), "a kernel wrote past the end of an output"
+        return {"B3": (b3,), "B1": b1, "B2": b2, "B5": b5, "B6": b6}
+
+    first, second = run(), run()
+    assert _counts() == tuple(c + 2 for c in before)
+    for name in first:
+        for a, b in zip(first[name], second[name]):
+            assert torch.equal(a, b), name
+
+    with torch.no_grad():
+        torch.testing.assert_close(first["B3"][0].float(), tab.attention_block_inference_reference(
+            x, *params, H, causal).float(), atol=2e-2, rtol=2e-2, msg="B3")
+        ref = tab.attention_block_reference(x, *params, H, causal)
+        for name, a, b in zip(("out", "o", "q", "k", "v"), first["B1"], ref):
+            torch.testing.assert_close(a.float(), b.float(), atol=elem, rtol=elem, msg=f"B1 {name}")
+        _, o, q, k, v, lse = first["B1"]
+        own = torch.logsumexp(tab._scores((q.float() * 0.125).to(dt), k, H, causal), dim=-1).transpose(1, 2)
+        torch.testing.assert_close(lse, own, atol=1e-4, rtol=0.0, msg="B1 lse (own q, k)")
+        torch.testing.assert_close(lse, ref[5], atol=1e-2, rtol=0.0, msg="B1 lse")
+        ref_b = tab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
+        dx, *sums = first["B2"]
+        torch.testing.assert_close(dx.float(), ref_b[0].float(), atol=elem, rtol=elem, msg="B2 dx")
+        for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv"), sums, ref_b[1:5]):
+            assert _rel(a, b) < norm, (name, _rel(a, b))
+        where = (L, causal)
+        check_attention("B5 forward", first["B5"][0], tfq.fused_qkv_attention_reference(qkv, H, causal), where)
+        ref5 = tfq._heads(tfq.fused_qkv_attention_backward_reference(qkv, g, H, causal), H)
+        for name, a, b in zip(("dq", "dk", "dv"), tfq._heads(first["B5"][1], H), ref5):
+            check_attention(f"B5 {name}", a, b, where)
+        check_attention("B6 forward", first["B6"][0], tfa.flash_attention_reference(*views, causal), where)
+        ref6 = tfa.flash_attention_backward_reference(*views, g4, causal)
+        for name, a, b in zip(("dq", "dk", "dv"), first["B6"][1:], ref6):
+            check_attention(f"B6 {name}", a, b, where)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [257, 321, 577])
+def test_streamed_route_weighs_the_last_key(card, L, causal):
+    """At 257, 321 and 577 keys the last key sits alone in its 64-key tile.
+    On inputs where it carries most of each row's weight
+    (``testing.edge_key_qkv`` for B5/B6, ``testing.edge_key_block_inputs``
+    for B1-B3), a kernel that dropped or mis-masked it would miss by ~3;
+    the kernels stay within their bounds, and the planted fault of a row sum
+    without the last tile (``testing.forward_without_last_tile``) fails
+    check_attention on the same inputs."""
+    from flyp_tpu_torch.testing import edge_key_block_inputs, edge_key_qkv, forward_without_last_tile
+
+    B, H, dt = 2, 2, torch.bfloat16
+    D = 64 * H
+    where = ("edge key", L, causal)
+    q, k, v, do = (torch.from_numpy(a).to(card).to(dt) for a in edge_key_qkv(B, L, H, seed=L))
+    qkv = torch.cat([t.reshape(B, L, D) for t in (q, k, v)], dim=-1)
+    with torch.no_grad():
+        ref_o = tfa.flash_attention_reference(q, k, v, causal)
+        check_attention("B6 forward", tfa.flash_attention(q, k, v, causal), ref_o, where)
+        for name, a, b in zip(("dq", "dk", "dv"), tfa.flash_attention_backward(q, k, v, do, causal),
+                              tfa.flash_attention_backward_reference(q, k, v, do, causal)):
+            check_attention(f"B6 {name}", a, b, where)
+        check_attention("B5 forward", tfq.fused_qkv_attention(qkv, H, causal).reshape(B, L, H, 64), ref_o, where)
+        got5 = tfq._heads(tfq.fused_qkv_attention_backward(qkv, do.reshape(B, L, D), H, causal), H)
+        ref5 = tfq._heads(tfq.fused_qkv_attention_backward_reference(qkv, do.reshape(B, L, D), H, causal), H)
+        for name, a, b in zip(("dq", "dk", "dv"), got5, ref5):
+            check_attention(f"B5 {name}", a, b, where)
+        with pytest.raises(AssertionError, match="disagrees"):
+            check_attention("planted fault", forward_without_last_tile(q, k, v, causal), ref_o, where)
+
+    arrays, cot = edge_key_block_inputs(B, L, D, seed=L)
+    x, *params = (torch.from_numpy(a).to(card) for a in arrays)
+    x = x.to(dt)
+    g = torch.from_numpy(cot).to(card).to(dt)
+    ln_s, ln_b, wqkv, _, wout, _ = params
+    elem, norm = TRAIN_TOL["bfloat16"]
+    with torch.no_grad():
+        torch.testing.assert_close(tab.attention_block_inference(x, *params, H, causal).float(),
+                                   tab.attention_block_inference_reference(x, *params, H, causal).float(),
+                                   atol=2e-2, rtol=2e-2, msg="B3")
+        got = tab._fwd_kernel_call(x, *params, H, causal, train=True)
+        ref = tab.attention_block_reference(x, *params, H, causal)
+        for name, a, b in zip(("out", "o", "q", "k", "v"), got, ref):
+            torch.testing.assert_close(a.float(), b.float(), atol=elem, rtol=elem, msg=f"B1 {name}")
+        _, o, q, k, v, lse = got
+        torch.testing.assert_close(lse, ref[5], atol=1e-2, rtol=0.0, msg="B1 lse")
+        dx, *sums = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+        ref_b = tab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
+    torch.testing.assert_close(dx.float(), ref_b[0].float(), atol=elem, rtol=elem, msg="B2 dx")
+    for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv"), sums, ref_b[1:5]):
+        assert _rel(a, b) < norm, (name, _rel(a, b))
 
 
 def test_attention_kernels_refuse_what_they_do_not_take(card):
