@@ -23,11 +23,19 @@ and in eval mode whatever the model's mode (the JAX package's
 are reentrant: concurrent callers (``serving/http.py``'s threads) get
 exactly the results of sequential calls (``models/modes.py``).
 Measured rates on the H100 are in PERF.md.
+
+Under a profiler each request records spans (``utils/profiling.py::span``)
+that share its id: the root ``serve.request`` (its rows) and, inside it,
+``serve.cast``, then per chunk ``serve.pad``, ``serve.h2d``,
+``serve.lock_wait`` (the wait for the mode lock), ``serve.forward`` (the
+launch under the lock, with its bucket, timed on the device's stream) and
+``serve.d2h``.  A streamed batch is a request of its own.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 from typing import Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,6 +46,7 @@ from flyp_tpu_torch.models.head import ClassificationHead
 from flyp_tpu_torch.models.modes import pinned_mode
 from flyp_tpu_torch.tokenizer import shrink_context, tokenize
 from flyp_tpu_torch.utils.pipeline import OneStepLag, host_cast_images, to_device
+from flyp_tpu_torch.utils.profiling import span
 
 
 class ClipServer:
@@ -151,57 +160,89 @@ class ClipServer:
         return torch.cat([t, pad])
 
     def _prep_images(self, images) -> torch.Tensor:
-        return host_cast_images(images, self.model.compute_dtype)
+        with span("serve.cast"):
+            return host_cast_images(images, self.model.compute_dtype)
+
+    def _upload(self, host: torch.Tensor, bucket: int) -> torch.Tensor:
+        """A chunk padded to ``bucket`` rows and on its way to the device."""
+        with span("serve.pad", rows=host.shape[0], bucket=bucket):
+            host = self._pad_rows(host, bucket)
+        with span("serve.h2d"):
+            return to_device(host, self.device)
+
+    @staticmethod
+    def _fetch(handle: torch.Tensor, rows: int, root=None) -> torch.Tensor:
+        """A chunk's first ``rows`` results on the host, as float32."""
+        with span("serve.d2h", root=root, rows=rows):
+            return handle[:rows].float().cpu()
 
     def _run_chunks(self, host: torch.Tensor, dispatch) -> np.ndarray:
         """Dispatch bucket-padded chunks with at most ``window`` in flight."""
         out: list = []
         pending: collections.deque = collections.deque()
         for s, c, b in self._chunks(host.shape[0]):
-            pending.append((dispatch(to_device(self._pad_rows(host[s : s + c], b), self.device)), c))
+            pending.append((dispatch(self._upload(host[s : s + c], b)), c))
             if len(pending) > self.window:
-                h, cc = pending.popleft()
-                out.append(h[:cc].float().cpu())
+                out.append(self._fetch(*pending.popleft()))
         while pending:
-            h, cc = pending.popleft()
-            out.append(h[:cc].float().cpu())
+            out.append(self._fetch(*pending.popleft()))
         return torch.cat(out).numpy()
 
+    @contextlib.contextmanager
+    def _forward(self, x: torch.Tensor):
+        """One forward's eval-mode pin, its wait for the pin's lock and its
+        launch under it as spans."""
+        with pinned_mode(self.model, train=False, wait_span="serve.lock_wait"), \
+                span("serve.forward", stream_of=x, bucket=len(x)):
+            yield
+
     def _img_fn(self, x: torch.Tensor) -> torch.Tensor:
-        with pinned_mode(self.model, train=False):
+        with self._forward(x):
             return self.model.encode_image(x, normalize=self.normalize)
 
     def _txt_fn(self, t: torch.Tensor) -> torch.Tensor:
-        with pinned_mode(self.model, train=False):
+        with self._forward(t):
             return self.model.encode_text(t, normalize=self.normalize)
 
     def _logits_fn(self, x: torch.Tensor) -> torch.Tensor:
         # Raw tower features: the zero-shot head normalises internally, and
         # normalising here too would drift from the evaluator's numbers.
-        with pinned_mode(self.model, train=False):
+        with self._forward(x):
             return self.head(self.model.encode_image(x))
 
     # -- request APIs ---------------------------------------------------------
 
+    def _serve(self, request, prepare, dispatch) -> np.ndarray:
+        """One request under its root span: ``prepare(request)`` gives its
+        host rows, which run through ``dispatch``."""
+        with span("serve.request") as root:
+            host = prepare(request)
+            if root is not None:
+                root.attrs["rows"] = host.shape[0]
+            return self._run_chunks(host, dispatch)
+
+    @staticmethod
+    def _tokens(texts) -> torch.Tensor:
+        tokens = tokenize(list(texts)) if not isinstance(texts, np.ndarray) else texts
+        return torch.from_numpy(np.ascontiguousarray(shrink_context(np.asarray(tokens))))
+
     @torch.inference_mode()
     def encode_images(self, images) -> np.ndarray:
         """[n, H, W, C] host array -> [n, D] features (any n)."""
-        return self._run_chunks(self._prep_images(images), self._img_fn)
+        return self._serve(images, self._prep_images, self._img_fn)
 
     @torch.inference_mode()
     def encode_texts(self, texts) -> np.ndarray:
         """Captions (list of str, or a pre-tokenized [n, ctx] int array) ->
         [n, D] features.  Width is sliced to the bucketed max EOT (exact)."""
-        tokens = tokenize(list(texts)) if not isinstance(texts, np.ndarray) else texts
-        tokens = shrink_context(np.asarray(tokens))
-        return self._run_chunks(torch.from_numpy(np.ascontiguousarray(tokens)), self._txt_fn)
+        return self._serve(texts, self._tokens, self._txt_fn)
 
     @torch.inference_mode()
     def classify(self, images) -> np.ndarray:
         """[n, H, W, C] -> [n, num_classes] zero-shot logits (fp32)."""
         if self.head is None:
             raise ValueError("classify() needs a head; use for_classification(...) or pass head=")
-        return self._run_chunks(self._prep_images(images), self._logits_fn)
+        return self._serve(images, self._prep_images, self._logits_fn)
 
     def top_k(self, images, k: int = 5) -> Tuple[np.ndarray, np.ndarray]:
         """(probs [n, k], class indices [n, k]), descending.  ``k`` clamps
@@ -228,17 +269,20 @@ class ClipServer:
     def _stream(self, batches: Iterable, dispatch) -> Iterator[np.ndarray]:
         lag = OneStepLag()
         for batch in batches:
-            host = self._prep_images(batch)
-            n = host.shape[0]
-            if n > self.image_buckets[-1]:
-                raise ValueError(f"stream batches must fit the largest bucket ({self.image_buckets[-1]}); got {n}")
-            handle = dispatch(to_device(self._pad_rows(host, self.bucket_for(n)), self.device))
-            prev = lag.push((handle, n))
+            with span("serve.request") as request:
+                host = self._prep_images(batch)
+                n = host.shape[0]
+                if request is not None:
+                    request.attrs["rows"] = n
+                if n > self.image_buckets[-1]:
+                    raise ValueError(f"stream batches must fit the largest bucket ({self.image_buckets[-1]}); got {n}")
+                handle = dispatch(self._upload(host, self.bucket_for(n)))
+            prev = lag.push((handle, n, None if request is None else request.root))
             if prev is not None:
-                yield prev[0][: prev[1]].float().cpu().numpy()
+                yield self._fetch(*prev).numpy()
         prev = lag.flush()
         if prev is not None:
-            yield prev[0][: prev[1]].float().cpu().numpy()
+            yield self._fetch(*prev).numpy()
 
     def stream_features(self, batches: Iterable) -> Iterator[np.ndarray]:
         """Pipelined :meth:`encode_images` over an iterator of batches: one

@@ -52,7 +52,8 @@ from flyp_tpu_torch.models.resnet import running_stats_frozen, synced_batch_norm
 from flyp_tpu_torch.ops.losses import clip_loss
 from flyp_tpu_torch.parallel import comm
 from flyp_tpu_torch.training.train_state import AdamW, TrainState
-from flyp_tpu_torch.training.train_step import apply_gradients, batch_groups, frozen_mask
+from flyp_tpu_torch.training.train_step import apply_gradients, batch_groups, frozen_mask, sync_grads
+from flyp_tpu_torch.utils.profiling import span
 
 
 def own_rows(whole: torch.Tensor, group, chunks: int) -> torch.Tensor:
@@ -104,7 +105,12 @@ def make_chunked_train_step(
     :func:`make_train_step`'s (module docstring); the inputs are this
     rank's rows, ``per_item_loss`` is this rank's rows' and ``loss`` the
     global batch's.  Each chunk must split evenly over the batch axes
-    (``ValueError`` otherwise; the JAX step pads the shards there)."""
+    (``ValueError`` otherwise; the JAX step pads the shards there).
+
+    Under a profiler it records the direct step's ``step``,
+    ``step.grad_sync`` and ``step.update`` spans; its passes interleave
+    forwards and backwards, so it has no ``step.forward`` or
+    ``step.backward``."""
     if chunks < 1:
         raise ValueError(f"chunks must be >= 1, got {chunks}")
     from flyp_tpu_torch.parallel import fsdp
@@ -118,6 +124,10 @@ def make_chunked_train_step(
             raise ValueError("the state holds another model than the one this step was built for")
         if multi and state.mesh is not mesh:
             raise ValueError("the state was placed on another mesh than the one this step was built for")
+        with span("step", root=state.step):
+            return _step(state, images, tokens, ground_labels)
+
+    def _step(state: TrainState, images: torch.Tensor, tokens: torch.Tensor, ground_labels):
         b_local = images.shape[0]
         b = b_local * n_batch
         if b % chunks:
@@ -178,10 +188,8 @@ def make_chunked_train_step(
                     del outs, g
         it = iter(acc)
         grads = [torch.zeros_like(p) if f else next(it) for p, f in zip(params, frozen)]
-        if is_fsdp:
-            grads = fsdp.reduce_scatter_grads(state, grads, replica_group=replica)
-        elif multi:
-            grads = comm.all_reduce_flat(grads, group)
+        if is_fsdp or multi:
+            grads = sync_grads(state, grads, group, replica)
         out = apply_gradients(state, grads, optimizer, frozen, loss=loss, per_item=per_item,
                               log_grad_norm=log_grad_norm)
         if is_fsdp:

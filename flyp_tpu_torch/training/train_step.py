@@ -16,6 +16,12 @@ and the gradients are summed over the batch axes in a few flat buckets
 reduction here: the tensor-parallel blocks sum their partial products and
 LayerNorm gradients themselves, so a replicated parameter's gradient is
 whole on every rank, and a sharded one's is its shard's.
+
+Under a profiler the step records spans (``utils/profiling.py::span``):
+``step``, with the step number as its root id, and inside it
+``step.forward`` (both towers and the loss), ``step.backward``,
+``step.grad_sync`` (on a mesh, with the bytes handed to the exchange) and
+``step.update``, each timed on the device's stream.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from flyp_tpu_torch.models.modes import pinned_mode
 from flyp_tpu_torch.models.resnet import synced_batch_norm
 from flyp_tpu_torch.ops.losses import clip_loss
 from flyp_tpu_torch.training.train_state import AdamW, TrainState
+from flyp_tpu_torch.utils.profiling import span
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -75,7 +82,8 @@ def apply_gradients(state: TrainState, grads, optimizer: AdamW, frozen: Sequence
                     per_item: torch.Tensor, log_grad_norm: bool):
     """The update tail of the direct and the chunked step: the AdamW update
     (frozen parameters keep their values), the step count and the metrics."""
-    lr = optimizer.update(state.update_targets, grads, state.opt_state, frozen=frozen)
+    with span("step.update", stream_of=grads[0]):
+        lr = optimizer.update(state.update_targets, grads, state.opt_state, frozen=frozen)
     state.step += 1
     metrics: Dict[str, torch.Tensor] = {
         "loss": loss.detach(), "per_item_loss": per_item.detach(), "learning_rate": lr,
@@ -83,6 +91,19 @@ def apply_gradients(state: TrainState, grads, optimizer: AdamW, frozen: Sequence
     if log_grad_norm:
         metrics["grad_norm"] = sharded_global_norm(state, grads)
     return state, metrics
+
+
+def sync_grads(state: TrainState, grads, group, replica):
+    """The gradient exchange of a step on a mesh: the batch axes' sums,
+    reduce-scattered to the shards under FSDP."""
+    from flyp_tpu_torch.parallel import comm, fsdp
+
+    with span("step.grad_sync", stream_of=grads[0]) as s:
+        if s is not None:
+            s.attrs["bytes"] = sum(g.numel() * g.element_size() for g in grads)
+        if state.shards is not None:
+            return fsdp.reduce_scatter_grads(state, grads, replica_group=replica)
+        return comm.all_reduce_flat(grads, group)
 
 
 def make_train_step(
@@ -148,34 +169,38 @@ def make_train_step(
             raise ValueError("the state holds another model than the one this step was built for")
         if multi and state.mesh is not mesh:
             raise ValueError("the state was placed on another mesh than the one this step was built for")
+        with span("step", root=state.step):
+            return _step(state, images, tokens, ground_labels)
+
+    def _step(state: TrainState, images: torch.Tensor, tokens: torch.Tensor, ground_labels):
         is_fsdp = state.shards is not None
         if is_fsdp:
             fsdp.materialize(state)
         params = state.params
         # The JAX step's train=True, whatever the model's mode.
         with pinned_mode(model, train=True), synced_batch_norm(model, group):
-            img_f, txt_f, scale = model(images, tokens)
-            per_item = clip_loss(
-                img_f, txt_f, scale, ground_labels if use_ground_labels else None,
-                ignore=ignore, google_sup_loss=google_sup_loss, group=group, local_loss=multi,
-            )
-            if per_item.dim() == 0:
-                # A supervised scalar, the same on every rank: each backpropagates 1/n of it.
-                objective, loss = per_item / n_batch, per_item
-            elif not multi:
-                objective = loss = per_item.mean()
-            else:
-                # This rank's rows' share of the global mean.
-                b_global = per_item.shape[0] * n_batch
-                objective = per_item.sum() / b_global
-                loss = comm.all_reduce_(per_item.detach().sum(), group) / b_global
+            with span("step.forward", stream_of=images):
+                img_f, txt_f, scale = model(images, tokens)
+                per_item = clip_loss(
+                    img_f, txt_f, scale, ground_labels if use_ground_labels else None,
+                    ignore=ignore, google_sup_loss=google_sup_loss, group=group, local_loss=multi,
+                )
+                if per_item.dim() == 0:
+                    # A supervised scalar, the same on every rank: each backpropagates 1/n of it.
+                    objective, loss = per_item / n_batch, per_item
+                elif not multi:
+                    objective = loss = per_item.mean()
+                else:
+                    # This rank's rows' share of the global mean.
+                    b_global = per_item.shape[0] * n_batch
+                    objective = per_item.sum() / b_global
+                    loss = comm.all_reduce_(per_item.detach().sum(), group) / b_global
             trained = [p for p, f in zip(params, frozen) if not f]
-            it = iter(torch.autograd.grad(objective, trained))
+            with span("step.backward", stream_of=images):
+                it = iter(torch.autograd.grad(objective, trained))
         grads = [torch.zeros_like(p) if f else next(it) for p, f in zip(params, frozen)]
-        if is_fsdp:
-            grads = fsdp.reduce_scatter_grads(state, grads, replica_group=replica)
-        elif multi:
-            grads = comm.all_reduce_flat(grads, group)
+        if is_fsdp or multi:
+            grads = sync_grads(state, grads, group, replica)
         out = apply_gradients(state, grads, optimizer, frozen, loss=loss, per_item=per_item,
                               log_grad_norm=log_grad_norm)
         if is_fsdp:

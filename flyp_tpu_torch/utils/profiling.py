@@ -1,14 +1,31 @@
-"""Profiling: a ``torch.profiler`` trace of a window of train steps,
-synchronised step timing, and the FLOP count and MFU.
+"""Profiling: a ``torch.profiler`` trace of a window of train steps, the
+program's spans, and the FLOP count and MFU.
 
 Counterpart of ``flyp_tpu/utils/profiling.py``:
 
 * :func:`trace` profiles a block into a Chrome trace under ``log_dir``;
 * :class:`StepWindowTrace` is ``--profile_dir``'s window of steps;
-* :class:`StepTimer` times steps, each ending in a host fetch of a scalar;
+* :func:`span` marks a phase of the train step or of a serving request,
+  and :func:`span_log` returns what the spans recorded;
 * :func:`compiled_flops` counts the products of one call, :func:`mfu`
   divides a rate by :func:`device_peak_flops`, the card's peak from
   :data:`PEAKS`.
+
+Spans.  A span records only while a ``torch.profiler`` session runs (this
+module's :func:`trace` and :class:`StepWindowTrace`, or any other), on
+every thread: the profiler's process-wide flag decides, not its per-thread
+state, so a request answered on a worker thread records too.  With no
+session a span costs one read of that flag.  With one, a span enters a
+``torch.profiler.record_function`` of its name (so the Chrome trace shows
+it on the device trace's clock, wherever the profiler sees the thread)
+and appends one record to a bounded in-memory log: name, span id, parent
+span id (a per-thread stack), root id (shared by one step's or one
+request's spans), thread, host start and end (``time.perf_counter_ns``),
+attributes, and for a span given ``stream_of`` a CUDA tensor, a pair of
+timing events on that device's current stream, resolved to ``device_ms``
+when the log is read.  :func:`trace` and :class:`StepWindowTrace` clear the
+log when they start and record every thread where the installed torch
+offers it (``_ExperimentalConfig(profile_all_threads=True)``).
 
 What the count is.  The port's kernels are bound through ``ctypes``, so
 ``torch.utils.flop_counter.FlopCounterMode`` cannot see into them.
@@ -39,13 +56,17 @@ tensors they already hold, never through a host-side wrapper.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import logging
 import os
+import threading
 import time
 from typing import Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 # Dense peaks of one card (NVIDIA data sheets, at the full power limit):
@@ -152,6 +173,117 @@ def clip_flops(model, images=None, tokens=None, *, train: bool = False, head_cla
     return compiled_flops(call)
 
 
+# Records the span log keeps; past this many the oldest drop, and
+# ``span_log()["dropped"]`` counts them.
+SPAN_LOG_CAP = 1 << 16
+
+
+class _SpanLog:
+    """The closed spans, bounded and thread-safe."""
+
+    def __init__(self, cap: int):
+        self._lock = threading.Lock()
+        self._spans: collections.deque = collections.deque(maxlen=cap)
+        self.dropped = 0
+
+    def append(self, s: "_Span") -> None:
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped += 1
+            self._spans.append(s)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+            self.dropped = 0
+
+    def snapshot(self):
+        with self._lock:
+            return list(self._spans), self.dropped
+
+
+_LOG = _SpanLog(SPAN_LOG_CAP)
+_SPAN_IDS = itertools.count(1)
+_OPEN = threading.local()  # .spans: this thread's open spans, innermost last
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """One span while it is open, and its record once closed (module
+    docstring)."""
+
+    __slots__ = ("name", "attrs", "id", "parent", "root", "thread", "start_ns", "end_ns", "_stream", "_events",
+                 "_range")
+
+    def __init__(self, name: str, root, stream_of: Optional[torch.Tensor], attrs: dict):
+        self.name, self.root, self.attrs = name, root, attrs
+        self._stream = self._events = None
+        if stream_of is not None and stream_of.is_cuda:
+            self._stream = torch.cuda.current_stream(stream_of.device)
+            self._events = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+
+    def __enter__(self) -> "_Span":
+        stack = getattr(_OPEN, "spans", None)
+        if stack is None:
+            stack = _OPEN.spans = []
+        parent = stack[-1] if stack else None
+        self.id = next(_SPAN_IDS)
+        self.parent = parent.id if parent is not None else None
+        if self.root is None:
+            self.root = parent.root if parent is not None else self.id
+        self.thread = threading.get_ident()
+        self._range = torch.profiler.record_function(self.name)
+        self._range.__enter__()
+        stack.append(self)
+        if self._events is not None:
+            self._events[0].record(self._stream)
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.perf_counter_ns()
+        if self._events is not None:
+            self._events[1].record(self._stream)
+        self._range.__exit__(*exc)
+        self._range = None
+        _OPEN.spans.pop()
+        _LOG.append(self)
+        return False
+
+    def record(self) -> dict:
+        out = {"name": self.name, "id": self.id, "parent": self.parent, "root": self.root, "thread": self.thread,
+               "start_ns": self.start_ns, "end_ns": self.end_ns, "attrs": dict(self.attrs)}
+        if self._events is not None:
+            self._events[1].synchronize()
+            out["device_ms"] = self._events[0].elapsed_time(self._events[1])
+        return out
+
+
+def spans_on() -> bool:
+    """Whether spans record now: a profiler session runs in this process."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str, *, root=None, stream_of: Optional[torch.Tensor] = None, **attrs):
+    """``with span(name, **attrs) as s:`` records the body as a span while a
+    profiler session runs (module docstring); otherwise it does nothing,
+    and ``s`` is None.  ``root``: the root id, else the enclosing span's,
+    else the span's own id.  ``stream_of``: a tensor whose device, if a
+    GPU, the span times with events on its current stream."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, root, stream_of, attrs)
+
+
+def span_log() -> dict:
+    """The span log as it stands: ``{"spans": [record, ...], "dropped":
+    n}``, the records in the order the spans opened.  A span that timed a
+    stream has ``device_ms``, read here once its end event has passed; the
+    others have none."""
+    spans, dropped = _LOG.snapshot()
+    return {"spans": [s.record() for s in sorted(spans, key=lambda s: (s.start_ns, s.id))], "dropped": dropped}
+
+
 def _activities():
     from torch.profiler import ProfilerActivity
 
@@ -175,12 +307,34 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
+def _all_threads():
+    """The profiler option that records every thread's ops and ranges, or
+    None on a torch without it."""
+    from torch.profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
+
+
+def _start_profile():
+    """A started ``torch.profiler`` session over every thread, with the
+    span log cleared."""
     from torch.profiler import profile
 
-    prof = profile(activities=_activities())
+    config = _all_threads()
+    prof = profile(activities=_activities(), **({} if config is None else {"experimental_config": config}))
+    _LOG.clear()
     prof.start()
+    return prof
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile the block into a Chrome trace under ``log_dir``; the span
+    log holds the block's spans afterwards."""
+    prof = _start_profile()
     try:
         yield prof
     finally:
@@ -211,11 +365,8 @@ class StepWindowTrace:
         if not self.log_dir:
             return
         if self._prof is None and i == self.start:
-            from torch.profiler import profile
-
             try:
-                prof = profile(activities=_activities())
-                prof.start()
+                prof = _start_profile()
             except RuntimeError as e:  # a long run must not die for a trace
                 logging.getLogger("flyp_tpu_torch").warning(f"profiler trace unavailable: {e}")
                 self.log_dir = None
@@ -231,25 +382,3 @@ class StepWindowTrace:
         _sync()  # the traced steps' device work finishes inside the window
         prof.stop()
         self.path = _export(prof, self.log_dir)
-
-
-class StepTimer:
-    """Synchronised step timing: ``timer.sync(scalar)`` fetches a scalar
-    to the host (which waits for the step that made it), then records the
-    interval since the previous call."""
-
-    def __init__(self):
-        self._last = None
-        self.times: list = []
-
-    def sync(self, scalar) -> float:
-        value = float(scalar)
-        now = time.perf_counter()
-        if self._last is not None:
-            self.times.append(now - self._last)
-        self._last = now
-        return value
-
-    @property
-    def mean(self) -> Optional[float]:
-        return sum(self.times) / len(self.times) if self.times else None

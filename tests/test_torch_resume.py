@@ -167,6 +167,7 @@ def test_profile_dir_writes_trace(corpus, tmp_path):  # noqa: F811
                   max_steps=2)
     traces = glob.glob(str(prof / "trace_*.json"))
     assert len(traces) == 1 and '"traceEvents"' in _text(traces[0])
+    assert all(f'"{name}"' in _text(traces[0]) for name in ("step", "step.forward", "step.backward", "step.update"))
 
     model = port_model()
     with torch.no_grad():
@@ -183,12 +184,8 @@ def test_profile_dir_writes_trace(corpus, tmp_path):  # noqa: F811
 
 
 def test_trace_and_step_timer(tmp_path):
-    from flyp_tpu_torch.utils.profiling import StepTimer, trace
+    from flyp_tpu_torch.utils.profiling import trace
 
     with trace(str(tmp_path / "t")):
         torch.ones(8) @ torch.ones(8)
     assert len(glob.glob(str(tmp_path / "t" / "trace_*.json"))) == 1
-    timer = StepTimer()
-    assert timer.mean is None
-    values = [timer.sync(torch.tensor(float(v))) for v in range(3)]
-    assert values == [0.0, 1.0, 2.0] and len(timer.times) == 2 and timer.mean >= 0
