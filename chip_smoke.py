@@ -455,13 +455,13 @@ def phase_kernels(peaks) -> list:
 
 def bwd_bound_ms(B, L, D, H, causal, dtype, peaks):
     """(ms, "operations" | "bytes") for one backward call (B2).  FLOPs:
-    2BLD^2 (do) + 12BLD^2 (dWqkv and dY) + 10BL^2D (the five L x L products,
-    halved by the causal mask); bytes: x, g, q, k, v read and dx written
-    once, lse, the four D x D matrices, and the fp32 dWqkv, dbqkv, dscale
-    and dbias."""
-    flops = 14 * B * L * D * D + 10 * B * L * L * D * (0.5 if causal else 1.0)
+    2BLD^2 (do) + 12BLD^2 (dWqkv and dY) + 2BLD^2 (dWout) + 10BL^2D (the
+    five L x L products, halved by the causal mask); bytes: x, g, o, q, k, v
+    read and dx written once, lse, the four D x D matrices, and the fp32
+    dWqkv, dbqkv, dscale, dbias, dWout and dbout."""
+    flops = 16 * B * L * D * D + 10 * B * L * L * D * (0.5 if causal else 1.0)
     el = torch.finfo(dtype).bits // 8
-    nbytes = 6 * B * L * D * el + B * L * H * 4 + 4 * D * D * el + (3 * D * D + 5 * D) * 4
+    nbytes = 7 * B * L * D * el + B * L * H * 4 + 4 * D * D * el + (4 * D * D + 6 * D) * 4
     t_ops, t_bytes = flops / peaks[dtype], nbytes / peaks["bytes"]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -509,19 +509,17 @@ def phase_train_kernels(peaks):
                 fwd_err["lse"] = check_close("B1 lse", lse, ref[5], LSE_TOL[dtype], where, rtol=0.0)
                 fwd_err["lse_own_qk"] = check_close("B1 lse (its own q, k)", lse, plain_lse(q, k, H, causal),
                                                     LSE_OWN_TOL, where, rtol=0.0)
-                bwd_args = (g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
-                dx, dscale, dbias, dwqkv, dbqkv = ab._bwd_kernel_call(*bwd_args)
+                bwd_args = (g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
+                dx, *sums = ab._bwd_kernel_call(*bwd_args)
                 torch.cuda.synchronize()
-                ref_b = ab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H,
-                                                              causal)
+                ref_b = ab.attention_block_backward_reference(*bwd_args)
             elem, norm, auto_norm = BWD_TOL[dtype]
             dx_err = check_close("B2 dx", dx, ref_b[0], elem, where)
-            names = ("dscale", "dbias", "dwqkv", "dbqkv")
-            rels = {n: rel_norm(a, r) for n, a, r in zip(names, (dscale, dbias, dwqkv, dbqkv), ref_b[1:5])}
+            names = ("dscale", "dbias", "dwqkv", "dbqkv", "dwout", "dbout")
+            rels = {n: rel_norm(a, r) for n, a, r in zip(names, sums, ref_b[1:])}
             inputs = [t.detach().clone().requires_grad_(True) for t in args]
             auto = torch.autograd.grad(ab.attention_block_reference(*inputs, H, causal)[0], inputs, g)
-            auto_rels = {n: rel_norm(a, r) for n, a, r in
-                         zip(("dx",) + names, (dx, dscale, dbias, dwqkv, dbqkv), auto[:5])}
+            auto_rels = {n: rel_norm(a, r) for n, a, r in zip(("dx",) + names, (dx, *sums), auto)}
             del auto, inputs
             if max(rels.values()) > norm or max(auto_rels.values()) > auto_norm:
                 raise AssertionError(f"B2 sums disagree at {where}: plain {rels}, autograd {auto_rels}")
@@ -530,8 +528,7 @@ def phase_train_kernels(peaks):
                 fwd_ms = cuda_ms(lambda: ab._fwd_kernel_call(*args, H, causal, train=True))
                 fwd_plain_ms = cuda_ms(lambda: ab.attention_block_reference(*args, H, causal))
                 bwd_ms = cuda_ms(lambda: ab._bwd_kernel_call(*bwd_args))
-                bwd_plain_ms = cuda_ms(lambda: ab.attention_block_backward_reference(
-                    g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal))
+                bwd_plain_ms = cuda_ms(lambda: ab.attention_block_backward_reference(*bwd_args))
             yin = [t.detach().clone().requires_grad_(True) for t in args]
             fwd_comp_ms = cuda_ms(lambda: yardstick(*yin, H, causal))
             yout = yardstick(*yin, H, causal)
@@ -2568,7 +2565,7 @@ def edge_key_block_check(B, L, D, H, where) -> dict:
         for _ in range(2):
             b3 = ab.attention_block_inference(*args, H, False)
             b1 = ab._fwd_kernel_call(*args, H, False, train=True)
-            b2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[2:], H, False)
+            b2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[1:], H, False)
             runs.append({"B3": (b3,), "B1": b1, "B2": b2})
         torch.cuda.synchronize()
         for name in runs[0]:
@@ -3117,8 +3114,7 @@ def digests() -> dict:
             with torch.no_grad():
                 b3 = ab.attention_block_inference(*args, H, causal)
                 b1 = ab._fwd_kernel_call(*args, H, causal, train=True)
-                _, _, q, k, v, lse = b1
-                b2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+                b2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[1:], H, causal)
                 b5 = (fq.fused_qkv_attention(qkv, H, causal), fq.fused_qkv_attention_backward(qkv, g, H, causal))
                 b6 = (fa.flash_attention(*heads, causal), *fa.flash_attention_backward(*heads, g4, causal))
                 b4 = mb._kernel_forward(*mlp_inputs(B, L, D, dtype, seed=L + 3))
@@ -3164,7 +3160,7 @@ def attention_times() -> dict:
         args = block_inputs(B, L, D, dt, seed=L + 1)
         x, ln_s, ln_b, wqkv, _, wout, _ = args
         with torch.no_grad():
-            _, _, bq, bk, bv, lse = ab._fwd_kernel_call(*args, H, causal, train=True)
+            _, bo, bq, bk, bv, lse = ab._fwd_kernel_call(*args, H, causal, train=True)
             res = {"B6_fwd": cuda_ms(lambda: fa.flash_attention(q, k, v, causal)),
                    "B6_bwd": cuda_ms(lambda: fa.flash_attention_backward(q, k, v, do, causal)),
                    "B5_fwd": cuda_ms(lambda: fq.fused_qkv_attention(qkv, H, causal)),
@@ -3172,12 +3168,12 @@ def attention_times() -> dict:
                    "B3_attention": kernel_ms(lambda: ab.attention_block_inference(*args, H, causal), B3_ATTENTION),
                    "B1_attention": kernel_ms(lambda: ab._fwd_kernel_call(*args, H, causal, train=True),
                                              B1_ATTENTION),
-                   "B2_attention": kernel_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, bq, bk, bv,
-                                                                         lse, H, causal), B2_ATTENTION)}
+                   "B2_attention": kernel_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, bo, bq, bk,
+                                                                         bv, lse, H, causal), B2_ATTENTION)}
         res["sdpa_fwd"], res["sdpa_bwd"] = sdpa_ms(q, k, v, g, causal)
         out[f"B={B} L={L} D={D} H={H}{' causal' if causal else ''} bfloat16"] = res
         log("attention times", json.dumps({f"B={B} L={L}": res}))
-        del q, k, v, do, qkv, g, args, x, ln_s, ln_b, wqkv, wout, bq, bk, bv, lse
+        del q, k, v, do, qkv, g, args, x, ln_s, ln_b, wqkv, wout, bo, bq, bk, bv, lse
         torch.cuda.empty_cache()
     return out
 
@@ -3214,8 +3210,8 @@ def long_row_cases(peaks) -> dict:
             ref = ab.attention_block_reference(*args, H, False)
             err1 = max(check_close(f"B1 {n}", a, r, TOL[dt], where) for n, a, r in zip(("out", "o"), got, ref))
             _, o, q, k, v, lse = got
-            bwd_args = (g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, False)
-            ref_b = ab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, False)
+            bwd_args = (g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, False)
+            ref_b = ab.attention_block_backward_reference(*bwd_args)
             err2 = check_close("B2 dx", ab._bwd_kernel_call(*bwd_args)[0], ref_b[0], BWD_TOL[dt][0], where)
             del ref, ref_b
             torch.cuda.empty_cache()
@@ -3227,8 +3223,7 @@ def long_row_cases(peaks) -> dict:
                        lambda: ab.attention_block_reference(*args, H, False), B1_ATTENTION, sdpa_f,
                        block_bound_ms(B, L, D, False, dt, peaks)),
                 "B2": (err2, lambda: ab._bwd_kernel_call(*bwd_args),
-                       lambda: ab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse,
-                                                                     H, False), B2_ATTENTION, sdpa_b,
+                       lambda: ab.attention_block_backward_reference(*bwd_args), B2_ATTENTION, sdpa_b,
                        bwd_bound_ms(B, L, D, H, False, dt, peaks)),
             }
             for name, (err, fn, plain, pattern, sdpa, (bound, by)) in rows.items():
@@ -3311,15 +3306,16 @@ def shard_bound_ms(B, L, D, Dv, causal, dtype, peaks, kind):
     """(ms, "operations" | "bytes") of one shard launch.  Forward (B1, B3):
     QKV 6BLDDv + attention 4BL^2Dv (halved when causal) + out-projection
     2BLDvD; bytes x read, the fp32 partial written, the shard's weights
-    read (B1 also writes q, k, v, o and lse).  Backward (B2): 14BLDDv +
-    10BL^2Dv; x, g, q, k, v read, dx written, the weights and fp32 grads."""
+    read (B1 also writes q, k, v, o and lse).  Backward (B2): 16BLDDv +
+    10BL^2Dv; x, g, o, q, k, v read, dx written, the weights and fp32
+    grads."""
     el = torch.finfo(dtype).bits // 8
     attn = B * L * L * Dv * (0.5 if causal else 1.0)
     H = Dv // _HEAD_DIM
     if kind == "bwd":
-        flops = 14 * B * L * D * Dv + 10 * attn
-        nbytes = (3 * B * L * D + 3 * B * L * Dv) * el + B * L * H * 4 + 4 * D * Dv * el + (3 * D * Dv + 3 * Dv
-                                                                                           + 2 * D) * 4
+        flops = 16 * B * L * D * Dv + 10 * attn
+        nbytes = (3 * B * L * D + 4 * B * L * Dv) * el + B * L * H * 4 + 4 * D * Dv * el + (4 * D * Dv + 3 * Dv
+                                                                                           + 3 * D) * 4
     else:
         flops = 8 * B * L * D * Dv + 4 * attn
         nbytes = B * L * D * el + B * L * D * 4 + 4 * D * Dv * el
@@ -3358,7 +3354,7 @@ def phase_parallel_kernels(peaks) -> dict:
             with torch.no_grad():
                 full3 = ab._fwd_kernel_call(*args, H, causal, train=False)
                 full1 = ab._fwd_kernel_call(*args, H, causal, train=True)
-                full2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *full1[2:], H, causal)
+                full2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *full1[1:], H, causal)
                 p3, p1, p2 = [], [], []
                 errs = {"B3": 0.0, "B1": 0.0, "B2": 0.0}
                 for i in range(n):
@@ -3375,12 +3371,12 @@ def phase_parallel_kernels(peaks) -> dict:
                         e = check_close(f"B1 shard {name}", a, r, TOL[dtype], where)
                         errs["B1"] = max(errs["B1"], e) if name == "out" else errs["B1"]
                     check_close("B1 shard lse", r1[5], ref1[5], LSE_TOL[dtype], where, rtol=0.0)
-                    r2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, sa[3], sa[5], *r1[2:], Hl, causal, add_g=False)
+                    r2 = ab._bwd_kernel_call(g, x, ln_s, ln_b, sa[3], sa[5], *r1[1:], Hl, causal, add_g=False)
                     torch.cuda.synchronize()
                     ref2 = ab.attention_block_backward_reference(g, x, ln_s, ln_b, sa[3], sa[5], *r1[1:], Hl, causal,
                                                                  add_g=False)
                     errs["B2"] = max(errs["B2"], check_close("B2 shard dx", r2[0], ref2[0], elem, where))
-                    rels = [rel_norm(a, r) for a, r in zip(r2[1:], ref2[1:5])]
+                    rels = [rel_norm(a, r) for a, r in zip(r2[1:], ref2[1:])]
                     if max(rels) > norm:
                         raise AssertionError(f"B2 shard sums disagree at {where}: {rels}")
                     p3.append(r3)
@@ -3410,12 +3406,12 @@ def phase_parallel_kernels(peaks) -> dict:
                            cuda_ms(lambda: ab.attention_block_reference(*sa, Hl, causal, partial=True), iters=5,
                                    warmup=1),
                            cuda_ms(lambda: ab._fwd_kernel_call(*args, H, causal, train=True))),
-                    "B2": (cuda_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, sa[3], sa[5], *lse0[2:], Hl, causal,
+                    "B2": (cuda_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, sa[3], sa[5], *lse0[1:], Hl, causal,
                                                                add_g=False)),
                            cuda_ms(lambda: ab.attention_block_backward_reference(
                                g, x, ln_s, ln_b, sa[3], sa[5], *lse0[1:], Hl, causal, add_g=False), iters=5,
                                warmup=1),
-                           cuda_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *full1[2:], H, causal))),
+                           cuda_ms(lambda: ab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *full1[1:], H, causal))),
                 }
             for kernel, kind in (("B3", "infer"), ("B1", "fwd"), ("B2", "bwd")):
                 ms, plain_ms, whole_ms = times[kernel]

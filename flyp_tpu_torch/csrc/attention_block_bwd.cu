@@ -2,10 +2,11 @@
 //
 // Replaces flyp_tpu/ops/attention_block.py::_bwd_kernel (launched by
 // _bwd_call through pl.pallas_call).  From the block's input x [B, L, D],
-// the output cotangent g and the forward's saved q, k, v [B, L, D] and
-// lse [B, L, H] (compute type T = float or bfloat16; lse fp32) it computes
-// dx (T), dWqkv [3, D, D], dbqkv [3, D], dscale [D] and dbias [D] (fp32),
-// rounding where the TPU kernel rounds:
+// the output cotangent g and the forward's saved attention output o, q, k,
+// v [B, L, D] and lse [B, L, H] (compute type T = float or bfloat16; lse
+// fp32) it computes dx (T), dWqkv [3, D, D], dbqkv [3, D], dscale [D],
+// dbias [D], dWout [D, D] and dbout [D] (fp32), rounding where the TPU
+// kernel rounds:
 //
 //   y    = T(LN(x))                       recomputed from x
 //   do   = T(g @ Wout^T)
@@ -18,19 +19,21 @@
 //   dY   = sum_t d_t Wqkv[t]^T                      fp32
 //   dx   = T(rstd (dY*s - mean(dY*s) - xhat mean(dY*s*xhat)) + g)
 //   dscale = colsum(dY * xhat),  dbias = colsum(dY)
+//   dWout = o^T g,  dbout = colsum(g)               fp32 over all B*L rows
 //
-// (dWout and dbout are plain products over the saved o, outside, as in the
-// JAX package.)  What bounds it: ~14 B L D^2 FLOPs of projections (do, dW,
-// dY) and 10 B L^2 D of attention products against a few [B, L, D] reads
-// and writes, so the tensor cores bound the ideal kernel, as in the forward.
+// dWout and dbout read o and g as they are (a bf16 product is exact in
+// fp32), as the JAX package's fp32 product of the same values.  What bounds
+// it: ~16 B L D^2 FLOPs of projections (do, dWqkv, dY, dWout) and 10 B L^2 D
+// of attention products against a few [B, L, D] reads and writes, so the
+// tensor cores bound the ideal kernel, as in the forward.
 //
 // The TPU kernel walks the batch in order and carries dWqkv/dbqkv/dscale/
 // dbias across its grid in VMEM.  Blocks on the H100 run in no order, so
-// every sum over rows is deterministic instead: dWqkv is one GEMM whose
-// contraction runs over all B*L rows (split in a fixed number of chunks,
-// partials summed in a fixed order), and the column sums are per-block
-// partials reduced by one more pass.  No atomics, so a run repeats bit for
-// bit.  The launches, in order, on the caller's stream:
+// every sum over rows is deterministic instead: dWqkv and dWout are GEMMs
+// whose contraction runs over all B*L rows (split in a fixed number of
+// chunks, partials summed in a fixed order), and the column sums are
+// per-block partials reduced by one more pass.  No atomics, so a run
+// repeats bit for bit.  The launches, in order, on the caller's stream:
 //
 //   1. y = T(LN(x)) into scratch (common.cuh's ln_forward_kernel, the
 //      forward's);
@@ -48,23 +51,30 @@
 //      partials' sum;
 //   7. dY = sum_t d_t Wqkv[t]^T              (GEMM, 3 D-long segments);
 //   8. LN backward per row with dscale/dbias partials per block, then their
-//      sum.
+//      sum;
+//   9. dWout = o^T g: step 6's product over one tower, its own split of the
+//      rows, the partials (in step 6's scratch, summed by then) summed in
+//      order;
+//  10. dbout: column partials of g (in step 5's scratch), then their sum.
 //
-// bf16 runs the three GEMMs (do, dWqkv, dY) on gemm_sm90.cuh (G3, G4 and G5
-// there: TMA into a ring of shared-memory stages, wgmma on the tensor cores,
-// fp32 accumulate); fp32 runs them on common.cuh's FMA tiles on the CUDA
-// cores, since the tensor cores would round fp32 operands to TF32.
+// bf16 runs the four GEMMs (do, dWqkv, dY, dWout) on gemm_sm90.cuh (G3, G4
+// over three towers and over one, and G5 there: TMA into a ring of
+// shared-memory stages, wgmma on the tensor cores, fp32 accumulate); fp32
+// runs them on common.cuh's FMA tiles on the CUDA cores, since the tensor
+// cores would round fp32 operands to TF32.
 //
 // Head-group tensor parallelism runs the same launches on one shard of the
 // heads (entry flyp_attention_block_bwd_shard; the JAX kernel's shard
 // semantics): q, k, v are [B, L, Dv], Wqkv [3, D, Dv] and Wout [Dv, D] with
-// Dv = 64 H_local, so do is [M, Dv], dWqkv [3, D, Dv] and dbqkv [3, Dv], and
-// dY contracts over Dv.  dY, and so dscale, dbias and dx, are then the
+// Dv = 64 H_local, so o and do are [M, Dv], dWqkv [3, D, Dv], dbqkv [3, Dv]
+// and dWout [Dv, D], and dY contracts over Dv; dbout, a sum of g alone, is
+// whole on every shard.  dY, and so dscale, dbias and dx, are then the
 // shard's part, linear in dY: with add_g = 0 the LN backward writes
 // T(dx_ln) without + g, for the caller to sum over the shards and add g
 // once.  Any whole number of heads runs: an odd one (Dv = 192, 320) ends
-// G3's and G4's columns in 64-wide tiles (gemm_sm90.cuh), and the fp32 FMA
-// GEMM masks the columns of its last tile.
+// G3's and G4's columns in 64-wide tiles (gemm_sm90.cuh) and dWout's rows in
+// a part of a 128-row tile, and the fp32 FMA GEMM masks the columns of its
+// last tile.
 
 #include "attention.cuh"
 #include "gemm_sm90.cuh"
@@ -170,8 +180,8 @@ colsum_partial_kernel(const T* __restrict__ src, float* __restrict__ partial, in
 
 // ---------------------------------------------------------------------------
 
-// The three GEMMs: fp32 on common.cuh's FMA tiles, bf16 on gemm_sm90.cuh
-// (G3, G4, G5).  dWqkv's row chunks are gemm_sm90.cuh's fixed split for
+// The GEMMs: fp32 on common.cuh's FMA tiles, bf16 on gemm_sm90.cuh (G3,
+// G4, G5).  The weight grads' row chunks are gemm_sm90.cuh's fixed split for
 // both types.
 // Dv: the head shard's width (Dv = D for the whole block).
 cudaError_t grad_out_gemm(const float* g, const float* wout, float* dout, int M, int D, int Dv, cudaStream_t st) {
@@ -180,19 +190,21 @@ cudaError_t grad_out_gemm(const float* g, const float* wout, float* dout, int M,
 cudaError_t grad_out_gemm(const bf16* g, const bf16* wout, bf16* dout, int M, int D, int Dv, cudaStream_t st) {
   return sm90::grad_out(g, wout, dout, M, D, Dv, st);
 }
-cudaError_t weight_grad_gemm(const float* y, const float* d, float* partial, float* dw, int M, int D, int Dv,
-                             cudaStream_t st) {
-  GemmArgs g = gemm_args(y, d, partial, D, Dv, M, D, Dv);
-  g.b_z = (long long)M * Dv;
-  g.k_chunk = sm90::weight_grad_chunk(M, D, Dv);
+// dw[t] = a^T b_t (fp32 [towers, Na, Nb]) over the M rows of a [M, Na] and
+// b [towers, M, Nb].
+cudaError_t weight_grad_gemm(const float* a, const float* b, float* partial, float* dw, int M, int Na, int Nb,
+                             int towers, cudaStream_t st) {
+  GemmArgs g = gemm_args(a, b, partial, Na, Nb, M, Na, Nb);
+  g.b_z = (long long)M * Nb;
+  g.k_chunk = sm90::weight_grad_chunk(M, Na, Nb, towers);
   g.splits = (M + g.k_chunk - 1) / g.k_chunk;
-  const cudaError_t err = launch_gemm<true, false, kOpNone>(g, 3, st);
+  const cudaError_t err = launch_gemm<true, false, kOpNone>(g, towers, st);
   if (err != cudaSuccess) return err;
-  return reduce_partials(partial, g.splits, 3LL * D * Dv, dw, st);
+  return reduce_partials(partial, g.splits, (long long)towers * Na * Nb, dw, st);
 }
-cudaError_t weight_grad_gemm(const bf16* y, const bf16* d, float* partial, float* dw, int M, int D, int Dv,
-                             cudaStream_t st) {
-  return sm90::weight_grad(y, d, partial, dw, M, D, Dv, st);
+cudaError_t weight_grad_gemm(const bf16* a, const bf16* b, float* partial, float* dw, int M, int Na, int Nb,
+                             int towers, cudaStream_t st) {
+  return sm90::weight_grad(a, b, partial, dw, M, Na, Nb, towers, st);
 }
 cudaError_t input_grad_gemm(const float* d, const float* wqkv, float* dY, int M, int D, int Dv, cudaStream_t st) {
   GemmArgs g = gemm_args(d, wqkv, dY, M, D, Dv, Dv, Dv);
@@ -215,7 +227,9 @@ struct Bwd {
 
   static size_t carve(Scratch* s, char* base, int B, int L, int D, int Dv, int H) {
     const size_t M = (size_t)B * L;
-    const int splits = sm90::weight_grad_splits((int)M, D, Dv);
+    // The weight grads' partials share one scratch, as do the column sums'.
+    const size_t part_w = std::max((size_t)sm90::weight_grad_splits((int)M, D, Dv, 3) * 3,
+                                   (size_t)sm90::weight_grad_splits((int)M, Dv, D, 1)) * D * Dv;
     const int c_rows = 256, c_chunks = (int)((M + c_rows - 1) / c_rows);
     const int ln_blocks = (int)((M + ln_rows() - 1) / ln_rows());
     size_t off = 0;
@@ -229,8 +243,8 @@ struct Bwd {
     char* d = take(3 * M * Dv * sizeof(T));
     char* delta = take(M * H * sizeof(float));
     char* dY = take(M * D * sizeof(float));
-    char* pw = take((size_t)splits * 3 * D * Dv * sizeof(float));
-    char* pb = take((size_t)c_chunks * 3 * Dv * sizeof(float));
+    char* pw = take(part_w * sizeof(float));
+    char* pb = take((size_t)c_chunks * std::max(3 * Dv, D) * sizeof(float));
     char* pln = take((size_t)ln_blocks * 2 * D * sizeof(float));
     if (s != nullptr) {
       s->y = reinterpret_cast<T*>(y);
@@ -245,10 +259,10 @@ struct Bwd {
     return off;
   }
 
-  static cudaError_t run(const T* x, const T* gout, const T* q, const T* k, const T* v, const float* lse,
-                         const float* ln_scale, const float* ln_bias, const T* wqkv, const T* wout, T* dx,
-                         float* dwqkv, float* dbqkv, float* dln, void* workspace, int B, int L, int D, int Dv,
-                         int H, int causal, int add_g, cudaStream_t st) {
+  static cudaError_t run(const T* x, const T* gout, const T* o, const T* q, const T* k, const T* v,
+                         const float* lse, const float* ln_scale, const float* ln_bias, const T* wqkv, const T* wout,
+                         T* dx, float* dwqkv, float* dbqkv, float* dln, float* dwout, float* dbout, void* workspace,
+                         int B, int L, int D, int Dv, int H, int causal, int add_g, cudaStream_t st) {
     Scratch s;
     carve(&s, static_cast<char*>(workspace), B, L, D, Dv, H);
     const int M = B * L;
@@ -282,7 +296,7 @@ struct Bwd {
     FLYP_CHECK(reduce_partials(s.part_b, c_chunks, 3LL * Dv, dbqkv, st));
 
     // 6. dWqkv[t] = y^T d_t, split over rows, then the partials' sum.
-    FLYP_CHECK(weight_grad_gemm(s.y, s.d, s.part_w, dwqkv, M, D, Dv, st));
+    FLYP_CHECK(weight_grad_gemm(s.y, s.d, s.part_w, dwqkv, M, D, Dv, 3, st));
 
     // 7. dY = sum_t d_t Wqkv[t]^T.
     FLYP_CHECK(input_grad_gemm(s.d, wqkv, s.dY, M, D, Dv, st));
@@ -297,6 +311,15 @@ struct Bwd {
                                                                     ln_rows());
     FLYP_CHECK(cudaGetLastError());
     FLYP_CHECK(reduce_partials(s.part_ln, ln_blocks, 2LL * D, dln, st));
+
+    // 9. dWout = o^T g over the rows, in part_w after dWqkv's sum.
+    FLYP_CHECK(weight_grad_gemm(o, gout, s.part_w, dwout, M, Dv, D, 1, st));
+
+    // 10. dbout = colsum(g), in part_b after dbqkv's sum.
+    colsum_partial_kernel<T><<<dim3((D + kThreads - 1) / kThreads, c_chunks, 1), kThreads, 0, st>>>(
+        gout, s.part_b, M, D, c_rows);
+    FLYP_CHECK(cudaGetLastError());
+    FLYP_CHECK(reduce_partials(s.part_b, c_chunks, D, dbout, st));
 #undef FLYP_CHECK
     return cudaSuccess;
   }
@@ -308,15 +331,15 @@ bool shapes_ok(int L, int D, int Dv, int H) {
 }
 
 template <typename T>
-int run_bwd(const void* x, const void* gout, const void* q, const void* k, const void* v, const void* lse,
-            const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wout, void* dx, void* dwqkv,
-            void* dbqkv, void* dln, void* workspace, int B, int L, int D, int Dv, int H, int causal, int add_g,
-            void* stream) {
-  return (int)Bwd<T>::run(static_cast<const T*>(x), static_cast<const T*>(gout), static_cast<const T*>(q),
-                          static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const float*>(lse),
-                          static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias),
-                          static_cast<const T*>(wqkv), static_cast<const T*>(wout), static_cast<T*>(dx),
-                          static_cast<float*>(dwqkv), static_cast<float*>(dbqkv), static_cast<float*>(dln), workspace,
+int run_bwd(const void* x, const void* gout, const void* o, const void* q, const void* k, const void* v,
+            const void* lse, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wout, void* dx,
+            void* dwqkv, void* dbqkv, void* dln, void* dwout, void* dbout, void* workspace, int B, int L, int D,
+            int Dv, int H, int causal, int add_g, void* stream) {
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto f32 = [](void* p) { return static_cast<float*>(p); };
+  return (int)Bwd<T>::run(in(x), in(gout), in(o), in(q), in(k), in(v), static_cast<const float*>(lse),
+                          static_cast<const float*>(ln_scale), static_cast<const float*>(ln_bias), in(wqkv), in(wout),
+                          static_cast<T*>(dx), f32(dwqkv), f32(dbqkv), f32(dln), f32(dwout), f32(dbout), workspace,
                           B, L, D, Dv, H, causal, add_g, static_cast<cudaStream_t>(stream));
 }
 
@@ -327,17 +350,17 @@ long long workspace_bytes(int B, int L, int D, int Dv, int H, int dtype) {
   return -1;
 }
 
-int launch_bwd(const void* x, const void* gout, const void* q, const void* k, const void* v, const void* lse,
-               const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wout, void* dx, void* dwqkv,
-               void* dbqkv, void* dln, void* workspace, int B, int L, int D, int Dv, int H, int causal, int add_g,
-               int dtype, void* stream) {
+int launch_bwd(const void* x, const void* gout, const void* o, const void* q, const void* k, const void* v,
+               const void* lse, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wout,
+               void* dx, void* dwqkv, void* dbqkv, void* dln, void* dwout, void* dbout, void* workspace, int B, int L,
+               int D, int Dv, int H, int causal, int add_g, int dtype, void* stream) {
   if (!shapes_ok(L, D, Dv, H)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return run_bwd<float>(x, gout, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, workspace, B,
-                          L, D, Dv, H, causal, add_g, stream);
+    return run_bwd<float>(x, gout, o, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, dwout,
+                          dbout, workspace, B, L, D, Dv, H, causal, add_g, stream);
   if (dtype == 1)
-    return run_bwd<bf16>(x, gout, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, workspace, B,
-                         L, D, Dv, H, causal, add_g, stream);
+    return run_bwd<bf16>(x, gout, o, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, dwout,
+                         dbout, workspace, B, L, D, Dv, H, causal, add_g, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -351,16 +374,18 @@ long long flyp_attention_block_bwd_workspace(int B, int L, int D, int H, int dty
   return workspace_bytes(B, L, D, D, H, dtype);
 }
 
-// The training backward.  x, gout, q, k, v, dx: [B, L, D] in the compute
+// The training backward.  x, gout, o, q, k, v, dx: [B, L, D] in the compute
 // type; lse [B, L, H], ln_scale/ln_bias [D] fp32; wqkv [3, D, D] and wout
-// [D, D] in the compute type.  Outputs dwqkv [3, D, D], dbqkv [3, D] and dln
-// [2, D] (dscale, dbias) in fp32.  Returns a cudaError_t.
-int flyp_attention_block_bwd(const void* x, const void* gout, const void* q, const void* k, const void* v,
-                             const void* lse, const void* ln_scale, const void* ln_bias, const void* wqkv,
-                             const void* wout, void* dx, void* dwqkv, void* dbqkv, void* dln, void* workspace,
-                             int B, int L, int D, int H, int causal, int dtype, void* stream) {
-  return launch_bwd(x, gout, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, workspace, B, L, D,
-                    D, H, causal, 1, dtype, stream);
+// [D, D] in the compute type.  Outputs dwqkv [3, D, D], dbqkv [3, D], dln
+// [2, D] (dscale, dbias), dwout [D, D] and dbout [D] in fp32.  Returns a
+// cudaError_t.
+int flyp_attention_block_bwd(const void* x, const void* gout, const void* o, const void* q, const void* k,
+                             const void* v, const void* lse, const void* ln_scale, const void* ln_bias,
+                             const void* wqkv, const void* wout, void* dx, void* dwqkv, void* dbqkv, void* dln,
+                             void* dwout, void* dbout, void* workspace, int B, int L, int D, int H, int causal,
+                             int dtype, void* stream) {
+  return launch_bwd(x, gout, o, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, dwout, dbout,
+                    workspace, B, L, D, D, H, causal, 1, dtype, stream);
 }
 
 // The workspace of flyp_attention_block_bwd_shard, or -1.
@@ -368,17 +393,17 @@ long long flyp_attention_block_bwd_shard_workspace(int B, int L, int D, int Dv, 
   return workspace_bytes(B, L, D, Dv, H, dtype);
 }
 
-// One head shard of the backward: q, k, v [B, L, Dv] with Dv = 64 H, wqkv
-// [3, D, Dv], wout [Dv, D]; outputs dwqkv [3, D, Dv], dbqkv [3, Dv] and the
-// shard's part of dln [2, D] and of dx [B, L, D], which with add_g = 0 is
-// T(dx_ln) without + gout.
-int flyp_attention_block_bwd_shard(const void* x, const void* gout, const void* q, const void* k, const void* v,
-                                   const void* lse, const void* ln_scale, const void* ln_bias, const void* wqkv,
-                                   const void* wout, void* dx, void* dwqkv, void* dbqkv, void* dln, void* workspace,
-                                   int B, int L, int D, int Dv, int H, int causal, int add_g, int dtype,
-                                   void* stream) {
-  return launch_bwd(x, gout, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, workspace, B, L, D,
-                    Dv, H, causal, add_g, dtype, stream);
+// One head shard of the backward: o, q, k, v [B, L, Dv] with Dv = 64 H,
+// wqkv [3, D, Dv], wout [Dv, D]; outputs dwqkv [3, D, Dv], dbqkv [3, Dv],
+// dwout [Dv, D], the whole dbout [D] and the shard's part of dln [2, D] and
+// of dx [B, L, D], which with add_g = 0 is T(dx_ln) without + gout.
+int flyp_attention_block_bwd_shard(const void* x, const void* gout, const void* o, const void* q, const void* k,
+                                   const void* v, const void* lse, const void* ln_scale, const void* ln_bias,
+                                   const void* wqkv, const void* wout, void* dx, void* dwqkv, void* dbqkv, void* dln,
+                                   void* dwout, void* dbout, void* workspace, int B, int L, int D, int Dv, int H,
+                                   int causal, int add_g, int dtype, void* stream) {
+  return launch_bwd(x, gout, o, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, dwout, dbout,
+                    workspace, B, L, D, Dv, H, causal, add_g, dtype, stream);
 }
 
 const char* flyp_error_string(int code) { return cudaGetErrorString(static_cast<cudaError_t>(code)); }

@@ -52,7 +52,7 @@ int flyp_gemm_grad_out(const void* g, const void* wout, void* dout, int M, int D
 // Bytes of fp32 partials G4 needs at (M, D, Dv).
 long long flyp_gemm_weight_grad_workspace(int M, int D, int Dv) {
   if (!shape_ok(M, D, Dv)) return -1;
-  return (long long)sm90::weight_grad_splits(M, D, Dv) * 3 * D * Dv * (long long)sizeof(float);
+  return (long long)sm90::weight_grad_splits(M, D, Dv, 3) * 3 * D * Dv * (long long)sizeof(float);
 }
 
 // G4: dw [3, D, Dv] fp32 = y^T d[t]; y [M, D], d [3, M, Dv].
@@ -60,7 +60,7 @@ int flyp_gemm_weight_grad(const void* y, const void* d, void* workspace, void* d
                           void* stream) {
   if (!shape_ok(M, D, Dv)) return (int)cudaErrorInvalidValue;
   return (int)sm90::weight_grad(in(y), in(d), static_cast<float*>(workspace), static_cast<float*>(dw), M, D, Dv,
-                                static_cast<cudaStream_t>(stream));
+                                3, static_cast<cudaStream_t>(stream));
 }
 
 // G5: dY [M, D] fp32 = sum_t d[t] @ wqkv[t]^T; d [3, M, Dv], wqkv [3, D, Dv].

@@ -7,7 +7,8 @@
 //   G2 out    = T(x + o @ Wout + bout)     Wout held [K, N]
 //   G3 do     = T(g @ Wout^T)              Wout held [N, K]
 //   G4 dWqkv[t] = y^T d_t                  fp32 partials over fixed row chunks,
-//                                          summed in a fixed order
+//                                          summed in a fixed order; dWout =
+//                                          o^T g the same over one tower
 //   G5 dY     = sum_t d_t Wqkv[t]^T        fp32, 3 segments
 //
 // in the attention block's kernels (B1, B3, B2); the MLP block's two
@@ -807,14 +808,14 @@ inline cudaError_t grad_out(const bf16* g, const bf16* wout, bf16* out, int M, i
   return grad_out(g, wout, out, M, D, D, st);
 }
 
-// G4's row chunks: a fixed function of (M, D), never of the card or the
+// G4's row chunks: a fixed function of the shape, never of the card or the
 // run, so the partials and their fixed-order sum repeat bit for bit.  The
 // split count s <= 16 least in ceil(t s / 132) / s, the waves of t s tiles
-// over one block on each of 132 SMs per unit of work (t = 3 (D / 128) (Dv /
-// tile width) output tiles); chunks of ceil(M / s) rows rounded up to the
-// k-tile, at least 256.
-inline int weight_grad_chunk(int M, int D, int Dv) {
-  const int tiles = 3 * (D / kBM) * (Dv / tile_n(Dv));
+// over one block on each of 132 SMs per unit of work (t = towers x ceil(Na /
+// 128) x (Nb / tile width) output tiles of an [Na, Nb] product); chunks of
+// ceil(M / s) rows rounded up to the k-tile, at least 256.
+inline int weight_grad_chunk(int M, int Na, int Nb, int towers) {
+  const int tiles = towers * ((Na + kBM - 1) / kBM) * (Nb / tile_n(Nb));
   const int resident = 132;
   int best = 1;
   double best_cost = 1e9;
@@ -829,29 +830,25 @@ inline int weight_grad_chunk(int M, int D, int Dv) {
   constexpr int kBK = kTileK<bf16>;
   return std::max(256, (chunk + kBK - 1) / kBK * kBK);
 }
-inline int weight_grad_chunk(int M, int D) { return weight_grad_chunk(M, D, D); }
-inline int weight_grad_splits(int M, int D, int Dv) {
-  const int chunk = weight_grad_chunk(M, D, Dv);
+inline int weight_grad_splits(int M, int Na, int Nb, int towers) {
+  const int chunk = weight_grad_chunk(M, Na, Nb, towers);
   return (M + chunk - 1) / chunk;
 }
-inline int weight_grad_splits(int M, int D) { return weight_grad_splits(M, D, D); }
 
-// G4: dw[t] = y^T d_t (fp32 [3, D, Dv]); y [M, D] and d [3, M, Dv] held with
-// the contraction (rows) outermost, so both operands are MN-major.  The
-// partials [splits, 3, D, Dv] are summed in order into dw.
-inline cudaError_t weight_grad(const bf16* y, const bf16* d, float* partial, float* dw, int M, int D, int Dv,
-                               cudaStream_t st) {
-  Product p = product(y, d, partial, D, Dv, M);
-  p.towers = 3; p.b_z = 3; p.b_tower = 1;
-  p.k_chunk = weight_grad_chunk(M, D, Dv);
+// G4: dw[t] = a^T b_t (fp32 [towers, Na, Nb]); a [M, Na] and b [towers, M,
+// Nb] held with the contraction (rows) outermost, so both operands are
+// MN-major.  The partials [splits, towers, Na, Nb] are summed in order into
+// dw.  The attention block's backward runs it over three towers (dWqkv[t] =
+// y^T d_t: Na = D, Nb = Dv) and over one (dWout = o^T g: Na = Dv, Nb = D).
+inline cudaError_t weight_grad(const bf16* a, const bf16* b, float* partial, float* dw, int M, int Na, int Nb,
+                               int towers, cudaStream_t st) {
+  Product p = product(a, b, partial, Na, Nb, M);
+  p.towers = towers; p.b_z = towers; p.b_tower = 1;
+  p.k_chunk = weight_grad_chunk(M, Na, Nb, towers);
   p.splits = (M + p.k_chunk - 1) / p.k_chunk;
   const cudaError_t err = launch<true, true, kOpNone, float>(p, st);
   if (err != cudaSuccess) return err;
-  return reduce_partials(partial, p.splits, 3LL * D * Dv, dw, st);
-}
-inline cudaError_t weight_grad(const bf16* y, const bf16* d, float* partial, float* dw, int M, int D,
-                               cudaStream_t st) {
-  return weight_grad(y, d, partial, dw, M, D, D, st);
+  return reduce_partials(partial, p.splits, (long long)towers * Na * Nb, dw, st);
 }
 
 // G5: dY = sum_t d_t Wqkv[t]^T (fp32 [M, D]); d [3, M, Dv] and Wqkv[t]

@@ -11,7 +11,8 @@ kernels replace the TPU kernels:
 * B1, ``_fwd_kernel``: the training forward, which also returns q, k, v,
   the attention output o and the per-(row, head) log-sum-exp for the
   backward (same source, entry ``flyp_attention_block_fwd_train``);
-* B2, ``_bwd_kernel``: the training backward (``csrc/attention_block_bwd.cu``).
+* B2, ``_bwd_kernel``: the training backward, the out-projection's grads
+  included (``csrc/attention_block_bwd.cu``).
 
 On the H100 the ideal kernels are bound by the tensor cores (the block does
 ~1500 FLOPs per byte it must move at ViT-B/16 widths).  The TPU kernels'
@@ -161,8 +162,8 @@ def attention_block_backward_reference(
     g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads: int, causal: bool = False,
     add_g: bool = True,
 ):
-    """Plain version of the training backward (B2, and the out-projection
-    grads beside it) -> ``(dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout)``;
+    """Plain version of the training backward (B2, the out-projection's
+    grads included) -> ``(dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout)``;
     ``dx`` in ``x.dtype``, the rest fp32.  Rounds where ``_bwd_kernel``
     rounds: ``do = T(g Wout^T)``, ``T(p)`` in ``dv`` only,
     ``ds = T(p (dp - rowsum(p dp)))``, and dq/dk/dv before the weight, bias
@@ -235,12 +236,12 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _kernels.load("attention_block_bwd")
     lib.flyp_attention_block_bwd_workspace.argtypes = [ctypes.c_int] * 5
     lib.flyp_attention_block_bwd_workspace.restype = ctypes.c_longlong
-    lib.flyp_attention_block_bwd.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.flyp_attention_block_bwd.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     lib.flyp_attention_block_bwd.restype = ctypes.c_int
     lib.flyp_attention_block_bwd_shard_workspace.argtypes = [ctypes.c_int] * 6
     lib.flyp_attention_block_bwd_shard_workspace.restype = ctypes.c_longlong
     # ints B, L, D, Dv, H, causal, add_g, dtype.
-    lib.flyp_attention_block_bwd_shard.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.flyp_attention_block_bwd_shard.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.flyp_attention_block_bwd_shard.restype = ctypes.c_int
     return lib
 
@@ -311,12 +312,18 @@ def _fwd_kernel_call(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out
     return out, o, qkv[0], qkv[1], qkv[2], lse
 
 
-def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, lse, heads, causal, add_g=True):
-    """B2 -> (dx, dscale, dbias, dwqkv, dbqkv); ``add_g=False`` leaves
-    ``+ g`` out of ``dx`` (a head shard's part)."""
+def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads, causal,
+                     add_g=True):
+    """B2 -> (dx, dscale, dbias, dwqkv, dbqkv, dwout, dbout); ``add_g=False``
+    leaves ``+ g`` out of ``dx`` (a head shard's part).  ``dwout = o^T g``
+    and ``dbout = colsum(g)`` read ``o`` and ``g`` as they are, so ``g``
+    must come in ``x.dtype``: the op's output type, which autograd hands
+    back."""
     B, L, D = x.shape
     Dv = qkv_kernel.shape[-1]
     dtype = x.dtype
+    if g.dtype != dtype:
+        raise TypeError(f"the attention-block backward kernel takes g in x's type {dtype}, got {g.dtype}")
     if L > _MAX_TRAIN_LEN:
         raise ValueError(f"the attention-block backward kernel takes L <= {_MAX_TRAIN_LEN}, got L={L}")
     if Dv != heads * _HEAD_DIM or D % 128 or Dv > D:
@@ -332,7 +339,7 @@ def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, l
         raise ValueError(f"the attention-block backward kernel does not take B={B} L={L} D={D} Dv={Dv} "
                          f"heads={heads}")
     dev = x.device
-    tensors = [t.contiguous() for t in (x, g.to(dtype), q, k, v, lse)]
+    tensors = [t.contiguous() for t in (x, g, o, q, k, v, lse)]
     ln = [t.detach().to(torch.float32).contiguous() for t in (ln_scale, ln_bias)]
     wqkv = qkv_kernel.detach().to(dtype).contiguous()
     wout = out_kernel.detach().to(dtype).contiguous()
@@ -340,9 +347,12 @@ def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, l
     dwqkv = torch.empty((3, D, Dv), dtype=torch.float32, device=dev)
     dbqkv = torch.empty((3, Dv), dtype=torch.float32, device=dev)
     dln = torch.empty((2, D), dtype=torch.float32, device=dev)
+    dwout = torch.empty((Dv, D), dtype=torch.float32, device=dev)
+    dbout = torch.empty((D,), dtype=torch.float32, device=dev)
     workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     ptrs = [*(t.data_ptr() for t in tensors), ln[0].data_ptr(), ln[1].data_ptr(), wqkv.data_ptr(), wout.data_ptr(),
-            dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dln.data_ptr(), workspace.data_ptr()]
+            dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dln.data_ptr(), dwout.data_ptr(), dbout.data_ptr(),
+            workspace.data_ptr()]
     with torch.cuda.device(dev):
         if shard:
             code = lib.flyp_attention_block_bwd_shard(*ptrs, B, L, D, Dv, heads, int(bool(causal)), int(bool(add_g)),
@@ -352,7 +362,7 @@ def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, l
                                                 _stream(dev))
     _kernels.check(lib, code, "attention-block backward kernel launch")
     attention_block.bwd_launches += 1
-    return dx, dln[0], dln[1], dwqkv, dbqkv
+    return dx, dln[0], dln[1], dwqkv, dbqkv, dwout, dbout
 
 
 def _device_route(x, op: str) -> bool:
@@ -376,13 +386,9 @@ def _train_backward(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v,
     if not _device_route(x, "attention_block"):
         return attention_block_backward_reference(
             g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads, causal, add_g=add_g)
-    dx, dscale, dbias, dwqkv, dbqkv = _bwd_kernel_call(
-        g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, q, k, v, lse, heads, causal, add_g=add_g)
-    # The out-projection grads are plain fp32 products over the saved o, as
-    # the JAX package leaves them to XLA.
-    g32 = g.float().reshape(-1, g.shape[-1])
-    dwout = torch.matmul(o.float().reshape(-1, o.shape[-1]).T, g32)
-    return dx, dscale, dbias, dwqkv, dbqkv, dwout, g32.sum(dim=0)
+    # B2 computes the out-projection's grads too, from the saved o.
+    return _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v, lse, heads, causal,
+                            add_g=add_g)
 
 
 def _param_grads(grads, params):

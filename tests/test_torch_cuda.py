@@ -115,6 +115,18 @@ def _rel(a, b):
 # by summation order only; bf16 may also flip a rounding inside q/k/v, e, o,
 # do, ds or dq/dk/dv (a few ulps of O(1) values).
 TRAIN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 1e-2)}
+# B2's sums over rows in the order the plain backward returns them.
+B2_SUMS = ("dscale", "dbias", "dwqkv", "dbqkv", "dwout", "dbout")
+
+
+def _weight_grad_chunk(M, Na, Nb, towers):
+    """The rows of one of G4's contraction chunks (``csrc/gemm_sm90.cuh::
+    weight_grad_chunk``) for an ``[Na, Nb]`` product over ``towers``."""
+    tile_n = 256 if Nb % 256 == 0 else 128 if Nb % 128 == 0 else 64
+    tiles = towers * -(-Na // 128) * (Nb // tile_n)
+    best = min(range(1, 17), key=lambda s: (-(-tiles * s // 132) / s, s))
+    rows = -(-M // best)
+    return max(256, -(-rows // 64) * 64)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -122,14 +134,17 @@ TRAIN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (5e-2, 1e-2)}
     "shape",
     [(4, 197, 768, 12, False), (4, 77, 512, 8, True), (3, 32, 512, 8, True), (3, 13, 128, 2, True),
      (2, 257, 768, 12, False), (2, 320, 128, 2, True), (2, 577, 1024, 16, False),
-     (1, 197, 768, 12, False), (1, 77, 512, 8, True), (1, 16, 512, 8, True)],
+     (1, 197, 768, 12, False), (1, 77, 512, 8, True), (1, 16, 512, 8, True),
+     (2, 257, 1024, 16, False), (16, 197, 768, 12, False)],
 )
 def test_training_kernels_match_plain_on_card(card, shape, dtype):
-    """B1 on out, o, q, k, v and lse; B2 on dx, dWqkv, dbqkv, dscale and
-    dbias against the plain backward, and through autograd; up to
-    ViT-L/14@336px's 577 keys at D = 1024, and at batch 1 (the Fisher's
+    """B1 on out, o, q, k, v and lse; B2 on dx, dWqkv, dbqkv, dscale,
+    dbias, dWout and dbout against the plain backward, and through
+    autograd; up to ViT-L/14@336px's 577 keys at D = 1024, ViT-L/14's 257
+    (the streamed route) at its width, and at batch 1 (the Fisher's
     per-example passes: M = 197 rows, under two of the GEMM's 128-row
-    tiles)."""
+    tiles).  At 16 x 197 = 3,152 rows dWout's chunks are 512 rows, the last
+    of them 80."""
     B, L, D, H, causal = shape
     dt = getattr(torch, dtype)
     elem, norm = TRAIN_TOL[dtype]
@@ -154,13 +169,16 @@ def test_training_kernels_match_plain_on_card(card, shape, dtype):
     torch.testing.assert_close(lse, ref[5], atol=1e-4 if dt == torch.float32 else 1e-2, rtol=0.0, msg="lse")
     ln_s, ln_b, wqkv, _, wout, _ = params
     with torch.no_grad():
-        dx, dscale, dbias, dwqkv, dbqkv = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+        dx, *sums = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
         ref_b = tab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
     torch.cuda.synchronize()
-    assert dx.dtype == dt and dwqkv.dtype == torch.float32
+    assert dx.dtype == dt and len(sums) == len(B2_SUMS)
     torch.testing.assert_close(dx.float(), ref_b[0].float(), atol=elem, rtol=elem, msg="dx")
-    for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv"), (dscale, dbias, dwqkv, dbqkv), ref_b[1:5]):
+    for name, a, b in zip(B2_SUMS, sums, ref_b[1:]):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
         assert _rel(a, b) < norm, (name, _rel(a, b))
+    if B * L == 3152:
+        assert B * L % _weight_grad_chunk(B * L, D, D, 1) == 80
     assert (tab.attention_block.fwd_launches, tab.attention_block.bwd_launches) == (fwd0 + 1, bwd0 + 1)
 
     # Through autograd, with every input requiring grad.
@@ -181,13 +199,18 @@ def test_training_backward_refuses_longer_rows(card):
     lse = torch.zeros(B, L, H, device=card)
     before = tab.attention_block.bwd_launches
     with pytest.raises(ValueError, match="L <= 1024"):
-        tab._bwd_kernel_call(x, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, False)
+        tab._bwd_kernel_call(x, x, ln_s, ln_b, wqkv, wout, q, q, k, v, lse, H, False)
+    with pytest.raises(TypeError, match="g in x's type"):
+        tab._bwd_kernel_call(x.bfloat16(), x, ln_s, ln_b, wqkv, wout, q, q, k, v, lse, H, False)
     assert tab.attention_block.bwd_launches == before
 
 
-def test_training_kernels_are_deterministic(card):
-    """No atomics: two backward runs agree bit for bit."""
-    x, *params = (torch.from_numpy(a).to(card) for a in _inputs(4, 197, 768, seed=2))
+@pytest.mark.parametrize("L", [197, 257])
+def test_training_kernels_are_deterministic(card, L):
+    """No atomics: two backward runs agree bit for bit, dWout's split sum
+    included, on the register route (197 keys) and the streamed one
+    (257)."""
+    x, *params = (torch.from_numpy(a).to(card) for a in _inputs(4, L, 768, seed=2))
     x = x.to(torch.bfloat16).requires_grad_(True)
     params = [p.requires_grad_(True) for p in params]
     g = torch.ones_like(x)
@@ -422,10 +445,10 @@ def test_attention_block_at_the_register_route_boundary(card, L, causal):
         _, o, q, k, v, lse = got
         torch.testing.assert_close(lse, ref[5], atol=1e-2, rtol=0.0, msg="B1 lse")
         ln_s, ln_b, wqkv, _, wout, _ = params
-        dx, dscale, dbias, dwqkv, dbqkv = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+        dx, *sums = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
         ref_b = tab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
     torch.testing.assert_close(dx.float(), ref_b[0].float(), atol=elem, rtol=elem, msg="B2 dx")
-    for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv"), (dscale, dbias, dwqkv, dbqkv), ref_b[1:5]):
+    for name, a, b in zip(B2_SUMS, sums, ref_b[1:]):
         assert _rel(a, b) < norm, (name, _rel(a, b))
 
 
@@ -447,9 +470,8 @@ def test_attention_kernels_repeat_bit_for_bit(card, L):
     def run():
         with torch.no_grad():
             b1 = tab._fwd_kernel_call(x, *params, H, causal, train=True)
-            _, _, bq, bk, bv, lse = b1
             return {"B3": (tab.attention_block_inference(x, *params, H, causal),), "B1": b1,
-                    "B2": tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, bq, bk, bv, lse, H, causal),
+                    "B2": tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[1:], H, causal),
                     "B5": (tfq.fused_qkv_attention(qkv, H, causal),
                            tfq.fused_qkv_attention_backward(qkv, g, H, causal)),
                     "B6": (tfa.flash_attention(q, k, v, causal), *tfa.flash_attention_backward(q, k, v, g4, causal))}
@@ -528,8 +550,7 @@ def test_streamed_route_over_poisoned_outputs(card, L, causal):
         with _PoisonedOutputs() as poison, torch.no_grad():
             b3 = tab.attention_block_inference(x, *params, H, causal)
             b1 = tab._fwd_kernel_call(x, *params, H, causal, train=True)
-            _, _, q, k, v, lse = b1
-            b2 = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+            b2 = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[1:], H, causal)
             b5 = (tfq.fused_qkv_attention(qkv, H, causal), tfq.fused_qkv_attention_backward(qkv, g, H, causal))
             b6 = (tfa.flash_attention(*views, causal), *tfa.flash_attention_backward(*views, g4, causal))
             torch.cuda.synchronize()
@@ -555,7 +576,7 @@ def test_streamed_route_over_poisoned_outputs(card, L, causal):
         ref_b = tab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
         dx, *sums = first["B2"]
         torch.testing.assert_close(dx.float(), ref_b[0].float(), atol=elem, rtol=elem, msg="B2 dx")
-        for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv"), sums, ref_b[1:5]):
+        for name, a, b in zip(B2_SUMS, sums, ref_b[1:]):
             assert _rel(a, b) < norm, (name, _rel(a, b))
         where = (L, causal)
         check_attention("B5 forward", first["B5"][0], tfq.fused_qkv_attention_reference(qkv, H, causal), where)
@@ -615,10 +636,10 @@ def test_streamed_route_weighs_the_last_key(card, L, causal):
             torch.testing.assert_close(a.float(), b.float(), atol=elem, rtol=elem, msg=f"B1 {name}")
         _, o, q, k, v, lse = got
         torch.testing.assert_close(lse, ref[5], atol=1e-2, rtol=0.0, msg="B1 lse")
-        dx, *sums = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, q, k, v, lse, H, causal)
+        dx, *sums = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
         ref_b = tab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
     torch.testing.assert_close(dx.float(), ref_b[0].float(), atol=elem, rtol=elem, msg="B2 dx")
-    for name, a, b in zip(("dscale", "dbias", "dwqkv", "dbqkv"), sums, ref_b[1:5]):
+    for name, a, b in zip(B2_SUMS, sums, ref_b[1:]):
         assert _rel(a, b) < norm, (name, _rel(a, b))
 
 

@@ -7,7 +7,7 @@ imports neither JAX nor ``flyp_tpu``:
 
 Tolerances are ``chip_smoke.py``'s: fp32 1e-4 and bf16 2e-2 on outputs,
 B2's dx 5e-2 in bf16, and the relative norm of the sums over rows (dWqkv,
-dbqkv, dscale, dbias) 1e-5 in fp32 and 1e-2 in bf16.
+dbqkv, dscale, dbias, dWout, dbout) 1e-5 in fp32 and 1e-2 in bf16.
 """
 
 import pytest
@@ -64,14 +64,16 @@ def test_shard_kernels_match_plain_and_sum_to_the_whole(card, dtype, causal, n):
     """Two shards of 6 heads (Dv = 384 of D = 768), or four of 3 (Dv = 192,
     the GEMMs' 64-column tiles): B3 and B1 in ``partial`` mode and B2 with
     ``add_g=False`` against their plain versions, and their sums (plus x +
-    bout, or g) against the unsharded kernels."""
+    bout, or g) against the unsharded kernels.  Each shard's dWout is its
+    heads' rows of the whole one, and its dbout the whole one, bit for
+    bit."""
     B, L, D, H = 4, 197, 768, 12
     args, g = _inputs(B, L, D, dtype, seed=3 + causal)
     x, s, b, wqkv, _, wout, bout = args
     with torch.no_grad():
         whole3 = tab._fwd_kernel_call(*args, H, causal, train=False)
         whole1 = tab._fwd_kernel_call(*args, H, causal, train=True)
-        whole2 = tab._bwd_kernel_call(g, x, s, b, wqkv, wout, *whole1[2:], H, causal)
+        whole2 = tab._bwd_kernel_call(g, x, s, b, wqkv, wout, *whole1[1:], H, causal)
         p3, p1, p2 = [], [], []
         for i in range(n):
             sa = _shard(args, n, i)
@@ -81,11 +83,16 @@ def test_shard_kernels_match_plain_and_sum_to_the_whole(card, dtype, causal, n):
             ref1 = tab.attention_block_reference(*sa, H // n, causal, partial=True)
             for got, want in zip(p1[-1][:5], ref1[:5]):
                 _close(got, want, TOL[dtype])
-            p2.append(tab._bwd_kernel_call(g, x, s, b, sa[3], sa[5], *p1[-1][2:], H // n, causal, add_g=False))
+            p2.append(tab._bwd_kernel_call(g, x, s, b, sa[3], sa[5], *p1[-1][1:], H // n, causal, add_g=False))
             ref2 = tab.attention_block_backward_reference(g, x, s, b, sa[3], sa[5], *p1[-1][1:], H // n, causal,
                                                           add_g=False)
             _close(p2[-1][0], ref2[0], DX_TOL[dtype])
-            assert max(_rel(a, r) for a, r in zip(p2[-1][1:], ref2[1:5])) <= NORM_TOL[dtype]
+            assert len(p2[-1]) == len(ref2) == 7
+            assert max(_rel(a, r) for a, r in zip(p2[-1][1:], ref2[1:])) <= NORM_TOL[dtype]
+            dv = D // n
+            assert p2[-1][5].shape == (dv, D)
+            assert _rel(p2[-1][5], whole2[5][i * dv:(i + 1) * dv]) <= NORM_TOL[dtype]
+            assert torch.equal(p2[-1][6], whole2[6])
         _close(((x.float() + sum(p3)) + bout.float()).to(dtype), whole3, TOL[dtype])
         _close(((x.float() + sum(r[0] for r in p1)) + bout.float()).to(dtype), whole1[0], TOL[dtype])
         _close((g.float() + sum(r[0].float() for r in p2)).to(dtype), whole2[0], DX_TOL[dtype])
