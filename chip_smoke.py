@@ -250,6 +250,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -314,17 +315,19 @@ BOTH = (torch.float32, torch.bfloat16)
 # (B, L, D, H, causal, dtypes).  The training main path runs B1 and B2 at
 # batch 256 in bf16 on vision L=197 and on text L=32 (captions of 6-20
 # tokens after shrink_context); the B=64 rows add fp32 and L=77, the B=8
-# rows ViT-L/14 at 224 px (L=257) and 336 px (L=577), D=1024.
+# rows ViT-L/14 at 224 px (L=257) and 336 px (L=577), D=1024, and the last
+# row ViT-H/14's vision tower at its training batch (heads of 80, bf16 only).
 VIT_L_SHAPES = [(8, 257, 1024, 16, False, BOTH), (8, 577, 1024, 16, False, (torch.bfloat16,))]
+VIT_H_SHAPES = [(256, 257, 1280, 16, False, (torch.bfloat16,))]
 TRAIN_SHAPES = [(64, 197, 768, 12, False, BOTH), (64, 32, 512, 8, True, BOTH), (64, 77, 512, 8, True, BOTH),
                 (256, 197, 768, 12, False, (torch.bfloat16,)), (256, 32, 512, 8, True, (torch.bfloat16,)),
-                *VIT_L_SHAPES]
+                *VIT_L_SHAPES, *VIT_H_SHAPES]
 # The serving main path runs B3 at buckets up to 256 images (vision L=197)
 # and on text chunks (L=16 after shrink_context); the zero-shot probe of
 # phase 8 on text chunks of 2048 and 1856 prompts (L=16).
 INFER_SHAPES = [(64, 197, 768, 12, False, BOTH), (64, 16, 512, 8, True, BOTH), (64, 77, 512, 8, True, BOTH),
                 (256, 197, 768, 12, False, (torch.bfloat16,)), (2048, 16, 512, 8, True, (torch.bfloat16,)),
-                (1856, 16, 512, 8, True, (torch.bfloat16,)), *VIT_L_SHAPES]
+                (1856, 16, 512, 8, True, (torch.bfloat16,)), *VIT_L_SHAPES, *VIT_H_SHAPES]
 MAIN_SHAPE = (256, 197, "bfloat16")  # the kernels line reports each kernel at the main path's vision shape
 
 
@@ -430,6 +433,7 @@ def phase_kernels(peaks) -> list:
     cases = []
     for B, L, D, H, causal, dtypes in INFER_SHAPES:
         for dtype in dtypes:
+            before = head_dim_launches()
             args = block_inputs(B, L, D, dtype, seed=L)
             with torch.inference_mode():
                 out = ab.attention_block_inference(*args, H, causal)
@@ -443,6 +447,7 @@ def phase_kernels(peaks) -> list:
             case = dict(B=B, L=L, D=D, H=H, causal=causal, dtype=str(dtype).split(".")[-1],
                         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, composite_ms=composite_ms,
                         bound_ms=bound_ms, bound_by=bound_by)
+            case["launches_by_head_dim"] = expect_head_dim("B3", before, D // H, (B, L, D, H, causal, str(dtype)))
             if L == STEP_L:
                 with torch.inference_mode():
                     case["attention_ms"] = kernel_ms(lambda: ab.attention_block_inference(*args, H, causal),
@@ -485,8 +490,9 @@ def check_close(name, got, ref, tol, where, rtol=None) -> float:
 
 
 def plain_lse(q, k, heads, causal):
-    """fp32 log-sum-exp [B, L, H] of the scores T(q * scale) k^T, plain."""
-    qs = (q.float() * _HEAD_DIM ** -0.5).to(q.dtype)
+    """fp32 log-sum-exp [B, L, H] of the scores T(q * scale) k^T, plain
+    (scale = head_dim ** -0.5)."""
+    qs = (q.float() * (q.shape[-1] // heads) ** -0.5).to(q.dtype)
     return torch.logsumexp(ab._scores(qs, k, heads, causal), dim=-1).transpose(1, 2)
 
 
@@ -496,6 +502,7 @@ def phase_train_kernels(peaks):
     for B, L, D, H, causal, dtypes in TRAIN_SHAPES:
         for dtype in dtypes:
             where = (B, L, D, H, causal, str(dtype))
+            before = head_dim_launches()
             args = block_inputs(B, L, D, dtype, seed=L + 1)
             x, ln_s, ln_b, wqkv, bqkv, wout, bout = args
             g = torch.randn(B, L, D, generator=torch.Generator().manual_seed(L)).cuda().to(dtype)
@@ -543,6 +550,7 @@ def phase_train_kernels(peaks):
                                   plain_ms=bwd_plain_ms, composite_ms=bwd_comp_ms, bound_ms=b_bound, bound_by=b_by))
             if L > 256 and dtype == torch.bfloat16:
                 fwd_cases[-1]["edge_key"] = edge_key_block_check(B, L, D, H, where)
+            fwd_cases[-1]["launches_by_head_dim"] = expect_head_dim("B1 and B2", before, D // H, where)
             if L == STEP_L:
                 sdpa_f, sdpa_b = attention_yardstick_ms(B, L, D, H, causal, dtype)
                 with torch.no_grad():
@@ -844,6 +852,30 @@ def counts() -> dict:
 def reset_counts():
     for op, attr in COUNTERS.values():
         setattr(op, attr, 0)
+    for op, attr in HEAD_DIM_COUNTERS:
+        setattr(op, attr, dict.fromkeys(getattr(op, attr), 0))
+
+
+# B3's, B1's and B2's launches by head width (64, or 80 on the streamed route).
+HEAD_DIM_COUNTERS = ((ab.attention_block_inference, "launches_by_head_dim"),
+                     (ab.attention_block, "fwd_launches_by_head_dim"),
+                     (ab.attention_block, "bwd_launches_by_head_dim"))
+
+
+def head_dim_launches() -> collections.Counter:
+    """B1-B3's launches so far, by head width."""
+    total = collections.Counter()
+    for op, attr in HEAD_DIM_COUNTERS:
+        total.update(getattr(op, attr))
+    return total
+
+
+def expect_head_dim(name: str, before: collections.Counter, head_dim: int, where) -> dict:
+    """The launches since ``before`` ({head width: count}), all at ``head_dim``."""
+    ran = head_dim_launches() - before
+    if set(ran) != {head_dim}:
+        raise AssertionError(f"{name} at {where}: launches by head width {dict(ran)}, expected all at {head_dim}")
+    return dict(ran)
 
 
 def expect_counts(where: str, **expected):
@@ -2554,7 +2586,7 @@ def edge_key_block_check(B, L, D, H, where) -> dict:
     from flyp_tpu_torch.testing import edge_key_block_inputs
 
     dt = torch.bfloat16
-    arrays, cot = edge_key_block_inputs(B, L, D, seed=L + 5)
+    arrays, cot = edge_key_block_inputs(B, L, D, seed=L + 5, head_dim=D // H)
     args = [torch.from_numpy(a).cuda() for a in arrays]
     args[0] = args[0].to(dt)
     x, ln_s, ln_b, wqkv, _, wout, _ = args

@@ -1,12 +1,13 @@
-// Whole-row softmax attention over 64-wide heads, forward and backward: the
+// Whole-row softmax attention over heads 64 wide (80 on the streamed route,
+// below), forward and backward: the
 // one set of templates behind the attention-block kernels (attention_block.cu:
 // B3 and B1; attention_block_bwd.cu: B2) and the attention ops (attention.cu:
 // B5 and B6).
 //
 // q, k and v are read through a batch stride and a row stride (head h at
-// column h * 64) and dq, dk, dv written the same way, so neither the
-// attention block's [3, B*L, D] projection nor the fused [B, L, 3D] one is
-// transposed in device memory; o and do are [B, L, H * 64].  Products
+// column h * hd, hd the head width) and dq, dk, dv written the same way, so
+// neither the attention block's [3, B*L, D] projection nor the fused [B, L,
+// 3D] one is transposed in device memory; o and do are [B, L, H * hd].  Products
 // accumulate in fp32.  The compute type T (float or bfloat16) rounds where
 // the TPU kernels round, in one of two schemes picked at compile time by
 // kScaleQ:
@@ -120,6 +121,25 @@
 // three in pass (b) (the launch bounds cap registers for that).  Each pass
 // recomputes p, so nothing of size L^2 reaches device memory.
 //
+// Heads of 80 (kWideHeadDim: ViT-H/14's D = 1,280 in 16 heads) run the
+// same three kernels at HD = 80, the head width being a template argument
+// of them and of what they use: the tile layout (HeadTile: rows of 176 B,
+// an odd number of 16-byte pieces as 144 B is, so ldmatrix stays
+// conflict-free), the ring slots, the fragment arrays (five k-steps of
+// q k^T, ten 8-column tiles of o, dq, dk, dv) and shared memory.  Only the
+// attention block's bf16 rows of 257-1,024 keys take them
+// (attention_block.cu, attention_block_bwd.cu); every other route stays at
+// 64, and the HD = 64 instantiations compile to what they were (registers
+// above).  ptxas -v (sm_90a, no spills) at HD = 80: forward 142 registers
+// (B3), 139 (B1); pass (a) 147; pass (b) 218.  Pass (b) keeps its 16 keys'
+// k and v fragments and dk, dv in registers, 40 and 80 a thread, so its
+// launch bounds ask two blocks an SM; the forward's ask three (four at
+// HD = 64), pass (a)'s three.  Shared memory a block: forward 56,320 B,
+// pass (a) 67,584 B, pass (b) 67,584 B + 16 B a row (72,704 B at L = 257).
+// At B = 256, L = 257 the three take 1.23, 1.83 and 1.88 ms against 0.94,
+// 1.42 and 1.28 ms at HD = 64 for 1.25 times the work (PERF.md): pass (b)'s
+// two blocks an SM cost it most.
+//
 // The fp32 route (every L).  One block per (query tile, head, batch item)
 // keeps the tile's scores over its whole key range in fp32 shared memory,
 // so the softmax is normalised before p is used, as on the TPU; products
@@ -161,20 +181,22 @@ struct AttnArgs {
   int s_stride;  // fp32 per score row: the key range in 64s, + 4
 };
 
-inline AttnArgs attn_args(const void* q, const void* k, const void* v, long long in_b, int in_r, int L, int causal) {
+// hd: the head width, kHeadDim but for the streamed route's kWideHeadDim.
+inline AttnArgs attn_args(const void* q, const void* k, const void* v, long long in_b, int in_r, int L, int causal,
+                          int hd = kHeadDim) {
   AttnArgs a{};
   a.q = q; a.k = k; a.v = v;
   a.in_b = in_b; a.in_r = in_r;
   a.L = L; a.causal = causal;
-  a.scale = 1.0f / sqrtf((float)kHeadDim);
+  a.scale = 1.0f / sqrtf((float)hd);
   a.s_stride = ((L + kTile - 1) / kTile) * kTile + 4;  // 16-byte shifted rows: ldmatrix on p, ds conflict-free
   return a;
 }
 
-// The block's (head, batch item) rows of q, k or v.
-template <typename T>
+// The block's (head, batch item) rows of q, k or v, heads HD wide.
+template <typename T, int HD = kHeadDim>
 __device__ __forceinline__ const T* head_rows(const void* p, long long b_stride) {
-  return static_cast<const T*>(p) + (size_t)blockIdx.z * b_stride + (size_t)blockIdx.y * kHeadDim;
+  return static_cast<const T*>(p) + (size_t)blockIdx.z * b_stride + (size_t)blockIdx.y * HD;
 }
 
 // Index in stats ([B, L, H]) of row i of the block's (head, batch item).
@@ -523,28 +545,37 @@ constexpr int kRegKeys = 256;  // the longest key range the register route keeps
 constexpr int kRegRows = 64;   // rows a block owns: four warps of 16
 constexpr int kRegThreads = 128;
 
-// kRows rows (row0.., zeros past L) x 64 bf16 of src (row stride ld) into a
-// [kRows][kStride] tile by cp.async, 16 bytes a copy, from all kRegThreads
-// threads; the caller commits.
-template <int kRows>
+// Row stride, in bf16, of a shared-memory tile of HD-wide head rows: HD +
+// 8, so consecutive rows (144 B at HD 64, 176 B at HD 80) start an odd
+// number of 16-byte pieces apart and ldmatrix's eight row addresses fall in
+// distinct banks.  At HD 64 it is TileLayout<bf16>::kStride.
+template <int HD>
+struct HeadTile {
+  static constexpr int kStride = HD + 8;
+};
+
+// kRows rows (row0.., zeros past L) x HD bf16 of src (row stride ld) into a
+// [kRows][HeadTile<HD>::kStride] tile by cp.async, 16 bytes a copy, from all
+// kRegThreads threads; the caller commits.
+template <int kRows, int HD = kHeadDim>
 __device__ __forceinline__ void cp_async_rows(bf16* dst, const bf16* __restrict__ src, long long ld, int row0,
                                               int L) {
-  constexpr int TS = TileLayout<bf16>::kStride;
+  constexpr int TS = HeadTile<HD>::kStride, P = HD / 8;  // 16-byte pieces a row
 #pragma unroll
-  for (int e = threadIdx.x; e < kRows * 8; e += kRegThreads) {
-    const int r = e / 8, c = (e % 8) * 8, j = row0 + r;
+  for (int e = threadIdx.x; e < kRows * P; e += kRegThreads) {
+    const int r = e / P, c = (e % P) * 8, j = row0 + r;
     cp_async16(&dst[r * TS + c], src + (size_t)(j < L ? j : 0) * ld + c, j < L);
   }
 }
 
 // T(v * scale) in place over the pieces this thread copied with
 // cp_async_rows (visible to it once their group is waited for).
-template <int kRows>
+template <int kRows, int HD = kHeadDim>
 __device__ __forceinline__ void scale_rows(bf16* dst, int row0, int L, float scale) {
-  constexpr int TS = TileLayout<bf16>::kStride;
+  constexpr int TS = HeadTile<HD>::kStride, P = HD / 8;
 #pragma unroll
-  for (int e = threadIdx.x; e < kRows * 8; e += kRegThreads) {
-    const int r = e / 8, c = (e % 8) * 8;
+  for (int e = threadIdx.x; e < kRows * P; e += kRegThreads) {
+    const int r = e / P, c = (e % P) * 8;
     if (row0 + r >= L) continue;
     uint4* piece = reinterpret_cast<uint4*>(&dst[r * TS + c]);
     uint4 u = *piece;
@@ -581,13 +612,14 @@ __device__ __forceinline__ void mma_nt_tile(float (*acc)[4], const bf16* a_tile,
 }
 
 // acc[0], acc[1] (16 x 16) = A times the 16 rows n0.. of a tile held
-// [n][feature], transposed, with A's fragments (a warp's 16 rows x 64
-// features, four k-steps) in registers.
-__device__ __forceinline__ void mma_nt(float (*acc)[4], const uint32_t (&af)[4][4], const bf16* tile, int n0) {
-  constexpr int TS = TileLayout<bf16>::kStride;
+// [n][feature], transposed, with A's fragments (a warp's 16 rows x 16 KS
+// features, KS k-steps) in registers.
+template <int KS>
+__device__ __forceinline__ void mma_nt(float (*acc)[4], const uint32_t (&af)[KS][4], const bf16* tile, int n0) {
+  constexpr int TS = HeadTile<16 * KS>::kStride;
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     uint32_t r[4];
     ldmatrix_x4(r, &tile[(n0 + ldm_row(lane, true)) * TS + ks * 16 + ldm_col(lane, true)]);
     mma_bf16(acc[0], af[ks], r[0], r[1]);
@@ -595,23 +627,26 @@ __device__ __forceinline__ void mma_nt(float (*acc)[4], const uint32_t (&af)[4][
   }
 }
 
-// The A fragments of a warp's 16 rows held [row][feature] at row r0.
-__device__ __forceinline__ void load_a_frags(uint32_t (&af)[4][4], const bf16* tile, int r0) {
-  constexpr int TS = TileLayout<bf16>::kStride;
+// The A fragments of a warp's 16 rows held [row][feature] at row r0, 16 KS
+// features.
+template <int KS>
+__device__ __forceinline__ void load_a_frags(uint32_t (&af)[KS][4], const bf16* tile, int r0) {
+  constexpr int TS = HeadTile<16 * KS>::kStride;
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
+  for (int ks = 0; ks < KS; ++ks) {
     ldmatrix_x4(af[ks], &tile[(r0 + ldm_row(lane, false)) * TS + ks * 16 + ldm_col(lane, false)]);
   }
 }
 
-// acc (16 x 64 features) += A (16 rows x the 16 tile rows k0..) times those
-// tile rows, held [k][feature]: a p v-type product.
-__device__ __forceinline__ void mma_rows_nn(float (&acc)[8][4], const uint32_t (&a)[4], const bf16* tile, int k0) {
-  constexpr int TS = TileLayout<bf16>::kStride;
+// acc (16 x 8 NF features) += A (16 rows x the 16 tile rows k0..) times
+// those tile rows, held [k][feature]: a p v-type product.
+template <int NF>
+__device__ __forceinline__ void mma_rows_nn(float (&acc)[NF][4], const uint32_t (&a)[4], const bf16* tile, int k0) {
+  constexpr int TS = HeadTile<8 * NF>::kStride;
   const int lane = threadIdx.x % 32;
 #pragma unroll
-  for (int np = 0; np < 4; ++np) {
+  for (int np = 0; np < NF / 2; ++np) {
     uint32_t r[4];
     ldmatrix_x4_trans(r, &tile[(k0 + ldm_row(lane, false)) * TS + np * 16 + ldm_col(lane, false)]);
     mma_bf16(acc[2 * np], a, r[0], r[1]);
@@ -1017,9 +1052,23 @@ __global__ void __launch_bounds__(kRegThreads, 2) attention_bwd_k_kernel(const A
 // same 64-row blocks of kRegThreads.
 
 constexpr int kStreamStages = 2;  // ring slots: the next load is in flight while a tile is used
-constexpr int kSlotElems = 2 * kTile * TileLayout<bf16>::kStride;
 
-__device__ __forceinline__ bf16* ring_slot(bf16* ring, int u) { return ring + (u % kStreamStages) * kSlotElems; }
+// The head widths of the streamed route: kHeadDim, and kWideHeadDim (ViT-H/14's
+// 80, 16 heads of 1,280) for the attention block's bf16 rows of more than
+// kRegKeys and at most kWideMaxKeys keys; every other route stays at kHeadDim.
+constexpr int kWideHeadDim = 80;
+constexpr int kWideMaxKeys = 1024;
+
+// Elements of one ring slot: two 64-row tiles of HD-wide rows.
+template <int HD>
+struct StreamSlot {
+  static constexpr int kElems = 2 * kTile * HeadTile<HD>::kStride;
+};
+
+template <int HD>
+__device__ __forceinline__ bf16* ring_slot(bf16* ring, int u) {
+  return ring + (u % kStreamStages) * StreamSlot<HD>::kElems;
+}
 
 // The ring runs a kernel's sequence of n loads in order; issue(u) copies
 // load u's tiles into ring_slot(u) by cp.async (one group a load, an empty
@@ -1052,9 +1101,10 @@ __device__ __forceinline__ void ring_next(const Issue& issue, int u, int n) {
 }
 
 // s (8 x 16 x 8 accumulators: a warp's 16 rows x the 64 keys k0.. of tile
-// kt) = A k^T, scaled unless kScaleQ; 16-key chunks at or past kv_warp stay 0.
-template <bool kScaleQ>
-__device__ __forceinline__ void tile_scores(float (&s)[8][4], const uint32_t (&qa)[4][4], const bf16* kt, int k0,
+// kt) = A k^T over 16 KS features, scaled unless kScaleQ; 16-key chunks at
+// or past kv_warp stay 0.
+template <bool kScaleQ, int KS>
+__device__ __forceinline__ void tile_scores(float (&s)[8][4], const uint32_t (&qa)[KS][4], const bf16* kt, int k0,
                                             int kv_warp, float scale) {
 #pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -1108,33 +1158,34 @@ __device__ __forceinline__ void fold_stats(const float (&s)[8][4], const int (&v
 // streams k and v, recomputes s, and accumulates o += T(p) v with p = exp(s
 // - m) / l normalised in fp32 before its cast (kTrain: e = exp(s - m), its
 // sum l taken here, and o = (T(e) v) / l at the end, with lse = m + log l).
-template <bool kScaleQ, bool kTrain>
-__global__ void __launch_bounds__(kRegThreads, 4) attention_fwd_stream_kernel(const AttnArgs a) {
-  constexpr int TS = TileLayout<bf16>::kStride;
+template <bool kScaleQ, bool kTrain, int HD>
+__global__ void __launch_bounds__(kRegThreads, HD == kHeadDim ? 4 : 3)
+    attention_fwd_stream_kernel(const AttnArgs a) {
+  constexpr int TS = HeadTile<HD>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][TS]
   bf16* ring = Qs + kRegRows * TS;               // slots of [k; v]
 
-  const int L = a.L, D = gridDim.y * kHeadDim, q0 = blockIdx.x * kRegRows;
+  const int L = a.L, D = gridDim.y * HD, q0 = blockIdx.x * kRegRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wr = warp * 16;
-  const bf16* K = head_rows<bf16>(a.k, a.in_b);
-  const bf16* V = head_rows<bf16>(a.v, a.in_b);
+  const bf16* K = head_rows<bf16, HD>(a.k, a.in_b);
+  const bf16* V = head_rows<bf16, HD>(a.v, a.in_b);
   const int n = ((a.causal ? min(q0 + kRegRows, L) : L) + kTile - 1) / kTile;  // key tiles
   // Loads 0..n-1: k tile u (sweep 1); n..2n-1: k and v tile u - n (sweep 2).
   auto issue = [&](int u) {
-    bf16* slot = ring_slot(ring, u);
+    bf16* slot = ring_slot<HD>(ring, u);
     const int k0 = (u < n ? u : u - n) * kTile;
-    cp_async_rows<kTile>(slot, K, a.in_r, k0, L);
-    if (u >= n) cp_async_rows<kTile>(slot + kTile * TS, V, a.in_r, k0, L);
+    cp_async_rows<kTile, HD>(slot, K, a.in_r, k0, L);
+    if (u >= n) cp_async_rows<kTile, HD>(slot + kTile * TS, V, a.in_r, k0, L);
   };
 
-  cp_async_rows<kRegRows>(Qs, head_rows<bf16>(a.q, a.in_b), a.in_r, q0, L);
+  cp_async_rows<kRegRows, HD>(Qs, head_rows<bf16, HD>(a.q, a.in_b), a.in_r, q0, L);
   cp_async_commit();
   ring_start(issue, 2 * n);
   cp_async_wait(kStreamStages - 1);
-  if (kScaleQ) scale_rows<kRegRows>(Qs, q0, L, a.scale);  // q rounds to T(q * scale)
+  if (kScaleQ) scale_rows<kRegRows, HD>(Qs, q0, L, a.scale);  // q rounds to T(q * scale)
   __syncthreads();
-  uint32_t qa[4][4];
+  uint32_t qa[HD / 16][4];
   load_a_frags(qa, Qs, wr);
 
   // Rows r (lane/4) and r + 8 of the warp's 16; a warp wholly past L skips
@@ -1149,15 +1200,15 @@ __global__ void __launch_bounds__(kRegThreads, 4) attention_fwd_stream_kernel(co
   for (int t = 0; t < n; ++t) {
     ring_next(issue, t, 2 * n);
     float s[8][4];
-    tile_scores<kScaleQ>(s, qa, ring_slot(ring, t), t * kTile, kv_warp, a.scale);
+    tile_scores<kScaleQ>(s, qa, ring_slot<HD>(ring, t), t * kTile, kv_warp, a.scale);
     fold_stats<!kTrain>(s, vis, t * kTile, m, l);
   }
   const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
 
-  float o[8][4] = {}, le[2] = {0.f, 0.f};
+  float o[HD / 8][4] = {}, le[2] = {0.f, 0.f};
   for (int t = 0; t < n; ++t) {
     ring_next(issue, n + t, 2 * n);
-    const bf16* kt = ring_slot(ring, n + t);
+    const bf16* kt = ring_slot<HD>(ring, n + t);
     float s[8][4];
     tile_scores<kScaleQ>(s, qa, kt, t * kTile, kv_warp, a.scale);
 #pragma unroll
@@ -1191,14 +1242,14 @@ __global__ void __launch_bounds__(kRegThreads, 4) attention_fwd_stream_kernel(co
         if (r + 8 * h < L) a.stats[stat_index(r + 8 * h, L)] = m[h] + logf(l[h]);
     }
   }
-  bf16* O = static_cast<bf16*>(a.o) + (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * kHeadDim;
+  bf16* O = static_cast<bf16*>(a.o) + (size_t)blockIdx.z * L * D + (size_t)blockIdx.y * HD;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = r + 8 * h;
     if (i >= L) continue;
     const float rlh = kTrain ? __frcp_rn(l[h]) : 0.f;  // l summed in sweep 2
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < HD / 8; ++nt) {
       float v0 = o[nt][2 * h], v1 = o[nt][2 * h + 1];
       if (kTrain) {
         v0 = div_rn_by(v0, l[h], rlh);
@@ -1215,36 +1266,36 @@ __global__ void __launch_bounds__(kRegThreads, 4) attention_fwd_stream_kernel(co
 // does, written for pass (b); a sweep over k and v sums delta = sum p dp
 // in fp32, with p and dp a 16-key chunk at a time; a last sweep forms ds
 // and dq += T(ds) k.  It writes dq, the statistics and delta.
-template <bool kScaleQ>
+template <bool kScaleQ, int HD>
 __global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_q_stream_kernel(const AttnArgs a) {
-  constexpr int TS = TileLayout<bf16>::kStride;
+  constexpr int TS = HeadTile<HD>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [64][TS]: q, or T(q * scale)
   bf16* dOs = Qs + kRegRows * TS;                // [64][TS]
   bf16* ring = dOs + kRegRows * TS;              // slots of [k; v]
 
-  const int L = a.L, D = gridDim.y * kHeadDim, i0 = blockIdx.x * kRegRows;
+  const int L = a.L, D = gridDim.y * HD, i0 = blockIdx.x * kRegRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wr = warp * 16;
-  const bf16* K = head_rows<bf16>(a.k, a.in_b);
-  const bf16* V = head_rows<bf16>(a.v, a.in_b);
+  const bf16* K = head_rows<bf16, HD>(a.k, a.in_b);
+  const bf16* V = head_rows<bf16, HD>(a.v, a.in_b);
   const int n = ((a.causal ? min(i0 + kRegRows, L) : L) + kTile - 1) / kTile;  // key tiles
   const int n_stats = kScaleQ ? 0 : n, n_loads = n_stats + 2 * n;
   // Loads 0..n_stats-1: k tiles (stats sweep); then k and v tiles, twice.
   auto issue = [&](int u) {
-    bf16* slot = ring_slot(ring, u);
+    bf16* slot = ring_slot<HD>(ring, u);
     const int k0 = (u < n_stats ? u : (u - n_stats) % n) * kTile;
-    cp_async_rows<kTile>(slot, K, a.in_r, k0, L);
-    if (u >= n_stats) cp_async_rows<kTile>(slot + kTile * TS, V, a.in_r, k0, L);
+    cp_async_rows<kTile, HD>(slot, K, a.in_r, k0, L);
+    if (u >= n_stats) cp_async_rows<kTile, HD>(slot + kTile * TS, V, a.in_r, k0, L);
   };
 
-  cp_async_rows<kRegRows>(Qs, head_rows<bf16>(a.q, a.in_b), a.in_r, i0, L);
-  cp_async_rows<kRegRows>(dOs, head_rows<bf16>(a.dout, (long long)L * D), D, i0, L);
+  cp_async_rows<kRegRows, HD>(Qs, head_rows<bf16, HD>(a.q, a.in_b), a.in_r, i0, L);
+  cp_async_rows<kRegRows, HD>(dOs, head_rows<bf16, HD>(a.dout, (long long)L * D), D, i0, L);
   cp_async_commit();
   ring_start(issue, n_loads);
   cp_async_wait(kStreamStages - 1);
-  if (kScaleQ) scale_rows<kRegRows>(Qs, i0, L, a.scale);
+  if (kScaleQ) scale_rows<kRegRows, HD>(Qs, i0, L, a.scale);
   __syncthreads();
-  uint32_t qa[4][4], da[4][4];
+  uint32_t qa[HD / 16][4], da[HD / 16][4];
   load_a_frags(qa, Qs, wr);
   load_a_frags(da, dOs, wr);
 
@@ -1263,7 +1314,7 @@ __global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_q_stream_kernel(
     for (int t = 0; t < n; ++t) {
       ring_next(issue, t, n_loads);
       float s[8][4];
-      tile_scores<false>(s, qa, ring_slot(ring, t), t * kTile, kv_warp, a.scale);
+      tile_scores<false>(s, qa, ring_slot<HD>(ring, t), t * kTile, kv_warp, a.scale);
       fold_stats<true>(s, vis, t * kTile, m, l);
     }
     if (lane % 4 == 0) {
@@ -1299,7 +1350,7 @@ __global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_q_stream_kernel(
   for (int t = 0; t < n; ++t) {
     const int u = n_stats + t;
     ring_next(issue, u, n_loads);
-    const bf16* kt = ring_slot(ring, u);
+    const bf16* kt = ring_slot<HD>(ring, u);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int key0 = t * kTile + 16 * c;
@@ -1320,11 +1371,11 @@ __global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_q_stream_kernel(
       if (r + 8 * h < L) a.delta[stat_index(r + 8 * h, L)] = delta[h];
   }
 
-  float dq[8][4] = {};
+  float dq[HD / 8][4] = {};
   for (int t = 0; t < n; ++t) {
     const int u = n_stats + n + t;
     ring_next(issue, u, n_loads);
-    const bf16* kt = ring_slot(ring, u);
+    const bf16* kt = ring_slot<HD>(ring, u);
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int key0 = t * kTile + 16 * c;
@@ -1344,13 +1395,13 @@ __global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_q_stream_kernel(
     }
   }
 
-  bf16* dQ = static_cast<bf16*>(a.dq) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * kHeadDim;
+  bf16* dQ = static_cast<bf16*>(a.dq) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * HD;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int i = r + 8 * h;
     if (i >= L) continue;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < HD / 8; ++nt) {
       float v0 = dq[nt][2 * h], v1 = dq[nt][2 * h + 1];
       if (kScaleQ) {
         v0 = __fmul_rn(v0, a.scale);
@@ -1368,31 +1419,32 @@ __global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_q_stream_kernel(
 // memory, read once at the start.  Per 16 query rows: s^T = k q^T, dp^T =
 // v do^T, p^T, ds^T, dv += T(p)^T do and dk += T(ds)^T q, as on the
 // register route.
-template <bool kScaleQ>
-__global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_k_stream_kernel(const AttnArgs a) {
-  constexpr int TS = TileLayout<bf16>::kStride;
+template <bool kScaleQ, int HD>
+__global__ void __launch_bounds__(kRegThreads, HD == kHeadDim ? 3 : 2)
+    attention_bwd_k_stream_kernel(const AttnArgs a) {
+  constexpr int TS = HeadTile<HD>::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // [64][TS]
   bf16* Vs = Ks + kRegRows * TS;                 // [64][TS]
   bf16* ring = Vs + kRegRows * TS;               // slots of [q, or T(q * scale); do]
   // Per query row: (lse, -, -, delta) with kScaleQ, else (m, l, 1 / l, delta).
-  float4* row_st = reinterpret_cast<float4*>(ring + kStreamStages * kSlotElems);
+  float4* row_st = reinterpret_cast<float4*>(ring + kStreamStages * StreamSlot<HD>::kElems);
 
-  const int L = a.L, D = gridDim.y * kHeadDim, j0 = blockIdx.x * kRegRows;
+  const int L = a.L, D = gridDim.y * HD, j0 = blockIdx.x * kRegRows;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wr = warp * 16;
-  const bf16* Q = head_rows<bf16>(a.q, a.in_b);
-  const bf16* dO = head_rows<bf16>(a.dout, (long long)L * D);
+  const bf16* Q = head_rows<bf16, HD>(a.q, a.in_b);
+  const bf16* dO = head_rows<bf16, HD>(a.dout, (long long)L * D);
   const int first = a.causal ? (int)blockIdx.x : 0;  // the first query tile that sees these keys
   const int n = (L + kTile - 1) / kTile - first;     // query tiles
   auto issue = [&](int u) {
-    bf16* slot = ring_slot(ring, u);
+    bf16* slot = ring_slot<HD>(ring, u);
     const int i0 = (first + u) * kTile;
-    cp_async_rows<kTile>(slot, Q, a.in_r, i0, L);
-    cp_async_rows<kTile>(slot + kTile * TS, dO, D, i0, L);
+    cp_async_rows<kTile, HD>(slot, Q, a.in_r, i0, L);
+    cp_async_rows<kTile, HD>(slot + kTile * TS, dO, D, i0, L);
   };
 
-  cp_async_rows<kRegRows>(Ks, head_rows<bf16>(a.k, a.in_b), a.in_r, j0, L);
-  cp_async_rows<kRegRows>(Vs, head_rows<bf16>(a.v, a.in_b), a.in_r, j0, L);
+  cp_async_rows<kRegRows, HD>(Ks, head_rows<bf16, HD>(a.k, a.in_b), a.in_r, j0, L);
+  cp_async_rows<kRegRows, HD>(Vs, head_rows<bf16, HD>(a.v, a.in_b), a.in_r, j0, L);
   cp_async_commit();
   ring_start(issue, n);
   for (int i = first * kTile + threadIdx.x; i < (first + n) * kTile; i += kRegThreads) {
@@ -1414,15 +1466,15 @@ __global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_k_stream_kernel(
 
   const int jw = j0 + wr;       // the warp's first key
   const int j = jw + lane / 4;  // keys j (accumulator rows lane/4) and j + 8
-  uint32_t ka[4][4], va[4][4];
+  uint32_t ka[HD / 16][4], va[HD / 16][4];
   load_a_frags(ka, Ks, wr);
   load_a_frags(va, Vs, wr);
-  float dk[8][4] = {}, dv[8][4] = {};
+  float dk[HD / 8][4] = {}, dv[HD / 8][4] = {};
   for (int u = 0; u < n; ++u) {
     const int t = first + u;
-    bf16* qt = ring_slot(ring, u);
+    bf16* qt = ring_slot<HD>(ring, u);
     ring_next(issue, u, n, [&](int) {
-      if (kScaleQ) scale_rows<kTile>(qt, t * kTile, L, a.scale);  // the pieces this thread copied
+      if (kScaleQ) scale_rows<kTile, HD>(qt, t * kTile, L, a.scale);  // the pieces this thread copied
     });
     if (jw >= L) continue;
     const bf16* dot = qt + kTile * TS;
@@ -1457,14 +1509,14 @@ __global__ void __launch_bounds__(kRegThreads, 3) attention_bwd_k_stream_kernel(
     }
   }
 
-  bf16* dK = static_cast<bf16*>(a.dk) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * kHeadDim;
-  bf16* dV = static_cast<bf16*>(a.dv) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * kHeadDim;
+  bf16* dK = static_cast<bf16*>(a.dk) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * HD;
+  bf16* dV = static_cast<bf16*>(a.dv) + (size_t)blockIdx.z * a.out_b + (size_t)blockIdx.y * HD;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int jj = j + 8 * h;
     if (jj >= L) continue;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < HD / 8; ++nt) {
       const size_t off = (size_t)jj * a.out_r + nt * 8 + (lane % 4) * 2;
       *reinterpret_cast<bf162*>(dK + off) = __floats2bfloat162_rn(dk[nt][2 * h], dk[nt][2 * h + 1]);
       *reinterpret_cast<bf162*>(dV + off) = __floats2bfloat162_rn(dv[nt][2 * h], dv[nt][2 * h + 1]);
@@ -1531,45 +1583,65 @@ cudaError_t attention_bwd_k_regs(const AttnArgs& a, int B, int H, cudaStream_t s
 }
 #undef FLYP_REG_LAUNCH
 
-// Bytes of the streamed route's shared memory: `own` 64-row tiles and the
-// ring.
+// Bytes of the streamed route's shared memory at head width HD: `own`
+// 64-row tiles and the ring.
+template <int HD>
 inline size_t stream_smem(int own) {
-  return ((size_t)own * kRegRows * TileLayout<bf16>::kStride + (size_t)kStreamStages * kSlotElems) * sizeof(bf16);
+  return ((size_t)own * kRegRows * HeadTile<HD>::kStride + (size_t)kStreamStages * StreamSlot<HD>::kElems) *
+         sizeof(bf16);
 }
 
-// The forward: a.o, and with kTrain lse into a.stats.
-template <typename T, bool kScaleQ, bool kTrain>
+// Whether the streamed route takes rows of L keys at head width HD: any row
+// past the register route's at kHeadDim, kWideHeadDim's rows up to
+// kWideMaxKeys.
+template <int HD>
+inline bool stream_rows(int L) {
+  return L > kRegKeys && (HD == kHeadDim || L <= kWideMaxKeys);
+}
+
+// The forward: a.o, and with kTrain lse into a.stats.  HD is kHeadDim on
+// every route, or kWideHeadDim in bf16 on the streamed one.
+template <typename T, bool kScaleQ, bool kTrain, int HD = kHeadDim>
 cudaError_t attention_forward(const AttnArgs& a, int B, int H, cudaStream_t st) {
+  static_assert(HD == kHeadDim || (HD == kWideHeadDim && sizeof(T) == 2), "kWideHeadDim runs bf16 rows only");
   if constexpr (sizeof(T) == 4) {
     const size_t smem = ((size_t)(kFmaQT + kTile) * kRow + (size_t)kFmaQT * a.s_stride) * sizeof(float);
     if (!fits_block(smem, kFmaQT)) return cudaErrorInvalidValue;
     return launch_attention_kernel(attention_fma_kernel<kScaleQ, kTrain>, kFmaQT, kFmaThreads, smem, a, B, H, st);
   } else {
-    if (a.L <= kRegKeys) return attention_forward_regs<kScaleQ, kTrain>(a, B, H, st);
-    return launch_attention_kernel(attention_fwd_stream_kernel<kScaleQ, kTrain>, kRegRows, kRegThreads,
-                                   stream_smem(1), a, B, H, st);
+    if constexpr (HD == kHeadDim) {
+      if (a.L <= kRegKeys) return attention_forward_regs<kScaleQ, kTrain>(a, B, H, st);
+    }
+    if (!stream_rows<HD>(a.L)) return cudaErrorInvalidValue;
+    return launch_attention_kernel(attention_fwd_stream_kernel<kScaleQ, kTrain, HD>, kRegRows, kRegThreads,
+                                   stream_smem<HD>(1), a, B, H, st);
   }
 }
 
 // The backward, pass (a) then pass (b): a.dq, a.dk, a.dv; pass (a) also
-// writes a.delta (and, unless kScaleQ, the (m, l) pairs into a.stats).
-template <typename T, bool kScaleQ>
+// writes a.delta (and, unless kScaleQ, the (m, l) pairs into a.stats).  HD
+// as in attention_forward.
+template <typename T, bool kScaleQ, int HD = kHeadDim>
 cudaError_t attention_backward(const AttnArgs& a, int B, int H, cudaStream_t st) {
+  static_assert(HD == kHeadDim || (HD == kWideHeadDim && sizeof(T) == 2), "kWideHeadDim runs bf16 rows only");
   cudaError_t err;
   if constexpr (sizeof(T) == 2) {
-    if (a.L <= kRegKeys) {
-      err = attention_bwd_q_regs<kScaleQ>(a, B, H, st);
-      if (err != cudaSuccess) return err;
-      return attention_bwd_k_regs<kScaleQ>(a, B, H, st);
+    if constexpr (HD == kHeadDim) {
+      if (a.L <= kRegKeys) {
+        err = attention_bwd_q_regs<kScaleQ>(a, B, H, st);
+        if (err != cudaSuccess) return err;
+        return attention_bwd_k_regs<kScaleQ>(a, B, H, st);
+      }
     }
-    err = launch_attention_kernel(attention_bwd_q_stream_kernel<kScaleQ>, kRegRows, kRegThreads, stream_smem(2), a,
-                                  B, H, st);
+    if (!stream_rows<HD>(a.L)) return cudaErrorInvalidValue;
+    err = launch_attention_kernel(attention_bwd_q_stream_kernel<kScaleQ, HD>, kRegRows, kRegThreads,
+                                  stream_smem<HD>(2), a, B, H, st);
     if (err != cudaSuccess) return err;
     const size_t rows = (size_t)(a.L + kTile - 1) / kTile * kTile;  // pass (b)'s row statistics
-    const size_t smem = stream_smem(2) + rows * sizeof(float4);
+    const size_t smem = stream_smem<HD>(2) + rows * sizeof(float4);
     if (!fits_block(smem, 0)) return cudaErrorInvalidValue;
-    return launch_attention_kernel(attention_bwd_k_stream_kernel<kScaleQ>, kRegRows, kRegThreads, smem, a, B, H,
-                                   st);
+    return launch_attention_kernel(attention_bwd_k_stream_kernel<kScaleQ, HD>, kRegRows, kRegThreads, smem, a, B,
+                                   H, st);
   } else {
     constexpr int TS = TileLayout<float>::kStride;
     auto dq_smem = [&](int qt) {

@@ -61,6 +61,12 @@
 // ends the QKV product's columns in 64-wide tiles (gemm_sm90.cuh), and the
 // fp32 FMA GEMM masks the columns of its last tile.  D stays a multiple of
 // 128.
+//
+// The head width is 64 (kHeadDim) but for one case: the whole block (no
+// shard) in bf16 with heads of 80 (kWideHeadDim: ViT-H/14's D = 1,280 in 16
+// heads) over rows of 257-1,024 keys, which attention.cuh's streamed route
+// runs at that width (attention_fwd_stream_kernel<true, kTrain, 80>).  The
+// projections do not see the head width.
 
 #include "attention.cuh"
 #include "gemm_sm90.cuh"
@@ -112,8 +118,9 @@ cudaError_t out_gemm_partial(const bf16* o, const bf16* wout, float* out, int M,
 
 // lse == nullptr: the inference forward; otherwise the training forward.
 // y: [B, L, D] scratch of the compute type; qkv [3, B, L, Dv], o [B, L, Dv].
-// partial: out is fp32 [B, L, D], o @ Wout alone.
-template <typename T>
+// partial: out is fp32 [B, L, D], o @ Wout alone.  HD: the head width,
+// Dv / H.
+template <typename T, int HD = kHeadDim>
 cudaError_t run(const T* x, const float* g, const float* beta, const T* wqkv, const float* bqkv, const T* wout,
                 const float* bout, void* out, T* qkv, T* o, T* y, float* lse, int B, int L, int D, int Dv, int H,
                 int causal, int partial, cudaStream_t stream) {
@@ -123,11 +130,11 @@ cudaError_t run(const T* x, const float* g, const float* beta, const T* wqkv, co
   err = qkv_gemm(y, wqkv, bqkv, qkv, M, D, Dv, stream);
   if (err != cudaSuccess) return err;
   const size_t MDv = (size_t)M * Dv;
-  AttnArgs a = attn_args(qkv, qkv + MDv, qkv + 2 * MDv, (long long)L * Dv, Dv, L, causal);
+  AttnArgs a = attn_args(qkv, qkv + MDv, qkv + 2 * MDv, (long long)L * Dv, Dv, L, causal, HD);
   a.o = o;
   a.stats = lse;
-  err = lse != nullptr ? attention_forward<T, true, true>(a, B, H, stream)
-                       : attention_forward<T, true, false>(a, B, H, stream);
+  err = lse != nullptr ? attention_forward<T, true, true, HD>(a, B, H, stream)
+                       : attention_forward<T, true, false, HD>(a, B, H, stream);
   if (err != cudaSuccess) return err;
   if (partial) return out_gemm_partial(o, wout, static_cast<float*>(out), M, D, Dv, stream);
   return out_gemm(o, wout, bout, x, static_cast<T*>(out), M, D, Dv, stream);
@@ -136,12 +143,21 @@ cudaError_t run(const T* x, const float* g, const float* beta, const T* wqkv, co
 int launch(const void* x, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* bqkv,
            const void* wout, const void* bout, void* out, void* qkv, void* o, void* y, float* lse, int B, int L,
            int D, int Dv, int H, int causal, int partial, int dtype, void* stream) {
-  if (Dv != H * kHeadDim || D % kBN != 0 || Dv > D) return (int)cudaErrorInvalidValue;
+  if (H < 1 || Dv % H != 0 || D % kBN != 0 || Dv > D) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(ln_scale);
   const float* beta = static_cast<const float*>(ln_bias);
   const float* bq = static_cast<const float*>(bqkv);
   const float* bo = static_cast<const float*>(bout);
+  const int hd = Dv / H;
+  if (hd == kWideHeadDim) {  // the whole block (no head shard) in bf16 on the streamed route
+    if (dtype != 1 || Dv != D || partial || !stream_rows<kWideHeadDim>(L)) return (int)cudaErrorInvalidValue;
+    using T = bf16;
+    return (int)run<T, kWideHeadDim>(static_cast<const T*>(x), g, beta, static_cast<const T*>(wqkv), bq,
+                                     static_cast<const T*>(wout), bo, out, static_cast<T*>(qkv), static_cast<T*>(o),
+                                     static_cast<T*>(y), lse, B, L, D, Dv, H, causal, partial, s);
+  }
+  if (hd != kHeadDim) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
     using T = float;
     return (int)run(static_cast<const T*>(x), g, beta, static_cast<const T*>(wqkv), bq, static_cast<const T*>(wout),

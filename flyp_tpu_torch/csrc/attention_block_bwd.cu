@@ -75,6 +75,13 @@
 // G3's and G4's columns in 64-wide tiles (gemm_sm90.cuh) and dWout's rows in
 // a part of a 128-row tile, and the fp32 FMA GEMM masks the columns of its
 // last tile.
+//
+// Heads are 64 wide but for the whole block in bf16 over rows of 257-1,024
+// keys, whose heads may be 80 wide (attention.cuh's kWideHeadDim, ViT-H/14:
+// D = 1,280 in 16 heads); the GEMMs do not see the head width.  The
+// LayerNorm backward holds a row's columns in registers, 32 a lane up to D
+// = 1,024 and 40 up to D = 1,280 (kWideCols; rows past 1,024 columns only
+// come with heads of 80).
 
 #include "attention.cuh"
 #include "gemm_sm90.cuh"
@@ -86,20 +93,25 @@ using namespace flyp;
 constexpr int kThreads = kRowThreads;  // LN and reduction blocks
 constexpr int kMaxL = 1024;  // the longest rows this backward takes, its attention passes' limit
 
-constexpr int kMaxCols = 32;  // columns per lane: D <= 1024
+// Columns a lane of the LN backward holds: 32 up to D = 1,024, 40 up to D =
+// 1,280 (ViT-H/14's vision tower).  The count is a template argument, so
+// the rows up to 1,024 columns keep their code and their bits.
+constexpr int kCols = 32, kWideCols = 40;
+constexpr int kMaxD = 32 * kWideCols;  // the widest row the backward takes
 
 // dx = T(rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) + g) with
-// dxhat = dY * scale, for rows [blockIdx.x * rows, +rows); one warp per row.
+// dxhat = dY * scale, for rows [blockIdx.x * rows, +rows); one warp per row,
+// D <= 32 kMaxCols.
 // kAddG = false leaves + g out (a head shard's part); a template argument,
 // so the whole block's kernel holds no branch for it.
 // The block's column sums of dY * xhat and dY go to partial[blockIdx.x] as
 // [2, D] (dscale, dbias), summed over the block's warps in a fixed order.
-template <typename T, bool kAddG>
+template <typename T, bool kAddG, int kMaxCols>
 __global__ void __launch_bounds__(kThreads)
 ln_backward_kernel(const T* __restrict__ x, const T* __restrict__ gout, const float* __restrict__ dY,
                    const float* __restrict__ scale, T* __restrict__ dx, float* __restrict__ partial, int M, int D,
                    int rows) {
-  __shared__ float red[2 * 1024];
+  __shared__ float red[2 * 32 * kMaxCols];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int m_end = min(M, ((int)blockIdx.x + 1) * rows);
   float acc_s[kMaxCols], acc_b[kMaxCols];
@@ -279,14 +291,21 @@ struct Bwd {
     // 2. do = T(g @ Wout^T).
     FLYP_CHECK(grad_out_gemm(gout, wout, s.dout, M, D, Dv, st));
 
-    // 3, 4. Attention backward (attention.cuh), pass (a) then pass (b).
-    AttnArgs a = attn_args(q, k, v, (long long)L * Dv, Dv, L, causal);
+    // 3, 4. Attention backward (attention.cuh), pass (a) then pass (b), at
+    // the head width Dv / H.
+    const int hd = Dv / H;
+    AttnArgs a = attn_args(q, k, v, (long long)L * Dv, Dv, L, causal, hd);
     a.dout = s.dout;
     a.stats = const_cast<float*>(lse);  // read only, in the attention block's scheme
     a.delta = s.delta;
     a.dq = s.d; a.dk = s.d + (size_t)M * Dv; a.dv = s.d + 2 * (size_t)M * Dv;
     a.out_b = (long long)L * Dv; a.out_r = Dv;
-    FLYP_CHECK((attention_backward<T, true>(a, B, H, st)));
+    if constexpr (sizeof(T) == 2) {
+      if (hd == kWideHeadDim) FLYP_CHECK((attention_backward<T, true, kWideHeadDim>(a, B, H, st)));
+      else FLYP_CHECK((attention_backward<T, true>(a, B, H, st)));
+    } else {
+      FLYP_CHECK((attention_backward<T, true>(a, B, H, st)));
+    }
 
     // 5. dbqkv[t] = colsum(d_t).
     const int c_rows = 256, c_chunks = (M + c_rows - 1) / c_rows;
@@ -303,12 +322,15 @@ struct Bwd {
 
     // 8. LN backward, then dscale/dbias from the per-block partials.
     const int ln_blocks = (M + ln_rows() - 1) / ln_rows();
-    if (add_g)
-      ln_backward_kernel<T, true><<<ln_blocks, kThreads, 0, st>>>(x, gout, s.dY, ln_scale, dx, s.part_ln, M, D,
-                                                                   ln_rows());
+    if (D > 32 * kCols)  // heads of kWideHeadDim, the whole block: add_g
+      ln_backward_kernel<T, true, kWideCols><<<ln_blocks, kThreads, 0, st>>>(x, gout, s.dY, ln_scale, dx, s.part_ln,
+                                                                             M, D, ln_rows());
+    else if (add_g)
+      ln_backward_kernel<T, true, kCols><<<ln_blocks, kThreads, 0, st>>>(x, gout, s.dY, ln_scale, dx, s.part_ln, M,
+                                                                         D, ln_rows());
     else
-      ln_backward_kernel<T, false><<<ln_blocks, kThreads, 0, st>>>(x, gout, s.dY, ln_scale, dx, s.part_ln, M, D,
-                                                                    ln_rows());
+      ln_backward_kernel<T, false, kCols><<<ln_blocks, kThreads, 0, st>>>(x, gout, s.dY, ln_scale, dx, s.part_ln, M,
+                                                                          D, ln_rows());
     FLYP_CHECK(cudaGetLastError());
     FLYP_CHECK(reduce_partials(s.part_ln, ln_blocks, 2LL * D, dln, st));
 
@@ -325,9 +347,14 @@ struct Bwd {
   }
 };
 
-bool shapes_ok(int L, int D, int Dv, int H) {
-  return Dv == H * kHeadDim && D % kBN == 0 && Dv <= D && D <= 32 * kMaxCols && L >= 1 &&
-         L <= kMaxL;
+// Heads of 64 for any row up to kMaxL keys and D up to 1,024 (a head shard
+// too); heads of kWideHeadDim for the whole block in bf16 on the streamed
+// route's rows (attention.cuh).  Rows past 1,024 columns only at
+// kWideHeadDim, whose one width (ViT-H/14's 1,280) is the reason for them.
+bool shapes_ok(int L, int D, int Dv, int H, int dtype) {
+  if (H < 1 || D % kBN != 0 || Dv > D || L < 1 || L > kMaxL) return false;
+  if (Dv == H * kHeadDim) return D <= 32 * kCols;
+  return Dv == H * kWideHeadDim && Dv == D && D <= kMaxD && dtype == 1 && stream_rows<kWideHeadDim>(L);
 }
 
 template <typename T>
@@ -344,7 +371,7 @@ int run_bwd(const void* x, const void* gout, const void* o, const void* q, const
 }
 
 long long workspace_bytes(int B, int L, int D, int Dv, int H, int dtype) {
-  if (!shapes_ok(L, D, Dv, H)) return -1;
+  if (!shapes_ok(L, D, Dv, H, dtype)) return -1;
   if (dtype == 0) return (long long)Bwd<float>::carve(nullptr, nullptr, B, L, D, Dv, H);
   if (dtype == 1) return (long long)Bwd<bf16>::carve(nullptr, nullptr, B, L, D, Dv, H);
   return -1;
@@ -354,7 +381,8 @@ int launch_bwd(const void* x, const void* gout, const void* o, const void* q, co
                const void* lse, const void* ln_scale, const void* ln_bias, const void* wqkv, const void* wout,
                void* dx, void* dwqkv, void* dbqkv, void* dln, void* dwout, void* dbout, void* workspace, int B, int L,
                int D, int Dv, int H, int causal, int add_g, int dtype, void* stream) {
-  if (!shapes_ok(L, D, Dv, H)) return (int)cudaErrorInvalidValue;
+  // A head shard's part (add_g = 0) keeps heads of 64.
+  if (!shapes_ok(L, D, Dv, H, dtype) || (!add_g && Dv != H * kHeadDim)) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return run_bwd<float>(x, gout, o, q, k, v, lse, ln_scale, ln_bias, wqkv, wout, dx, dwqkv, dbqkv, dln, dwout,
                           dbout, workspace, B, L, D, Dv, H, causal, add_g, stream);

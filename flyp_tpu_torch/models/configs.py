@@ -87,6 +87,9 @@ MODEL_CONFIGS = {
     "ViT-B/16": _vit(512, 224, 16, 768, 12, 12, 512, 8, 12),
     "ViT-L/14": _vit(768, 224, 14, 1024, 24, 16, 768, 12, 12),
     "ViT-L/14@336px": _vit(768, 336, 14, 1024, 24, 16, 768, 12, 12),
+    # open_clip's ViT-H-14-quickgelu (model_configs/ViT-H-14-quickgelu.json):
+    # the image tower's head_width is 80, 16 heads of 1280; DFN5B's weights.
+    "ViT-H/14": _vit(1024, 224, 14, 1280, 32, 16, 1024, 16, 24),
     "RN50": _resnet(1024, 224, 64, (3, 4, 6, 3), 512, 8, 12),
     "RN101": _resnet(512, 224, 64, (3, 4, 23, 3), 512, 8, 12),
     "RN50x4": _resnet(640, 288, 80, (4, 6, 10, 6), 640, 10, 12),
@@ -99,11 +102,15 @@ def resolve_model_name(name: str) -> tuple[str, str]:
     """Map a CLI model name to (config key, weight source).
 
     Dash-spelled ViT names ("ViT-B-16", "ViT-L-14") select open_clip
-    LAION-400M weights; everything else selects OpenAI weights, matching the
+    LAION-400M weights; "ViT-H-14-quickgelu" selects Apple's DFN5B weights
+    (Data Filtering Networks, arXiv:2309.17425) for open_clip's QuickGELU
+    ViT-H/14; everything else selects OpenAI weights, matching the
     reference's spelling convention.
     """
     if name in ("ViT-B-16", "ViT-L-14", "ViT-B-32"):
         return name.replace("ViT-B-", "ViT-B/").replace("ViT-L-", "ViT-L/"), "openclip_laion400m"
+    if name == "ViT-H-14-quickgelu":
+        return "ViT-H/14", "dfn5b"
     if name in MODEL_CONFIGS:
         return name, "openai"
     raise ValueError(f"Unknown model {name!r}; known: {sorted(MODEL_CONFIGS)} and dash-spelled open_clip variants")

@@ -122,8 +122,23 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in state.items() if isinstance(v, torch.Tensor)}
 
 
+# Head widths of the ViT image towers the port runs whose heads are not 64
+# wide, by tower width (open_clip's ViT-H-14 ``head_width`` 80).  A state
+# dict holds no head count, so the width decides it; every other tower's
+# heads are 64 wide.
+_VISION_HEAD_WIDTHS = {1280: 80}
+
+
+def vision_heads(width: int) -> int:
+    """Heads of a ViT image tower ``width`` wide (its published head width)."""
+    return width // _VISION_HEAD_WIDTHS.get(width, 64)
+
+
 def sniff_config(state: Mapping[str, Any]) -> CLIPConfig:
-    """Infer the architecture from OpenAI-layout state-dict shapes."""
+    """Infer the architecture from OpenAI-layout state-dict shapes; a ViT
+    image tower's head count from its published head width
+    (:func:`vision_heads`).  Pass a config to
+    :func:`convert_clip_state_dict` to override what is inferred."""
     shapes = {k: tuple(np.shape(v)) for k, v in state.items() if k not in _META_KEYS}
     if "visual.proj" in shapes:
         vision_width = shapes["visual.conv1.weight"][0]
@@ -134,7 +149,7 @@ def sniff_config(state: Mapping[str, Any]) -> CLIPConfig:
             width=vision_width,
             patch_size=patch,
             layers=len([k for k in shapes if k.startswith("visual.") and k.endswith(".attn.in_proj_weight")]),
-            heads=vision_width // 64,
+            heads=vision_heads(vision_width),
         )
     else:
         blocks = tuple(len({k.split(".")[2] for k in shapes if k.startswith(f"visual.layer{b}.")}) for b in (1, 2, 3, 4))

@@ -18,12 +18,16 @@ On the H100 the ideal kernels are bound by the tensor cores (the block does
 ~1500 FLOPs per byte it must move at ViT-B/16 widths).  The TPU kernels'
 single fused bodies needed the whole weight in VMEM, which does not fit in
 227 KB of shared memory, so each CUDA version is a few kernels launched back
-to back; the sources describe the designs.  The forwards write ``LN(x)``
-once per row into a ``[B, L, D]`` scratch of the compute type that the QKV
-product reads (77 MB at batch 256 and the vision shape in bf16, for the
-call's duration); in bf16 every product runs on ``csrc/gemm_sm90.cuh``
+to back; the sources describe the designs.  Heads are 64 wide, or 80 wide
+(ViT-H/14: D = 1,280 in 16 heads) for the whole block in bf16 over rows of
+257-1,024 keys, which ``csrc/attention.cuh``'s streamed route takes at that
+width; any other head width, and 80 on another route, in fp32 or in a head
+shard, is refused with a ``ValueError`` naming the rule.  The forwards write
+``LN(x)`` once per row into a ``[B, L, D]`` scratch of the compute type that
+the QKV product reads (77 MB at batch 256 and the vision shape in bf16, for
+the call's duration); in bf16 every product runs on ``csrc/gemm_sm90.cuh``
 (``ops/gemm_sm90.py`` exposes each alone).  The backward takes rows of up
-to 1024 keys.
+to 1024 keys, and D up to 1,024 (1,280 at heads of 80).
 
 Head-group tensor parallelism (``parallel/tp.py``) runs the same kernels on
 one shard of the heads, as the JAX package's ``_partitioned`` lowering
@@ -46,6 +50,16 @@ the same math with the same rounding points; a CUDA tensor launches the
 kernels or raises.  Both ops are differentiable: the training op saves the
 forward's residuals, and the inference op's backward re-runs the training
 forward and then the training backward, as the JAX package's does.
+
+Every kernel call is a span of ``utils/profiling.py`` while a profiler runs:
+``attn.block_fwd`` (B1), ``attn.block_bwd`` (B2) and ``attn.block_infer``
+(B3), timed on the call's stream, with the attributes ``B``, ``L``, ``D``,
+``heads``, ``head_dim``, ``causal`` and ``route`` (``"register"`` or
+``"stream"``: the bf16 attention route ``csrc/attention.cuh`` takes at that
+length; ``"fp32"``).  Without a profiler a call reads one flag.  Beside the
+launch counters, ``launches_by_head_dim`` counts each op's launches by head
+width (``chip_smoke.py`` holds each of its B1-B3 checks to its width with
+them, and resets them with the other counters).
 """
 
 from __future__ import annotations
@@ -56,12 +70,17 @@ import functools
 import torch
 
 from flyp_tpu_torch.ops import _kernels
+from flyp_tpu_torch.utils import profiling
 
 EPS = 1e-5
 _NEG = -1e30
 _HEAD_DIM = 64
+_WIDE_HEAD_DIM = 80  # csrc/attention.cuh's kWideHeadDim: the streamed route only
+_REG_KEYS = 256  # the longest bf16 row of the register route (kRegKeys)
 _MAX_TRAIN_LEN = 1024  # keys per row the backward kernel takes (its attention passes' limit)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_WIDE_RULE = (f"head_dim {_WIDE_HEAD_DIM} runs only the whole block (no head shard) in bfloat16 over rows of "
+              f"{_REG_KEYS + 1}-{_MAX_TRAIN_LEN} keys, on the streamed route")
 
 
 # ---------------------------------------------------------------------------
@@ -246,16 +265,31 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads):
+def _check_head_dim(kernel, dtype, L, D, Dv, heads, shard):
+    """The head width rule of the kernels (module docstring): ``ValueError``
+    naming it for any other shape."""
+    if D % 128 or Dv > D or heads < 1 or Dv % heads:
+        raise ValueError(f"{kernel} needs D a multiple of 128, Dv <= D and whole heads; got D={D}, Dv={Dv}, "
+                         f"heads={heads}")
+    hd = Dv // heads
+    if hd == _HEAD_DIM:
+        return
+    if hd != _WIDE_HEAD_DIM:
+        raise ValueError(f"{kernel} needs head_dim {_HEAD_DIM} (or {_WIDE_HEAD_DIM}: {_WIDE_RULE}); got head_dim "
+                         f"{Dv / heads:g} (D={D}, Dv={Dv}, heads={heads})")
+    if dtype != torch.bfloat16 or shard or not _REG_KEYS < L <= _MAX_TRAIN_LEN:
+        raise ValueError(f"{kernel}: {_WIDE_RULE}; got {dtype}, L={L}, D={D}, Dv={Dv}, heads={heads}"
+                         + (", a head shard" if shard else ""))
+
+
+def _check_inputs(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, shard=False):
     if x.dim() != 3:
         raise ValueError(f"x must be [B, L, D], got shape {tuple(x.shape)}")
     B, L, D = x.shape
     Dv = qkv_kernel.shape[-1]
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"the attention-block kernel takes float32 or bfloat16, got {x.dtype}")
-    if Dv != heads * _HEAD_DIM or D % 128 or Dv > D:
-        raise ValueError(f"the attention-block kernel needs head_dim 64, D a multiple of 128 and Dv <= D; got "
-                         f"D={D}, Dv={Dv} (qkv_kernel {tuple(qkv_kernel.shape)}), heads={heads}")
+    _check_head_dim("the attention-block kernel", x.dtype, L, D, Dv, heads, shard or Dv != D)
     if B * L == 0:
         raise ValueError("empty input")
     shapes = {
@@ -273,11 +307,21 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _span(name, x, Dv, heads, causal):
+    """The kernel call's span (module docstring); nothing without a profiler."""
+    if not profiling.spans_on():
+        return profiling.span(name)
+    B, L, D = x.shape
+    route = "fp32" if x.dtype == torch.float32 else "register" if L <= _REG_KEYS else "stream"
+    return profiling.span(name, stream_of=x, B=B, L=L, D=D, heads=heads, head_dim=Dv // heads,
+                          causal=bool(causal), route=route)
+
+
 def _fwd_kernel_call(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, causal, train,
                      partial=False):
     """B3 (``train=False``) -> out, or B1 -> (out, o, q, k, v, lse); with
     ``partial`` ``out`` is the fp32 out-projection alone."""
-    _check_inputs(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads)
+    _check_inputs(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out_bias, heads, shard=partial)
     B, L, D = x.shape
     Dv = qkv_kernel.shape[-1]
     dtype = x.dtype
@@ -293,7 +337,7 @@ def _fwd_kernel_call(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out
     lib = _fwd_lib()
     ptrs = [x.data_ptr(), f32[0].data_ptr(), f32[1].data_ptr(), wqkv.data_ptr(), f32[2].data_ptr(),
             wout.data_ptr(), f32[3].data_ptr(), out.data_ptr(), qkv.data_ptr(), o.data_ptr(), y.data_ptr()]
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), _span("attn.block_fwd" if train else "attn.block_infer", x, Dv, heads, causal):
         if Dv != D or partial:
             code = lib.flyp_attention_block_fwd_shard(
                 *ptrs, lse.data_ptr() if train else None, B, L, D, Dv, heads, int(bool(causal)), int(bool(partial)),
@@ -307,8 +351,10 @@ def _fwd_kernel_call(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, out
     _kernels.check(lib, code, "attention-block kernel launch")
     if not train:
         attention_block_inference.launches += 1
+        attention_block_inference.launches_by_head_dim[Dv // heads] += 1
         return out
     attention_block.fwd_launches += 1
+    attention_block.fwd_launches_by_head_dim[Dv // heads] += 1
     return out, o, qkv[0], qkv[1], qkv[2], lse
 
 
@@ -326,10 +372,11 @@ def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v
         raise TypeError(f"the attention-block backward kernel takes g in x's type {dtype}, got {g.dtype}")
     if L > _MAX_TRAIN_LEN:
         raise ValueError(f"the attention-block backward kernel takes L <= {_MAX_TRAIN_LEN}, got L={L}")
-    if Dv != heads * _HEAD_DIM or D % 128 or Dv > D:
-        raise ValueError(f"the attention-block backward kernel needs head_dim 64, D a multiple of 128 and Dv <= D; "
-                         f"got D={D}, Dv={Dv} (qkv_kernel {tuple(qkv_kernel.shape)}), heads={heads}")
     shard = Dv != D or not add_g
+    _check_head_dim("the attention-block backward kernel", dtype, L, D, Dv, heads, shard)
+    if D > 1024 and Dv // heads != _WIDE_HEAD_DIM:
+        raise ValueError(f"the attention-block backward kernel takes D <= 1024 at head_dim {_HEAD_DIM} (D <= 1280 "
+                         f"at head_dim {_WIDE_HEAD_DIM}); got D={D}")
     lib = _bwd_lib()
     if shard:
         nbytes = lib.flyp_attention_block_bwd_shard_workspace(B, L, D, Dv, heads, _DTYPE_CODES[dtype])
@@ -353,7 +400,7 @@ def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v
     ptrs = [*(t.data_ptr() for t in tensors), ln[0].data_ptr(), ln[1].data_ptr(), wqkv.data_ptr(), wout.data_ptr(),
             dx.data_ptr(), dwqkv.data_ptr(), dbqkv.data_ptr(), dln.data_ptr(), dwout.data_ptr(), dbout.data_ptr(),
             workspace.data_ptr()]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _span("attn.block_bwd", x, Dv, heads, causal):
         if shard:
             code = lib.flyp_attention_block_bwd_shard(*ptrs, B, L, D, Dv, heads, int(bool(causal)), int(bool(add_g)),
                                                       _DTYPE_CODES[dtype], _stream(dev))
@@ -362,6 +409,7 @@ def _bwd_kernel_call(g, x, ln_scale, ln_bias, qkv_kernel, out_kernel, o, q, k, v
                                                 _stream(dev))
     _kernels.check(lib, code, "attention-block backward kernel launch")
     attention_block.bwd_launches += 1
+    attention_block.bwd_launches_by_head_dim[Dv // heads] += 1
     return dx, dln[0], dln[1], dwqkv, dbqkv, dwout, dbout
 
 
@@ -528,7 +576,11 @@ def tp_attention_block(x, ln_scale, ln_bias, qkv_kernel, qkv_bias, out_kernel, o
                                    group, train)
 
 
-# Kernel launches since the counts were last reset (one per call on CUDA).
+# Kernel launches since the counts were last reset (one per call on CUDA),
+# and the same by head width.
 attention_block_inference.launches = 0
 attention_block.fwd_launches = 0
 attention_block.bwd_launches = 0
+attention_block_inference.launches_by_head_dim = {_HEAD_DIM: 0, _WIDE_HEAD_DIM: 0}
+attention_block.fwd_launches_by_head_dim = {_HEAD_DIM: 0, _WIDE_HEAD_DIM: 0}
+attention_block.bwd_launches_by_head_dim = {_HEAD_DIM: 0, _WIDE_HEAD_DIM: 0}

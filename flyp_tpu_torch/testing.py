@@ -42,6 +42,8 @@ is at hand.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -235,21 +237,22 @@ def edge_key_qkv(B: int, L: int, H: int, seed: int):
     return q, k, v, rng.standard_normal(shape).astype(np.float32)
 
 
-def edge_key_block_inputs(B: int, L: int, D: int, seed: int):
+def edge_key_block_inputs(B: int, L: int, D: int, seed: int, head_dim: int = 64):
     """numpy float32 inputs of the attention block ``(x, ln_scale, ln_bias,
     qkv_kernel, qkv_bias, out_kernel, out_bias)`` and a cotangent in which,
     in every head, the last row's key carries most of each row's weight:
     row ``L - 1`` of x is a balanced +-1 pattern s (so LN(x) keeps it), LN
-    is the identity, q = bq = 1, and every column of k is ``1.25 (y . s) /
-    D``: 1.25 on row ``L - 1`` (a score of ~10 after the 1/8 scale),
-    ``1.25 N(0, 1/D)`` on the others."""
+    is the identity, q = bq = 1, and every column of k is ``c (y . s) / D``
+    with ``c = 10 / sqrt(head_dim)``: c on row ``L - 1`` (a score of ~10
+    after the ``head_dim ** -0.5`` scale; c = 1.25 at 64), ``c N(0, 1/D)``
+    on the others."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     x = rng.standard_normal((B, L, D)).astype(f32)
     sign = np.repeat(np.array([1.0, -1.0], dtype=f32), D // 2)
     x[:, L - 1] = rng.permutation(sign)
     wqkv = np.zeros((3, D, D), dtype=f32)
-    wqkv[1] = np.repeat(x[0, L - 1][:, None] * (EDGE_SCORE / 8.0) / D, D, axis=1)
+    wqkv[1] = np.repeat(x[0, L - 1][:, None] * (EDGE_SCORE / math.sqrt(head_dim)) / D, D, axis=1)
     wqkv[2] = rng.standard_normal((D, D)) * D ** -0.5
     bqkv = np.zeros((3, D), dtype=f32)
     bqkv[0] = 1.0

@@ -643,6 +643,185 @@ def test_streamed_route_weighs_the_last_key(card, L, causal):
         assert _rel(a, b) < norm, (name, _rel(a, b))
 
 
+# ---------------------------------------------------------------------------
+# Heads of 80 (ViT-H/14's vision tower: D = 1,280 in 16 heads) on the
+# streamed route, and the bits of heads of 64 beside them.
+
+HD80 = 80 ** -0.5
+# (B, L, D, causal): batch 8 over every streamed length, ViT-H/14's batch 256
+# at its 257 keys, and 8 heads (D = 640, the narrowest block whose D is a
+# multiple of 128).
+WIDE_SHAPES = [(8, 257, 1280, False), (8, 320, 1280, True), (8, 577, 1280, False), (8, 1024, 1280, False),
+               (8, 1024, 1280, True), (256, 257, 1280, False), (4, 300, 640, False)]
+
+
+def _wide_counts():
+    return tuple(dict(c) for c in (tab.attention_block_inference.launches_by_head_dim,
+                                   tab.attention_block.fwd_launches_by_head_dim,
+                                   tab.attention_block.bwd_launches_by_head_dim))
+
+
+def _check_block_against_plain(x, params, g, H, causal, b3, b1, b2, scale):
+    """B3, B1 and B2's outputs against their plain versions at the
+    tolerances of test_kernel_matches_plain_on_card and
+    test_training_kernels_match_plain_on_card; lse also against the plain
+    lse of B1's own q and k."""
+    dt = x.dtype
+    elem, norm = TRAIN_TOL["bfloat16"]
+    ln_s, ln_b, wqkv, _, wout, _ = params
+    with torch.no_grad():
+        torch.testing.assert_close(b3.float(), tab.attention_block_inference_reference(x, *params, H, causal).float(),
+                                   atol=2e-2, rtol=2e-2, msg="B3")
+        ref = tab.attention_block_reference(x, *params, H, causal)
+        for name, a, b in zip(("out", "o", "q", "k", "v"), b1, ref):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            torch.testing.assert_close(a.float(), b.float(), atol=elem, rtol=elem, msg=f"B1 {name}")
+        _, o, q, k, v, lse = b1
+        own = torch.logsumexp(tab._scores((q.float() * scale).to(dt), k, H, causal), dim=-1).transpose(1, 2)
+        torch.testing.assert_close(lse, own, atol=1e-4, rtol=0.0, msg="B1 lse (own q, k)")
+        torch.testing.assert_close(lse, ref[5], atol=1e-2, rtol=0.0, msg="B1 lse")
+        ref_b = tab.attention_block_backward_reference(g, x, ln_s, ln_b, wqkv, wout, o, q, k, v, lse, H, causal)
+    dx, *sums = b2
+    torch.testing.assert_close(dx.float(), ref_b[0].float(), atol=elem, rtol=elem, msg="B2 dx")
+    for name, a, b in zip(B2_SUMS, sums, ref_b[1:]):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        assert _rel(a, b) < norm, (name, _rel(a, b))
+    return ref_b
+
+
+def _block_args(B, L, D, seed, card, arrays=None, cot=None):
+    arrays = arrays if arrays is not None else _inputs(B, L, D, seed=seed)
+    x, *params = (torch.from_numpy(a).to(card) for a in arrays)
+    if cot is None:
+        cot = np.random.default_rng(seed).standard_normal((B, L, D)).astype(np.float32)
+    return x.to(torch.bfloat16), params, torch.from_numpy(cot).to(card).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_heads_match_plain_on_card(card, shape):
+    """B3, B1 and B2 at heads of 80 in bf16 against their plain versions: up
+    to 1,024 keys, causal or not, at ViT-H/14's D = 1,280 (B2's LayerNorm
+    rows past 1,024 columns) and batch 256 at its 257 keys; one launch a
+    call, counted under heads of 80."""
+    B, L, D, causal = shape
+    H = D // 80
+    x, params, g = _block_args(B, L, D, L + 7, card)
+    ln_s, ln_b, wqkv, _, wout, _ = params
+    before, counts = _wide_counts(), _counts()[:3]
+    with torch.no_grad():
+        b3 = tab.attention_block_inference(x, *params, H, causal)
+        b1 = tab._fwd_kernel_call(x, *params, H, causal, train=True)
+        b2 = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[1:], H, causal)
+    torch.cuda.synchronize()
+    assert _counts()[:3] == tuple(c + 1 for c in counts)
+    assert _wide_counts() == tuple({64: c[64], 80: c[80] + 1} for c in before)
+    _check_block_against_plain(x, params, g, H, causal, b3, b1, b2, HD80)
+
+
+@pytest.mark.parametrize("L, D", [(257, 1280), (320, 1280), (1024, 1280), (257, 640), (577, 640)])
+def test_wide_heads_over_poisoned_outputs(card, L, D):
+    """B3, B1 and B2 at heads of 80 with every output, workspace and scratch
+    NaN-poisoned and guarded: nothing left unwritten (the plain versions
+    hold every element, dx's and the LayerNorm grads' columns past 1,024
+    among them), nothing written past an end, and a second launch equal bit
+    for bit."""
+    B, H, causal = 2, D // 80, L == 320
+    x, params, g = _block_args(B, L, D, L, card)
+    ln_s, ln_b, wqkv, _, wout, _ = params
+
+    def run():
+        with _PoisonedOutputs() as poison, torch.no_grad():
+            b3 = tab.attention_block_inference(x, *params, H, causal)
+            b1 = tab._fwd_kernel_call(x, *params, H, causal, train=True)
+            b2 = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[1:], H, causal)
+            torch.cuda.synchronize()
+        assert poison.guards_intact(), "a kernel wrote past the end of an output"
+        return b3, b1, b2
+
+    first, second = run(), run()
+    for a, b in zip([first[0], *first[1], *first[2]], [second[0], *second[1], *second[2]]):
+        assert torch.equal(a, b)
+    ref_b = _check_block_against_plain(x, params, g, H, causal, *first, HD80)
+    if D > 1024:  # the LayerNorm rows' columns a lane of 32 would not reach
+        dx, dscale, dbias = first[2][:3]
+        elem = TRAIN_TOL["bfloat16"][0]
+        torch.testing.assert_close(dx[..., 1024:].float(), ref_b[0][..., 1024:].float(), atol=elem, rtol=elem)
+        for a, b in ((dscale, ref_b[1]), (dbias, ref_b[2])):
+            assert _rel(a[1024:], b[1024:]) < TRAIN_TOL["bfloat16"][1]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("L", [257, 321, 577])
+def test_wide_heads_weigh_the_last_key(card, L, causal):
+    """At heads of 80, on inputs where the last key (alone in its 64-key
+    tile) carries most of each row's weight (``testing.edge_key_block_inputs``
+    at ``head_dim=80``), B1-B3 stay within their bounds, and the planted
+    fault of a row sum without the last tile
+    (``testing.forward_without_last_tile``) fails check_attention on the
+    same q, k, v."""
+    from flyp_tpu_torch.testing import edge_key_block_inputs, forward_without_last_tile
+
+    B, D = 2, 640
+    H = D // 80
+    arrays, cot = edge_key_block_inputs(B, L, D, seed=L, head_dim=80)
+    x, params, g = _block_args(B, L, D, L, card, arrays, cot)
+    ln_s, ln_b, wqkv, _, wout, _ = params
+    with torch.no_grad():
+        b3 = tab.attention_block_inference(x, *params, H, causal)
+        b1 = tab._fwd_kernel_call(x, *params, H, causal, train=True)
+        b2 = tab._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[1:], H, causal)
+    _check_block_against_plain(x, params, g, H, causal, b3, b1, b2, HD80)
+    q, k, v = (t.reshape(B, L, H, 80) for t in b1[2:5])
+    ref_o = tfa.flash_attention_reference(q, k, v, causal)
+    last = tfa._probs(q, k, causal)[..., -1]  # each row's weight on the last key
+    assert float((last[:, :, -1:] if causal else last).min()) > 0.95
+    with pytest.raises(AssertionError, match="disagrees"):
+        check_attention("planted fault", forward_without_last_tile(q, k, v, causal), ref_o, ("edge key", L, causal))
+
+
+def _block_digests(tab_module, B, L, D, H, causal, card):
+    """SHA-256 prefixes of B3's, B1's and B2's bf16 outputs on inputs drawn
+    from a CPU generator seeded with L."""
+    import hashlib
+
+    gen = torch.Generator().manual_seed(L)
+    x = torch.randn(B, L, D, generator=gen).to(card).to(torch.bfloat16)
+    params = [1 + 0.1 * torch.randn(D, generator=gen), 0.1 * torch.randn(D, generator=gen),
+              torch.randn(3, D, D, generator=gen) * D ** -0.5, 0.1 * torch.randn(3, D, generator=gen),
+              torch.randn(D, D, generator=gen) * D ** -0.5, 0.1 * torch.randn(D, generator=gen)]
+    params = [p.to(card) for p in params]
+    g = torch.randn(B, L, D, generator=gen).to(card).to(torch.bfloat16)
+    ln_s, ln_b, wqkv, _, wout, _ = params
+    with torch.no_grad():
+        b3 = tab_module.attention_block_inference(x, *params, H, causal)
+        b1 = tab_module._fwd_kernel_call(x, *params, H, causal, train=True)
+        b2 = tab_module._bwd_kernel_call(g, x, ln_s, ln_b, wqkv, wout, *b1[1:], H, causal)
+    out = {}
+    for name, tensors in (("B3", (b3,)), ("B1", b1), ("B2", b2)):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        out[name] = h.hexdigest()[:16]
+    return out
+
+
+# _block_digests as the kernels gave them before the streamed route took a
+# head width (an H100 80GB HBM3): heads of 64 keep their bits.
+HD64_SHAPES = {197: (8, 197, 768, 12, False), 257: (8, 257, 1024, 16, False)}
+HD64_DIGESTS = {
+    197: {"B3": "03073c0a101e9ae9", "B1": "c371e61df3f88889", "B2": "4fa91b101362e4f8"},
+    257: {"B3": "7c49771543dfe86f", "B1": "e11aa1bcd6b5f33f", "B2": "2ae7fd70c508e119"},
+}
+
+
+@pytest.mark.parametrize("L", sorted(HD64_SHAPES))
+def test_head_dim_64_outputs_keep_their_bits(card, L):
+    """B3, B1 and B2 at heads of 64 give the bits they gave before the
+    streamed route took a head width: ViT-B/16's 197 keys (the register
+    route) and ViT-L/14's 257 (the streamed one)."""
+    assert _block_digests(tab, *HD64_SHAPES[L], card) == HD64_DIGESTS[L]
+
+
 def test_attention_kernels_refuse_what_they_do_not_take(card):
     """B5 takes L <= 1024 on the card (ValueError naming the limit); B6
     refuses longer rows with its shape refusal, which the pallas dispatch

@@ -82,7 +82,9 @@ def tiny():
 
 
 def test_model_configs_equal_jax():
-    assert sorted(MODEL_CONFIGS) == sorted(JAX_MODEL_CONFIGS)
+    # The port lists one model the JAX package does not: ViT-H/14, whose
+    # heads of 80 only the port's kernels take.
+    assert sorted(MODEL_CONFIGS) == sorted([*JAX_MODEL_CONFIGS, "ViT-H/14"])
     for name, cfg in JAX_MODEL_CONFIGS.items():
         assert dataclasses.asdict(MODEL_CONFIGS[name]) == dataclasses.asdict(cfg), name
         assert MODEL_CONFIGS[name].vision.is_vit == cfg.vision.is_vit
